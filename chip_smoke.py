@@ -6,14 +6,19 @@
 Phases, in order; any failure exits non-zero before a result is printed:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the path from ``src/repro_torch/kernels/*/csrc``
+2. build every kernel from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, all started together);
 3. TF32 off for the plain references (a float32 matmul or convolution on
    the card must stay float32 to be held against a float32 kernel);
 4. each kernel against its plain PyTorch version on the card: conv2d at the
    five RoShamBo layer shapes for B = 1 and B = 32, ReLU on and off, f32 and
-   bf16; the streamed matmul under UNIQUE and BLOCKS, f32 and bf16;
-5. the main path: ``NullHopExecutor.run_frame`` on the card for a few
+   bf16; the streamed matmul under UNIQUE and BLOCKS, f32 and bf16; flash
+   attention at qwen2.5-3b's heads (16/2, D 128, causal, S 128 and 2048,
+   B 2), h2o-danube's (32/8, D 80, S 4096, window 0 / 1024 / 4096), one
+   non-causal case with Sq != Skv and ragged causal S = 1000 (D 160 and a
+   D 64 window), f32 and bf16 (the bf16 limit scales with each output
+   row's RMS; a ``flash_cases`` line gives each case's error);
+5. the NullHop path: ``NullHopExecutor.run_frame`` on the card for a few
    frames under each policy of the Table I scenario plus the interrupt-
    driven ring, logits held against the port's ``RoShamBoCNN.apply`` (plain
    conv on the card); a Table-I row per policy, with the median per-chunk
@@ -22,9 +27,18 @@ Phases, in order; any failure exits non-zero before a result is printed:
    frame (5 layers + the 5-layer sparsity pass);
 6. the streamed-matmul path: the RoShamBo classifier head of the same
    frames through ``streamed_matmul`` under each policy's partitioning;
-7. each kernel timed at the path's shapes beside its bound, its plain
+7. the LM scoring path: qwen2.5-3b at full width (36 layers, weights from a
+   CUDA generator seeded with 0), ``Model.forward`` / ``Model.loss`` over
+   B 2 x S 2048 tokens with ``use_pallas_attention`` on: exactly 36 flash
+   launches a forward, f32 logits held against the plain-attention forward,
+   bf16 losses and forward wall times of both (an ``lm_score`` line);
+8. the serving path: ``ServingEngine.generate`` on the same model in bf16,
+   4 prompts x 128 tokens, 32 new tokens, greedy, under the kernel-level
+   (interrupt) and the user-level polling policies, twice each: identical
+   tokens across all four (an ``lm_serve`` line);
+9. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call (the yardstick; the port never calls it);
-8. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+10. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 """
 
 from __future__ import annotations
@@ -39,11 +53,36 @@ ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM published peaks (data sheet, 700 W part)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12  # CUDA-core float32: both kernels use f32 FMAs
+FP32_FLOPS = 67e12  # CUDA-core float32 (the conv and matmul work is f32)
+BF16_FLOPS = 989e12  # dense bf16 tensor cores (the flash path's bf16 work)
 
 CONV_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 MATMUL_TOL = {"float32": (2e-4, 2e-3), "bfloat16": (2e-2, 2e-1)}
 LOGIT_TOL = (1e-4, 1e-4)
+# flash, f32: tests/test_kernels.py's rtol = atol = 2e-4. bf16: a fixed
+# 5e-2 would be as large as the outputs of the long-sequence cases (a late
+# row averages thousands of randn values: RMS ~ 0.02), and one RMS for the
+# whole case is too small for the early rows (row 0 is v itself, RMS ~ 1,
+# where p's bf16 rounding moves the sum most). So the bf16 limit scales
+# with each output row: |d| <= 2e-2 |ref| + 0.05 RMS(ref row over D). The
+# ``flash_cases`` line gives each case's max |d| / RMS(row) and its max
+# (|d| - 2e-2 |ref|) / RMS(row), the reading held to 0.05.
+FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, None)}
+FLASH_BF16_ATOL_ROW_RMS = 0.05
+# (B, Sq, Skv, H, Hkv, D, causal, window)
+FLASH_CASES = [(2, 128, 128, 16, 2, 128, True, 0),
+               (2, 2048, 2048, 16, 2, 128, True, 0),
+               (1, 4096, 4096, 32, 8, 80, True, 0),
+               (1, 4096, 4096, 32, 8, 80, True, 1024),
+               (1, 4096, 4096, 32, 8, 80, True, 4096),
+               (2, 200, 333, 8, 2, 64, False, 0),
+               (2, 1000, 1000, 8, 4, 160, True, 0),
+               (1, 1000, 1000, 4, 4, 64, True, 96)]
+# full-width LM logits, flash kernel vs plain attention_unique, both f32 on
+# the card (tests/test_pallas_wiring.py holds the smoke model at atol 1e-3)
+LM_LOGIT_ATOL = 1e-3
+LM_BATCH, LM_SEQ = 2, 2048
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 32
 FRAMES_PER_POLICY = 4  # one warm-up frame + 3 timed (+1 profiled)
 
 
@@ -76,9 +115,10 @@ def time_ms(torch, fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: int,
+             peak_flops: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -93,6 +133,192 @@ def max_err(torch, got, ref, tol) -> float:
         fail(f"kernel disagrees with its plain version: max err "
              f"{float(diff.max())} (rtol {rtol}, atol {atol})")
     return float(diff.max())
+
+
+def device_events(torch, prof) -> list[tuple[str, float, int]]:
+    """(name, ms, count) of the device-side entries of a ``torch.profiler``
+    trace: kernels, copies and fills. A CPU op's own
+    ``self_device_time_total`` repeats the time of the kernels it launched,
+    so summing every entry would count that time twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == cuda]
+
+
+def device_profile(torch, fn, top: int = 6) -> dict:
+    """One ``fn()`` under ``torch.profiler``: its wall time, the device
+    time the trace holds and the costliest device entries."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = device_events(torch, prof)
+    device = sum(t for _, t, _ in ev)
+    return {"wall_ms": wall, "device_ms": device,
+            "device_busy_share": device / wall,
+            "device_launches": sum(n for _, _, n in ev),
+            "top_ms": [[k[:72], t, n] for k, t, n in
+                       sorted(ev, key=lambda e: -e[1])[:top]]}
+
+
+def _cast_weights(params: dict, dtype) -> dict:
+    """The same weights in ``dtype``; norm params stay f32, as the
+    reference keeps them in every dtype."""
+    return {k: (v if k in ("ln1", "ln2", "final_norm")
+                else _cast_weights(v, dtype)) if isinstance(v, dict)
+            else v.to(dtype) for k, v in params.items()}
+
+
+def lm_paths(np, torch, dev, libs, flash_lib):
+    """7. the LM scoring path and 8. the serving path, qwen2.5-3b at full
+    width; each driven with every launch count set to 0 just before it and
+    read just after. Returns the scoring path's flash launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.transfer import TransferPolicy
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    sym = "flash_attention_fwd"
+    cfg = get_config("qwen2.5-3b", dtype="float32")
+    t0 = time.perf_counter()
+    # drawn on the card by a CUDA generator (Philox) seeded with 0: 3.4e9
+    # normal draws on the host's CPU would take minutes
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    seq = rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ + 1), dtype=np.int64)
+    batch = {"tokens": torch.from_numpy(seq[:, :-1]).to(dev),
+             "labels": torch.from_numpy(seq[:, 1:]).to(dev)}
+    flash_m = {dt: build_model(cfg.replace(dtype=dt, use_pallas_attention=True))
+               for dt in ("float32", "bfloat16")}
+    plain_m = {dt: build_model(cfg.replace(dtype=dt))
+               for dt in ("float32", "bfloat16")}
+
+    def flash_run(fn):
+        """One forward through the flash kernel: exactly one launch a
+        layer."""
+        before = flash_lib.launches[sym]
+        out = fn()
+        torch.cuda.synchronize()
+        if flash_lib.launches[sym] - before != cfg.n_layers:
+            fail(f"flash kernel launched {flash_lib.launches[sym] - before} "
+                 f"times in one forward, expected {cfg.n_layers}")
+        return out
+
+    def wall_ms(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    score = {"model": cfg.name, "params": cfg.param_count(),
+             "batch": LM_BATCH, "seq": LM_SEQ, "init_s": init_s}
+    for lib in libs:
+        lib.launches = dict.fromkeys(lib.launches, 0)
+    with torch.no_grad():
+        lf, _ = flash_run(lambda: flash_m["float32"].forward(params, batch))
+        lp, _ = plain_m["float32"].forward(params, batch)
+        torch.cuda.synchronize()
+        want = (LM_BATCH, LM_SEQ, cfg.vocab_padded)
+        if tuple(lf.shape) != want or not bool(torch.isfinite(lf).all()):
+            fail(f"LM logits {tuple(lf.shape)} (want {want}) or not finite")
+        err = float((lf - lp).abs().max())
+        score["f32"] = {"max_abs_err": err, "atol": LM_LOGIT_ATOL,
+                        "logit_absmax": float(lp.abs().max())}
+        if err > LM_LOGIT_ATOL:
+            fail(f"f32 logits, flash vs plain attention: max abs err {err} "
+                 f"> atol {LM_LOGIT_ATOL}")
+        del lf, lp
+        score["f32"]["loss_flash"] = float(flash_run(
+            lambda: flash_m["float32"].loss(params, batch))[0])
+        score["f32"]["loss_plain"] = float(
+            plain_m["float32"].loss(params, batch)[0])
+        params16 = _cast_weights(params, torch.bfloat16)
+        del params
+        torch.cuda.empty_cache()
+        lfl = float(flash_run(lambda: flash_m["bfloat16"].loss(params16,
+                                                               batch))[0])
+        lpl = float(plain_m["bfloat16"].loss(params16, batch)[0])
+        if not (np.isfinite(lfl) and np.isfinite(lpl)):
+            fail(f"bf16 losses not finite: {lfl}, {lpl}")
+        score["bf16"] = {
+            "loss_flash": lfl, "loss_plain": lpl,
+            "forward_ms_flash": wall_ms(lambda: flash_run(
+                lambda: flash_m["bfloat16"].forward(params16, batch))),
+            "forward_ms_plain": wall_ms(
+                lambda: plain_m["bfloat16"].forward(params16, batch)),
+            "profile_flash_forward": device_profile(torch, lambda: flash_run(
+                lambda: flash_m["bfloat16"].forward(params16, batch)))}
+    torch.cuda.synchronize()
+    lm_launches = flash_lib.launches[sym]
+    score["launches"] = {lib.name: dict(lib.launches) for lib in libs}
+    score["forwards_through_flash"] = lm_launches // cfg.n_layers
+    if lm_launches == 0:
+        fail("the LM scoring path never launched the flash kernel")
+    print("lm_score " + json.dumps(score))
+
+    # 8. serving, bf16, the reference's default config (its decode steps
+    # read the KV cache, so they never reach the flash kernel)
+    model = plain_m["bfloat16"]
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           dtype=np.int32)
+    scfg = ServeConfig(max_batch=SERVE_BATCH,
+                       max_seq=SERVE_PROMPT + SERVE_NEW + 8)
+    rows, first = [], None
+    for lib in libs:
+        lib.launches = dict.fromkeys(lib.launches, 0)
+    for name, policy in (("kernel-level", TransferPolicy.kernel_level()),
+                         ("user-level polling",
+                          TransferPolicy.user_level_polling())):
+        eng = ServingEngine(model, params16, scfg, policy=policy)
+        if eng.engine.device.type != "cuda":
+            fail(f"serving engine for {policy.tag} is on {eng.engine.device}")
+        try:
+            for rep in range(2):
+                res = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+                toks = np.stack([r.tokens for r in res])
+                if toks.shape != (SERVE_BATCH, SERVE_NEW) or not (
+                        (toks >= 0) & (toks < cfg.vocab)).all():
+                    fail(f"{policy.tag}: bad tokens {toks}")
+                if first is None:
+                    first = toks
+                elif not np.array_equal(toks, first):
+                    fail(f"{policy.tag} run {rep}: greedy tokens differ "
+                         f"from the first run's")
+                r0 = res[0]
+                rows.append({"policy": policy.tag, "run": rep,
+                             "prefill_ms": r0.prefill_s * 1e3,
+                             "decode_ms": r0.decode_s * 1e3,
+                             "tokens_per_s": SERVE_BATCH * SERVE_NEW
+                             / r0.decode_s,
+                             "tokens_per_s_per_request": r0.tokens_per_s,
+                             "tx_bytes": eng.engine.tx_bytes_total,
+                             "rx_bytes": eng.engine.rx_bytes_total})
+        finally:
+            eng.close()
+    # where a decode step's time goes: one step after a prefill of the
+    # same prompts, under the profiler
+    with torch.no_grad():
+        tok = torch.from_numpy(prompts).to(dev)
+        _, cache = model.prefill(params16, {"tokens": tok}, scfg.max_seq)
+        step = device_profile(torch, lambda: model.decode(
+            params16, tok[:, -1:], cache))
+    print("lm_serve " + json.dumps({
+        "model": cfg.name, "dtype": "bfloat16", "batch": SERVE_BATCH,
+        "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW, "runs": rows,
+        "tokens_head": first[:, :8].tolist(), "profile_decode_step": step,
+        "launches": {lib.name: dict(lib.launches) for lib in libs}}))
+    del params16
+    torch.cuda.empty_cache()
+    return lm_launches
 
 
 def main() -> None:
@@ -120,10 +346,14 @@ def main() -> None:
         block_dims_for, streamed_matmul)
     from repro_torch.kernels.streamed_matmul.ref import matmul_ref
 
+    from repro_torch.kernels.flash_attention.kernel import FLASH
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+
     t0 = time.perf_counter()
-    build_all([CONV2D, MATMUL])
+    build_all([CONV2D, MATMUL, FLASH])
     print(f"build: {time.perf_counter() - t0:.2f} s")
-    for lib in (CONV2D, MATMUL):
+    for lib in (CONV2D, MATMUL, FLASH):
         for line in lib.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {lib.name}: {line.strip()}")
@@ -150,7 +380,7 @@ def main() -> None:
     # 4. kernels against their plain versions
     # max |kernel - plain| per kernel and dtype
     errs = {(kern, dt): 0.0 for kern in ("conv2d", "matmul_blocks",
-                                         "matmul_unique")
+                                         "matmul_unique", "flash_attention")
             for dt in ("float32", "bfloat16")}
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[1]
@@ -183,12 +413,47 @@ def main() -> None:
                 got = matmul_unique(x, w)
                 errs["matmul_unique", dt] = max(errs["matmul_unique", dt],
                                                 max_err(torch, got, ref, tol))
+    flash_cases, flash_bad = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        for case in FLASH_CASES:
+            b, sq, skv, h, hkv, d, causal, window = case
+            q = torch.randn((b, sq, h, d), generator=gen).to(dev, dtype)
+            k = torch.randn((b, skv, hkv, d), generator=gen).to(dev, dtype)
+            v = torch.randn((b, skv, hkv, d), generator=gen).to(dev, dtype)
+            got = flash_attention(q, k, v, causal=causal,
+                                  window=window).float()
+            ref = flash_attention_plain(q, k, v, causal=causal,
+                                        window=window).float()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"flash {dt} {case}: output is not finite")
+            diff = (got - ref).abs()
+            row_rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+            rtol, atol = FLASH_TOL[dt]
+            if atol is None:
+                atol = FLASH_BF16_ATOL_ROW_RMS * row_rms
+            if bool((diff > atol + rtol * ref.abs()).any()):
+                flash_bad.append((dt, case))
+            err = float(diff.max())
+            errs["flash_attention", dt] = max(errs["flash_attention", dt],
+                                              err)
+            flash_cases.append({
+                "dtype": dt, "case": list(case), "max_abs_err": err,
+                "max_err_over_row_rms": float((diff / row_rms).max()),
+                "max_excess_over_row_rms": float(
+                    ((diff - rtol * ref.abs()) / row_rms).max())})
     torch.cuda.synchronize()
+    print("flash_cases " + json.dumps(flash_cases))
+    if flash_bad:
+        fail(f"flash kernel disagrees with its plain version in {flash_bad} "
+             f"(tol {FLASH_TOL}, bf16 atol {FLASH_BF16_ATOL_ROW_RMS} x the "
+             f"row's RMS)")
     print(f"kernels vs plain: max abs err "
           f"{ {f'{k}/{d}': e for (k, d), e in errs.items()} } "
-          f"(conv tol {CONV_TOL}, matmul tol {MATMUL_TOL})")
+          f"(conv tol {CONV_TOL}, matmul tol {MATMUL_TOL}, "
+          f"flash tol {FLASH_TOL})")
 
-    # 5. the main path
+    # 5. the NullHop path
     policies = [
         ("user-level polling", TransferPolicy.user_level_polling()),
         ("user-level drv scheduled", TransferPolicy.user_level_scheduled()),
@@ -206,7 +471,7 @@ def main() -> None:
               for f in frames]
     rows, logits_seen = [], []
     n_frames = 0
-    for lib in (CONV2D, MATMUL):
+    for lib in (CONV2D, MATMUL, FLASH):
         lib.launches = dict.fromkeys(lib.launches, 0)
     for name, policy in policies:
         ex = NullHopExecutor(cnn, policy)
@@ -249,8 +514,7 @@ def main() -> None:
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 run_checked(1)
                 torch.cuda.synchronize()
-            device_ms = sum(getattr(e, "self_device_time_total", 0.0)
-                            for e in prof.key_averages()) / 1e3
+            device_ms = sum(t for _, t, _ in device_events(torch, prof))
         finally:
             ex.close()
         chunk_us = {d: sorted(dt * 1e6 for dd, _m, _n, dt in samples
@@ -292,7 +556,8 @@ def main() -> None:
             x = cnn.layer_apply(spec, params[spec.name], x,
                                 conv=conv2d_relu_ref)
         feats.append(x.reshape(1, -1).contiguous())
-    MATMUL.launches = dict.fromkeys(MATMUL.launches, 0)
+    for lib in (CONV2D, MATMUL, FLASH):
+        lib.launches = dict.fromkeys(lib.launches, 0)
     for (policy, _f, logits), feat in zip(logits_seen, feats):
         head = streamed_matmul(feat, params["fc"]["w"], policy) + params["fc"]["b"]
         np.testing.assert_allclose(head.cpu().numpy(), logits,
@@ -302,7 +567,11 @@ def main() -> None:
         fail(f"streamed-matmul path skipped a kernel: {mm_launches}")
     print(f"streamed-matmul path: {len(feats)} heads, launches {mm_launches}")
 
-    # 7. timing at the path's shapes (B = 1 frame)
+    # 7. the LM scoring path, 8. the serving path
+    lm_launches = lm_paths(np, torch, dev, (CONV2D, MATMUL, FLASH),
+                           FLASH)
+
+    # 9. timing at the paths' shapes (B = 1 frame for conv and matmul)
     conv_in = []
     for h, w, cin, cout in layer_shapes:
         conv_in.append((
@@ -367,6 +636,37 @@ def main() -> None:
             "ms": mm[sym], "plain_ms": mm_plain, "bound_ms": mm_bound,
             "bound_by": mm_by, "library_ms": mm_lib,
         })
+    # flash at the LM path's shape: qwen2.5-3b heads, B 2, S 2048, causal,
+    # bf16 (the f32 kernel's time at the same shape beside it)
+    b, s_, h, hkv, d = LM_BATCH, LM_SEQ, 16, 2, 128
+    fq = torch.randn((b, s_, h, d), generator=gen).to(dev, torch.bfloat16)
+    fk = torch.randn((b, s_, hkv, d), generator=gen).to(dev, torch.bfloat16)
+    fv = torch.randn((b, s_, hkv, d), generator=gen).to(dev, torch.bfloat16)
+    fl_ms = time_ms(torch, lambda: flash_attention(fq, fk, fv), iters=20)
+    fl_plain = time_ms(torch, lambda: flash_attention_plain(fq, fk, fv),
+                       iters=20)
+    qt, kt, vt = (t.transpose(1, 2) for t in (fq, fk, fv))
+    fl_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    fq32, fk32, fv32 = fq.float(), fk.float(), fv.float()
+    fl_ms32 = time_ms(torch, lambda: flash_attention(fq32, fk32, fv32),
+                      iters=20)
+    # causal: the (q, k) pairs this run visits, S (S + 1) / 2 per head, two
+    # products of 2 D FLOPs each; q, k, v read and o written once
+    fl_flops = 4 * b * h * d * s_ * (s_ + 1) // 2
+    fl_bytes = (2 * b * s_ * h * d + 2 * b * s_ * hkv * d) * 2
+    fl_bound, fl_by = bound_ms(fl_bytes, fl_flops, BF16_FLOPS)
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:115",
+        "launches": lm_launches,
+        "max_abs_err": errs["flash_attention", "float32"],
+        "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
+        "ms": fl_ms, "ms_f32": fl_ms32, "plain_ms": fl_plain,
+        "bound_ms": fl_bound, "bound_by": fl_by, "library_ms": fl_lib,
+    })
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(card)

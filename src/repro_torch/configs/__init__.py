@@ -1,1 +1,3 @@
-"""Per-model configurations of the port."""
+"""Per-model configurations of the port, and the arch registry."""
+
+from repro_torch.configs.registry import ARCHS, get_config, list_archs  # noqa: F401

@@ -8,8 +8,8 @@ transfer submission can set, through every layer of the stack::
 
 Before this module the knobs were scattered: ``priority=`` on the eight
 engine submit methods, ``class_caps=`` / ``rx_timeout_s=`` / ``rx_group=``
-on :class:`~repro.serve.engine.ServeConfig` and
-:class:`~repro.serve.continuous.ContinuousBatchingEngine`. Those kwargs
+on :class:`~repro_torch.serve.engine.ServeConfig` and on the continuous
+batching engine (``serve/continuous.py``, not ported yet). Those kwargs
 still work for one release of compat, but they are deprecation shims:
 each builds a ``QosSpec`` internally and emits a ``DeprecationWarning``
 (see :func:`resolve_submit_qos`). The arbitration they produce is

@@ -88,6 +88,7 @@ from repro_torch.core.runtime import (
     get_runtime,
 )
 from repro_torch.core.qos import QosSpec, resolve_submit_qos
+from repro_torch.device import default_device
 
 __all__ = [  # re-exports: the fault taxonomy lives in runtime (no cycle)
     "Management", "Buffering", "Partitioning", "TransferPolicy",
@@ -282,19 +283,6 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
-
-
-def _default_device(device: "torch.device | str | None") -> torch.device:
-    """The engine's device: the caller's, else the current CUDA card. With
-    no card and no explicit device this raises — the port never falls back
-    to the CPU on its own."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "TransferEngine needs a CUDA device; pass device='cpu' to run "
-            "the transfer path on the host")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _host_tensor(a: np.ndarray) -> torch.Tensor:
@@ -848,7 +836,7 @@ class TransferEngine:
                  priority: PriorityClass = PriorityClass.LAYER,
                  qos: QosSpec | None = None):
         self.policy = policy
-        self.device = _default_device(device)
+        self.device = default_device(device)
         # the card's two copy engines: host->device and device->host each
         # get a stream of their own, so TX and RX overlap each other and
         # the caller's compute stream

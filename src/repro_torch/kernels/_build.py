@@ -123,3 +123,4 @@ def build_all(libraries: list[CudaLibrary]) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong

@@ -21,12 +21,23 @@
 // tiles (wgmma) and a TMA-fed pipeline are later work.
 //
 // UNIQUE. The TPU version was one grid step with both whole operands
-// resident in VMEM. Its counterpart here is one block with both whole
-// operands resident in that block's shared memory — the largest on-chip
-// residency one SM offers (232,448 bytes after opt-in). The wrapper refuses
-// (ValueError) operands that do not fit, as the TPU version refused those
-// over its VMEM budget. One SM does all the work, so UNIQUE is bounded by a
-// single SM's FMA rate: it is the "send everything at once" policy point,
+// resident in VMEM, and its wrapper accepted any operands within a 96 MiB
+// budget, (M*K + K*N + M*N) * itemsize. The port takes the same budget and
+// the same ValueError above it (kernel.py), so both accept the same shapes.
+// "One residency, no K-streamed partition" maps to two launches here,
+// chosen by the operands' size:
+// - operands that fit one block's shared memory (232,448 bytes after
+//   opt-in) go to ONE block holding both whole operands (matmul_unique_kernel);
+// - larger operands go to a grid of 64 x 64 output tiles in which each block
+//   runs the whole K extent straight from device memory (through L1/L2),
+//   with no staged K ring in shared memory (matmul_unique_grid_kernel).
+// The grid alone would do for every shape, but at the classifier head's
+// [1, 2048] @ [2048, 4] only four of its threads work, each waiting on
+// 2,048 loads in turn: 0.236 ms there against the single block's 0.064 ms
+// (chip_smoke.py's timings, both in one call on an H100 80GB HBM3 at
+// 700 W; PERF.md). The single block is
+// bounded by one SM's FMA rate and the grid by the card's 67 TFLOP/s f32
+// CUDA-core rate; UNIQUE is the "send everything at once" policy point,
 // kept for the paper's comparison, not a fast path.
 
 #include <cuda_runtime.h>
@@ -117,6 +128,50 @@ matmul_unique_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// Each of 256 threads owns a 4 x 4 block of a 64 x 64 output tile (rows
+// ty + 16 i, columns tx + 16 j) and walks the whole K extent reading x and w
+// from device memory; neighbouring threads read neighbouring columns of w.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+matmul_unique_grid_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                          T* __restrict__ y, int M, int N, int K) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+  for (int kk = 0; kk < K; ++kk) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gm = m0 + ty + 16 * i;
+      a[i] = gm < M ? to_f32(x[static_cast<long long>(gm) * K + kk]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      b[j] = gn < N ? to_f32(w[static_cast<long long>(kk) * N + gn]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gn < N) from_f32(acc[i][j], &y[static_cast<long long>(gm) * N + gn]);
+    }
+  }
+}
+
 template <typename T, int BM, int BN, int BK>
 int launch_blocks(const void* x, const void* w, void* y, int M, int N, int K,
                   cudaStream_t s) {
@@ -137,10 +192,18 @@ int dispatch_blocks(const void* x, const void* w, void* y, int M, int N, int K,
   }
 }
 
+constexpr size_t kSmemPerBlock = 232448;  // an H100 block's opt-in maximum
+
 template <typename T>
 int launch_unique(const void* x, const void* w, void* y, int M, int N, int K,
                   cudaStream_t s) {
   const size_t smem = (static_cast<size_t>(M) * K + static_cast<size_t>(K) * N) * sizeof(T);
+  if (smem > kSmemPerBlock) {
+    dim3 grid((N + 63) / 64, (M + 63) / 64);
+    matmul_unique_grid_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), M, N, K);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t e = cudaFuncSetAttribute(matmul_unique_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));

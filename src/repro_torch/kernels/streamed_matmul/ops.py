@@ -1,8 +1,8 @@
 """Public wrapper: policy-aware streamed matmul.
 
 Selects UNIQUE vs BLOCKS from the TransferPolicy (the same object that
-drives host staging), enforcing the shared-memory residency budget for
-UNIQUE (``matmul_unique`` raises ``ValueError`` over it) and deriving
+drives host staging), enforcing the reference's 96 MiB budget for UNIQUE
+(``matmul_unique`` raises ``ValueError`` over it) and deriving
 BLOCKS tiles from ``policy.block_bytes``.
 """
 

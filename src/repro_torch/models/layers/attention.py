@@ -1,0 +1,339 @@
+"""Attention: GQA + RoPE + sliding window + KV cache + blocks-mode chunking.
+
+The paper's Unique/Blocks partitioning shows up here as ``kv_chunk``: full
+(unique) attention materialises the [S_q, S_kv] score block; blocks-mode
+streams the KV sequence in chunks with an online-softmax accumulator
+(flash-attention structure) so the working set is O(S_q x chunk). The
+hand-written kernel in ``repro_torch.kernels.flash_attention`` runs the same
+schedule on the card; ``attn_apply`` sends self-attention there under the
+reference's exact conditions (``use_pallas`` on, no cache, self-attention).
+
+Scores are taken in float32 (the reference's
+``preferred_element_type=float32``: the operands are cast up first, so bf16
+products are exact) and probabilities are cast to q's type before the PV
+product, in every path.
+
+The KV cache is updated IN PLACE (``_cache_write``): the reference donates
+its cache and gets an updated copy back; here the returned cache holds the
+same tensors as the one passed in. A cache ``length`` is a Python int when
+every slot holds the same number of tokens (the host knows it, so slicing
+at it needs no device sync), a 0-d tensor, or a [B] int tensor of per-slot
+lengths (continuous batching)."""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers.rope import apply_rope
+
+NEG_INF = -2.0**30  # large-but-finite; avoids NaN from (-inf) - (-inf)
+_INV_LN2 = 1.4426950408889634
+
+Length = Union[int, torch.Tensor]
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _is_scalar(x) -> bool:
+    return not isinstance(x, torch.Tensor) or x.dim() == 0
+
+
+def _cache_write(dst: torch.Tensor, new: torch.Tensor,
+                 length: Length) -> torch.Tensor:
+    """Write ``new`` [B, s, Hkv, Dh] into ``dst`` [B, S_max, Hkv, Dh] at
+    position ``length`` (scalar, or [B] per-slot lengths), in place; returns
+    ``dst``. A scalar start is clamped so the write fits, as
+    ``dynamic_update_slice`` clamps it."""
+    new = new.to(dst.dtype)
+    s = new.shape[1]
+    if isinstance(length, int):
+        start = min(max(length, 0), dst.shape[1] - s)
+        dst[:, start:start + s] = new
+        return dst
+    length = length.to(dst.device)
+    steps = torch.arange(s, device=dst.device)
+    if length.dim() == 0:
+        start = length.clamp(0, dst.shape[1] - s)
+        dst.index_copy_(1, start + steps, new)
+        return dst
+    rows = torch.arange(new.shape[0], device=dst.device)[:, None]  # [B,1]
+    cols = length[:, None] + steps[None, :]  # [B,s]
+    dst[rows, cols] = new
+    return dst
+
+
+class KVCache(NamedTuple):
+    """Preallocated decode cache for one layer (or, stacked, for all).
+
+    k, v: [(L,) B, S_max, Hkv, Dh]; length: tokens already cached (see the
+    module docstring)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: Length
+
+    @staticmethod
+    def zeros(batch: int, s_max: int, n_kv: int, dh: int,
+              dtype: torch.dtype, device=None) -> "KVCache":
+        shape = (batch, s_max, n_kv, dh)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, Hkv, Dh] -> [B, S, Hkv*n_rep, Dh]."""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def _all_scalar(*xs) -> bool:
+    return all(x is None or _is_scalar(x) for x in xs)
+
+
+def _as_vec(x):
+    """Scalar or [B] -> broadcastable against [B?,s_q,s_kv]. A Python int
+    stays an int: adding it to a device tensor needs no host-to-device copy
+    (a copy from pageable memory would wait for the device each layer)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1, 1, 1)
+    return x
+
+
+def _ok_mask(s_q: int, s_kv: int, q_offset, *, causal: bool, window: int,
+             kv_start=0, kv_valid=None, device=None) -> torch.Tensor:
+    """Bool mask [B?, s_q, s_kv]; q_offset / kv_valid may be scalars or [B]
+    (per-slot cache lengths — continuous batching)."""
+    qpos = (torch.arange(s_q, device=device)[None, :, None]
+            + _as_vec(q_offset))  # [B?,sq,1]
+    kpos = (torch.arange(s_kv, device=device)[None, None, :]
+            + _as_vec(kv_start))  # [B?,1,skv]
+    ok = torch.ones((1, s_q, s_kv), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & (qpos - kpos < window)
+    if kv_valid is not None:
+        ok = ok & (kpos < _as_vec(kv_valid))
+    return ok
+
+
+def _mask_bias(s_q: int, s_kv: int, q_offset, *, causal: bool, window: int,
+               kv_start=0, device=None) -> torch.Tensor:
+    """[s_q, s_kv] additive f32 bias (scalar-offset fast path)."""
+    ok = _ok_mask(s_q, s_kv, q_offset, causal=causal, window=window,
+                  kv_start=kv_start, device=device)[0]
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def attention_unique(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int = 0,
+                     q_offset: Length = 0, kv_valid: Length | None = None,
+                     kv_offset: Length = 0) -> torch.Tensor:
+    """Unique-mode attention: one [S_q, S_kv] score block.
+
+    q: [B, S_q, H, Dh]; k, v: [B, S_kv, Hkv, Dh] (Hkv divides H).
+    kv_valid: kv positions >= kv_valid are masked (cache)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    dev = q.device
+    k = repeat_kv(k, h // hkv)
+    v = repeat_kv(v, h // hkv)
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if _all_scalar(q_offset, kv_offset, kv_valid):
+        bias = _mask_bias(sq, k.shape[1], q_offset, causal=causal,
+                          window=window, kv_start=kv_offset, device=dev)
+        scores = scores * scale + bias
+        if kv_valid is not None:
+            kpos_v = torch.arange(k.shape[1], device=dev) + kv_offset
+            scores = torch.where(kpos_v[None, None, None, :] < kv_valid,
+                                 scores, NEG_INF)
+    else:
+        ok = _ok_mask(sq, k.shape[1], q_offset, causal=causal, window=window,
+                      kv_start=kv_offset, kv_valid=kv_valid, device=dev)
+        scores = torch.where(ok[:, None], scores * scale, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int = 0,
+                     q_offset: Length = 0, kv_valid: Length | None = None,
+                     kv_chunk: int = 1024,
+                     kv_offset: Length = 0) -> torch.Tensor:
+    """Blocks-mode attention: stream KV in chunks with online softmax.
+
+    Same semantics as :func:`attention_unique`; working set O(S_q * kv_chunk).
+    This is the paper's BLOCKS partitioning applied to the KV stream."""
+    b, sq, h, dh = q.shape
+    s_kv = k.shape[1]
+    hkv = k.shape[2]
+    dev = q.device
+    if s_kv % kv_chunk:
+        # pad kv to a chunk multiple; padded tail masked via kv_valid
+        pad = kv_chunk - s_kv % kv_chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_valid = s_kv if kv_valid is None else kv_valid
+        s_kv = k.shape[1]
+    n_chunks = s_kv // kv_chunk
+    scale = 1.0 / math.sqrt(dh)
+    n_rep = h // hkv
+    qf = q.float()
+
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=dev)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        sl = slice(ci * kv_chunk, (ci + 1) * kv_chunk)
+        kcb = repeat_kv(k[:, sl], n_rep)
+        vcb = repeat_kv(v[:, sl], n_rep)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kcb.float()) * scale
+        if _all_scalar(q_offset, kv_offset) and kv_valid is None:
+            s = s + _mask_bias(sq, kv_chunk, q_offset, causal=causal,
+                               window=window,
+                               kv_start=ci * kv_chunk + kv_offset, device=dev)
+        else:
+            ok = _ok_mask(sq, kv_chunk, q_offset, causal=causal,
+                          window=window, kv_start=ci * kv_chunk + kv_offset,
+                          kv_valid=kv_valid, device=dev)
+            s = torch.where(ok[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * _INV_LN2)
+        p = torch.exp2((s - m_new[..., None]) * _INV_LN2)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype).float(), vcb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # [B, Sq, H, Dh]
+
+
+def attention(q, k, v, *, causal=True, window=0, q_offset=0, kv_valid=None,
+              kv_chunk: int = 1024, blocks_threshold: int = 4096,
+              kv_offset: Length = 0) -> torch.Tensor:
+    """Policy dispatch: Unique mode below the threshold, Blocks above.
+
+    kv_offset: absolute position of k[:, 0] (nonzero when the cache read was
+    sliced, e.g. sliding-window decode)."""
+    if k.shape[1] <= blocks_threshold:
+        return attention_unique(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, kv_valid=kv_valid,
+                                kv_offset=kv_offset)
+    return attention_blocks(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_valid=kv_valid,
+                            kv_chunk=kv_chunk, kv_offset=kv_offset)
+
+
+# ---------------------------------------------------------------------------
+# Full attention block (params + apply)
+# ---------------------------------------------------------------------------
+
+def attn_params(generator: torch.Generator, d_model: int, n_heads: int,
+                n_kv: int, head_dim: int, *, bias: bool, dtype: torch.dtype,
+                device=None) -> dict:
+    """Normal projections with the reference's scales (drawn on the
+    generator's device), zero biases."""
+    sd = 1.0 / math.sqrt(d_model)
+    g_dev = generator.device
+
+    def draw(shape, scale):
+        w = torch.randn(shape, generator=generator, device=g_dev) * scale
+        return w.to(device, dtype)
+
+    p = {
+        "wq": draw((d_model, n_heads * head_dim), sd),
+        "wk": draw((d_model, n_kv * head_dim), sd),
+        "wv": draw((d_model, n_kv * head_dim), sd),
+        "wo": draw((n_heads * head_dim, d_model), sd / math.sqrt(2.0)),
+    }
+    if bias:
+        for name, width in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
+            p[name] = torch.zeros((width * head_dim,), dtype=dtype,
+                                  device=device)
+    return p
+
+
+def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
+               head_dim: int, rope_theta: float, window: int = 0,
+               kv_chunk: int = 1024, blocks_threshold: int = 4096,
+               use_pallas: bool = False, pallas_interpret: bool = False,
+               cache: KVCache | None = None,
+               positions: torch.Tensor | None = None,
+               xk: torch.Tensor | None = None,
+               causal: bool = True) -> tuple[torch.Tensor, KVCache | None]:
+    """Self- (xk=None) or cross- (xk=encoder output) attention.
+
+    With a cache: writes this call's K/V at cache.length (in place) and
+    attends over the valid prefix (decode path). positions: [S] absolute
+    positions for RoPE (defaults to arange, offset by cache.length when
+    decoding). ``use_pallas`` sends self-attention without a cache to the
+    flash kernel; ``pallas_interpret`` is accepted and means nothing here."""
+    b, s, _ = x.shape
+    src = x if xk is None else xk
+    dev = x.device
+    q = (x @ p["wq"] + p.get("bq", 0)).reshape(b, s, n_heads, head_dim)
+    k = (src @ p["wk"] + p.get("bk", 0)).reshape(b, src.shape[1], n_kv,
+                                                 head_dim)
+    v = (src @ p["wv"] + p.get("bv", 0)).reshape(b, src.shape[1], n_kv,
+                                                 head_dim)
+
+    offset = cache.length if cache is not None else 0
+    if positions is None:
+        steps = torch.arange(s, device=dev)
+        positions = (steps[None] + offset.to(dev).reshape(-1, 1)
+                     if not _is_scalar(offset) else steps + offset)
+    if rope_theta > 0 and xk is None:  # no rope on cross-attention
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions if k.shape[1] == s
+                       else torch.arange(src.shape[1], device=dev),
+                       rope_theta)
+
+    if (use_pallas and cache is None and xk is None
+            and q.shape[1] == src.shape[1]):
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        return out.reshape(b, s, n_heads * head_dim) @ p["wo"], None
+
+    new_cache = None
+    if cache is not None and xk is None:
+        ck = _cache_write(cache.k, k, cache.length)
+        cv = _cache_write(cache.v, v, cache.length)
+        new_cache = KVCache(ck, cv, cache.length + s)
+        k, v = ck, cv
+        kv_off: Length = 0
+        if window > 0 and ck.shape[1] > 2 * window and _is_scalar(cache.length):
+            # sliding-window decode only ever attends the last `window`
+            # positions: slice the cache read. An int length slices on the
+            # host; a tensor length gathers on the device (no sync).
+            w_eff = min(_round_up(window + s, 128), ck.shape[1])
+            hi = ck.shape[1] - w_eff
+            if isinstance(cache.length, int):
+                start = min(max(cache.length + s - w_eff, 0), hi)
+                k, v = ck[:, start:start + w_eff], cv[:, start:start + w_eff]
+            else:
+                start = (cache.length + s - w_eff).clamp(0, hi)
+                idx = start + torch.arange(w_eff, device=dev)
+                k, v = ck.index_select(1, idx), cv.index_select(1, idx)
+            kv_off = start
+        out = attention(q, k, v, causal=causal, window=window, q_offset=offset,
+                        kv_valid=cache.length + s, kv_chunk=kv_chunk,
+                        blocks_threshold=blocks_threshold, kv_offset=kv_off)
+    elif cache is not None:  # cross-attn with precomputed encoder cache
+        out = attention(q, cache.k, cache.v, causal=False,
+                        kv_valid=cache.length, kv_chunk=kv_chunk,
+                        blocks_threshold=blocks_threshold)
+        new_cache = cache
+    else:
+        out = attention(q, k, v, causal=causal, window=window,
+                        kv_chunk=kv_chunk, blocks_threshold=blocks_threshold)
+    return out.reshape(b, s, n_heads * head_dim) @ p["wo"], new_cache

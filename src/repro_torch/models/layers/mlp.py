@@ -1,0 +1,30 @@
+"""Feed-forward blocks: gated SiLU (llama-style) and GELU (classic)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def mlp_params(generator: torch.Generator, d_model: int, d_ff: int,
+               kind: str, dtype: torch.dtype, device=None) -> dict:
+    """``wi`` [D, 2F] (gated: ``[gate | up]``) or [D, F], ``wo`` [F, D],
+    normal with the reference's scales, drawn on the generator's device."""
+    width = 2 * d_ff if kind == "gated_silu" else d_ff
+    g_dev = generator.device
+    wi = torch.randn((d_model, width), generator=generator, device=g_dev)
+    wo = torch.randn((d_ff, d_model), generator=generator, device=g_dev)
+    return {"wi": (wi / math.sqrt(d_model)).to(device, dtype),
+            "wo": (wo / math.sqrt(2.0 * d_ff)).to(device, dtype)}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    h = x @ p["wi"]
+    if kind == "gated_silu":
+        gate, up = h.chunk(2, dim=-1)
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["wo"]

@@ -1,0 +1,254 @@
+"""Decoder-only LM, dense family.
+
+Params keep the reference's pytree layout: a dict of tensors whose
+``blocks`` subtree is stacked over layers (leading [L] axis), so the port's
+params and the reference's ``init_params`` carry over one to one
+(:func:`params_from_jax`). The reference scans the stack with
+``lax.scan``; here a Python loop indexes ``blocks[key][i]`` (a view, no
+copy) layer by layer. The skeleton is
+
+    x -> [ block_0 ... block_{L-1} ] -> final_norm -> lm_head
+
+with block = (norm -> attention -> residual -> norm -> MLP -> residual).
+The moe and ssm families are ROADMAP slice 4 and raise here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import default_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers.attention import KVCache, attn_apply, attn_params
+from repro_torch.models.layers.mlp import mlp_apply, mlp_params
+from repro_torch.models.layers.norm import apply_norm, norm_params
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.family!r} blocks are not ported yet: ROADMAP Queue 1, "
+            f"slice 4 (items 12-15); the port runs the dense family")
+
+
+def make_remat(cfg: ModelConfig) -> Callable:
+    """No-op: this slice runs forward only (training is ROADMAP slice 5)."""
+    return lambda f: f
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_block_params(generator: torch.Generator, cfg: ModelConfig,
+                      device=None) -> dict:
+    """Params for ONE block (``init_params`` stacks them)."""
+    _check_family(cfg)
+    dt = _dtype(cfg)
+    return {
+        "ln1": norm_params(cfg.norm, cfg.d_model, device),
+        "attn": attn_params(generator, cfg.d_model, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.head_dim_, bias=cfg.qkv_bias,
+                            dtype=dt, device=device),
+        "ln2": norm_params(cfg.norm, cfg.d_model, device),
+        "mlp": mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.mlp, dt,
+                          device),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random params with the reference's shapes, dtypes and scales, drawn
+    from ``generator`` on its own device (so the values do not depend on
+    ``device``), one block at a time into the stacked [L, ...] tensors."""
+    _check_family(cfg)
+    device = default_device(device)
+    dt = _dtype(cfg)
+    g_dev = generator.device
+    sd = 1.0 / math.sqrt(cfg.d_model)
+
+    def draw(shape):
+        w = torch.randn(shape, generator=generator, device=g_dev) * sd
+        return w.to(device, dt)
+
+    params: dict = {"embed": draw((cfg.vocab_padded, cfg.d_model))}
+    blocks = None
+    for i in range(cfg.n_layers):
+        bp = init_block_params(generator, cfg, device)
+        if blocks is None:
+            blocks = tree_map(lambda t: torch.empty(
+                (cfg.n_layers, *t.shape), dtype=t.dtype, device=device), bp)
+        _copy_into(blocks, bp, i)
+    params["blocks"] = blocks
+    params["final_norm"] = norm_params(cfg.norm, cfg.d_model, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = draw((cfg.d_model, cfg.vocab_padded))
+    return params
+
+
+def _copy_into(stacked: dict, one: dict, i: int) -> None:
+    for k, v in one.items():
+        if isinstance(v, dict):
+            _copy_into(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: no numpy twin
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_jax(params_np: dict, device: "torch.device | str") -> dict:
+    """The reference's ``init_params`` pytree, given as numpy arrays, as the
+    port's params dict: same keys, same [L, ...]-stacked layouts, same
+    values."""
+    return tree_map(lambda a: _to_tensor(a, device), params_np)
+
+
+# ---------------------------------------------------------------------------
+# one block
+# ---------------------------------------------------------------------------
+
+def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                cache: KVCache | None = None, positions=None):
+    """Returns (x, new_cache, aux_loss); a dense block has no auxiliary
+    loss, so the last is 0.0."""
+    h, new_cache = attn_apply(
+        p["attn"], apply_norm(cfg.norm, p["ln1"], x),
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+        rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+        kv_chunk=cfg.attn_kv_chunk, blocks_threshold=cfg.attn_blocks_threshold,
+        use_pallas=cfg.use_pallas_attention,
+        pallas_interpret=cfg.pallas_interpret,
+        cache=cache, positions=positions)
+    x = x + h
+    h2 = mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp)
+    return x + h2, new_cache, 0.0
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _layer(blocks: dict, i: int) -> dict:
+    return tree_map(lambda t: t[i], blocks)
+
+
+def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                caches: KVCache | None, positions):
+    """Run the blocks in order over the stacked [L, ...] params (and the
+    stacked cache, whose tensors each layer updates in place)."""
+    _check_family(cfg)
+    blocks = params["blocks"]
+    aux = 0.0
+    length = caches.length if caches is not None else None
+    for i in range(cfg.n_layers):
+        lc = (KVCache(caches.k[i], caches.v[i], caches.length)
+              if caches is not None else None)
+        x, nc, a = block_apply(cfg, _layer(blocks, i), x, cache=lc,
+                               positions=positions)
+        aux += a
+        if nc is not None:
+            length = nc.length
+    # a fill on the device, not a copy from pageable host memory
+    aux = torch.full((), aux, dtype=torch.float32, device=x.device)
+    if caches is None:
+        return x, None, aux
+    return x, KVCache(caches.k, caches.v, length), aux
+
+
+def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if prefix_embeds is not None:  # vlm: image patches before text
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def logits_from_hidden(cfg: ModelConfig, params: dict,
+                       x: torch.Tensor) -> torch.Tensor:
+    """f32 logits, as the reference's ``preferred_element_type=float32``:
+    the operands are cast up, so a bf16 head's products are exact. That
+    costs an f32 copy of the head per call (qwen2.5-3b: 2048 x 152064 x 4 B
+    = 1.25 GB), which a bf16 matmul would not; a bf16 result would round the
+    logits and move the greedy argmax."""
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.matmul(x.float(), head.float())
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            prefix_embeds: torch.Tensor | None = None):
+    """Scoring forward: tokens [B, S_text] -> logits [B, S, Vp], aux."""
+    x = embed_tokens(cfg, params, tokens, prefix_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _, aux = _stack_scan(cfg, params, x, None, positions)
+    return logits_from_hidden(cfg, params, x), aux
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               device=None) -> KVCache:
+    """Stacked [L, ...] decode cache; one length for every layer (they
+    advance together), a Python int."""
+    _check_family(cfg)
+    device = default_device(device)
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+    dt = _dtype(cfg)
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device), 0)
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, s_max: int,
+            *, prefix_embeds: torch.Tensor | None = None):
+    """Fill the cache from a prompt; returns (last_logits, cache)."""
+    x = embed_tokens(cfg, params, tokens, prefix_embeds)
+    caches = init_cache(cfg, x.shape[0], s_max, x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, new_caches, _ = _stack_scan(cfg, params, x, caches, positions)
+    return logits_from_hidden(cfg, params, x[:, -1:]), new_caches
+
+
+def prefill_chunked(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                    s_max: int, *, chunk: int = 4096,
+                    prefix_embeds: torch.Tensor | None = None):
+    """Blocks-mode prefill: run the prompt through the stack in sequence
+    chunks, carrying the KV cache between chunks. Semantically identical to
+    :func:`prefill` (causal attention never looks ahead)."""
+    x = embed_tokens(cfg, params, tokens, prefix_embeds)
+    s = x.shape[1]
+    caches = init_cache(cfg, x.shape[0], s_max, x.device)
+    if s % chunk:
+        raise ValueError(f"prompt length {s} not divisible by chunk {chunk}")
+    last = None
+    for c0 in range(0, s, chunk):
+        xc = x[:, c0:c0 + chunk]
+        xc, caches, _ = _stack_scan(cfg, params, xc, caches, None)
+        last = xc[:, -1:]
+    return logits_from_hidden(cfg, params, last), caches
+
+
+def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
+                caches: KVCache):
+    """One decode step. token: [B, 1]; caches from prefill/init_cache
+    (updated in place and returned)."""
+    x = embed_tokens(cfg, params, token)
+    x, new_caches, _ = _stack_scan(cfg, params, x, caches, None)
+    return logits_from_hidden(cfg, params, x), new_caches

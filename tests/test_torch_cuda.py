@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, the
-transfer engine's copy streams, and one NullHop frame. Every test here is
+transfer engine's copy streams, one NullHop frame, and a small dense LM
+through the flash kernel and the serving engine. Every test here is
 marked ``cuda`` and skips where there is no GPU. The file imports neither
 jax nor the reference package, so it runs on a machine with only PyTorch:
 
@@ -19,6 +20,7 @@ from repro_torch.core.transfer import (
     TransferEngine,
     TransferPolicy,
 )
+from repro_torch.configs.registry import smoke_config
 from repro_torch.kernels.conv2d.kernel import CONV2D
 from repro_torch.kernels.conv2d.ops import conv2d_relu
 from repro_torch.kernels.conv2d.ref import conv2d_relu_ref
@@ -28,7 +30,14 @@ from repro_torch.kernels.streamed_matmul.kernel import (
     matmul_blocks,
     matmul_unique,
 )
+from repro_torch.kernels.flash_attention.kernel import FLASH
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_plain,
+)
 from repro_torch.kernels.streamed_matmul.ref import matmul_ref
+from repro_torch.models.api import build_model
+from repro_torch.serve.engine import ServeConfig, ServingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +128,81 @@ def test_nullhop_frame_on_card(dev):
         ex.close()
     assert CONV2D.launches["conv2d_bias_act"] == before + 10
     np.testing.assert_allclose(res.logits, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_matmul_unique_grid_path_matches_plain(dev):
+    # over one block's shared memory, within the 96 MiB UNIQUE budget
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((256, 384), generator=g).to(dev)
+    w = torch.randn((384, 512), generator=g).to(dev)
+    torch.testing.assert_close(matmul_unique(x, w), matmul_ref(x, w),
+                               rtol=2e-4, atol=2e-3)
+
+
+# f32: rtol = atol = 2e-4. bf16: rtol 2e-2 and an atol of 0.05 x the RMS
+# of each plain output row, which scales with the row (chip_smoke.py's rule)
+FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, None)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window", [
+    (2, 128, 128, 16, 2, 128, True, 0),
+    (1, 512, 512, 8, 2, 80, True, 96),
+    (2, 100, 250, 4, 2, 64, False, 0),
+    (1, 333, 333, 4, 1, 160, True, 0),
+])
+def test_flash_kernel_matches_plain(dev, b, sq, skv, h, hkv, d, causal,
+                                    window, dtype):
+    g = torch.Generator().manual_seed(sq + d)
+    q = torch.randn((b, sq, h, d), generator=g).to(dev, dtype)
+    k = torch.randn((b, skv, hkv, d), generator=g).to(dev, dtype)
+    v = torch.randn((b, skv, hkv, d), generator=g).to(dev, dtype)
+    before = FLASH.launches["flash_attention_fwd"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert FLASH.launches["flash_attention_fwd"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    rtol, atol = FLASH_TOL[dtype]
+    if atol is None:
+        atol = 0.05 * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = (got.float() - ref).abs()
+    assert torch.isfinite(got).all()
+    assert bool((diff <= atol + rtol * ref.abs()).all()), float(diff.max())
+
+
+def _small_lm(**over):
+    # head dim 64, one the kernel is built for (the smoke config's is 16)
+    cfg = smoke_config("qwen2.5-3b").replace(
+        d_model=256, n_heads=4, n_kv_heads=2, dtype="float32", **over)
+    return cfg, build_model(cfg)
+
+
+def test_lm_forward_through_flash_matches_plain(dev):
+    cfg, plain = _small_lm()
+    flash = build_model(cfg.replace(use_pallas_attention=True))
+    params = plain.init(torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 96))).to(dev)
+    before = FLASH.launches["flash_attention_fwd"]
+    lf, _ = flash.forward(params, {"tokens": toks})
+    assert FLASH.launches["flash_attention_fwd"] == before + cfg.n_layers
+    lp, _ = plain.forward(params, {"tokens": toks})
+    torch.testing.assert_close(lf, lp, rtol=0, atol=1e-4)
+
+
+def test_serving_on_card_is_policy_independent(dev):
+    cfg, model = _small_lm()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 16),
+                                                dtype=np.int32)
+    got = []
+    for policy in (TransferPolicy.kernel_level(),
+                   TransferPolicy.user_level_polling()):
+        eng = ServingEngine(model, params, ServeConfig(max_seq=48),
+                            policy=policy)
+        try:
+            assert eng.engine.device.type == "cuda"
+            got.append(np.stack([r.tokens for r in eng.generate(prompts, 12)]))
+        finally:
+            eng.close()
+    np.testing.assert_array_equal(got[0], got[1])

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 SLICE_MODULES = [
-    "repro_torch", "repro_torch.analysis.validated", "repro_torch.core",
+    "repro_torch", "repro_torch.device", "repro_torch.analysis.validated",
+    "repro_torch.core",
     "repro_torch.core.runtime", "repro_torch.core.qos",
     "repro_torch.core.transfer", "repro_torch.core.cost_model",
     "repro_torch.core.streaming", "repro_torch.kernels._build",
@@ -25,7 +26,18 @@ SLICE_MODULES = [
     "repro_torch.kernels.streamed_matmul.kernel",
     "repro_torch.kernels.streamed_matmul.ref", "repro_torch.accel",
     "repro_torch.accel.roshambo", "repro_torch.accel.nullhop",
-    "repro_torch.configs.roshambo",
+    "repro_torch.configs.roshambo", "repro_torch.configs",
+    "repro_torch.configs.registry", "repro_torch.configs.qwen2_5_3b",
+    "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.stablelm_12b",
+    "repro_torch.configs.internlm2_20b", "repro_torch.models.config",
+    "repro_torch.models.layers.norm", "repro_torch.models.layers.rope",
+    "repro_torch.models.layers.mlp", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.models.layers.attention", "repro_torch.models.lm",
+    "repro_torch.models.api", "repro_torch.serve", "repro_torch.serve.engine",
+    "repro_torch.launch.serve",
 ]
 
 

@@ -21,6 +21,7 @@ from repro_torch.kernels.streamed_matmul.kernel import (
     TILES,
     matmul_blocks,
     matmul_unique,
+    unique_fits,
 )
 from repro_torch.kernels.streamed_matmul.ops import block_dims_for, streamed_matmul
 from repro_torch.kernels.streamed_matmul.ref import matmul_ref
@@ -109,16 +110,30 @@ def test_streamed_matmul_policy_modes(part):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_unique_over_budget_raises():
-    # 256x256 f32 operands: 512 KiB, over one block's 227 KB of shared memory
-    x = torch.zeros(256, 256)
-    assert (2 * x.numel() * 4) > SMEM_BUDGET
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unique_over_budget_raises(dtype):
+    # 256x256 operands are over one block's shared memory but within the
+    # reference's 96 MiB UNIQUE budget: the port takes them as the
+    # reference does, and matches the Pallas kernel
+    jx, jw, tx, tw = _mm_inputs(256, 256, 256, dtype, seed=3)
+    assert 2 * tx.numel() * tx.element_size() > SMEM_BUDGET
+    ref = np.asarray(jax_matmul_unique(jx, jw, interpret=True), np.float32)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    for got in (matmul_unique(tx, tw),
+                streamed_matmul(tx, tw, TransferPolicy.user_level_polling())):
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol,
+                                   atol=tol * 10)
+    # (4097x4096) @ (4096x4096): over 96 MiB in f32 and in bf16; the
+    # operands are broadcast views, so nothing that size is allocated
+    big = torch.zeros(1, dtype=tx.dtype).expand(4097, 4096)
+    sq = torch.zeros(1, dtype=tx.dtype).expand(4096, 4096)
+    assert not unique_fits(4097, 4096, 4096, tx.element_size())
+    with pytest.raises(ValueError, match="UNIQUE.*exceeds the VMEM budget"):
+        streamed_matmul(big, sq, TransferPolicy.user_level_polling())
     with pytest.raises(ValueError, match="UNIQUE"):
-        streamed_matmul(x, x, TransferPolicy.user_level_polling())
-    with pytest.raises(ValueError, match="UNIQUE"):
-        matmul_unique(x, x)
-    # BLOCKS takes the same operands
-    assert streamed_matmul(x, x, TransferPolicy()).shape == (256, 256)
+        matmul_unique(big, sq)
+    assert unique_fits(2048, 2048, 2048, 4)  # 48 MiB: inside
+    assert unique_fits(4096, 4096, 4096, 2)  # exactly 96 MiB: inside
 
 
 @pytest.mark.parametrize("block_bytes,m,n,want", [

@@ -95,6 +95,10 @@ def test_layer_transfer_bytes_match_reference(slice_inputs):
 def test_staged_frames_skip_the_pack_copy(slice_inputs):
     _, _, params, frame, _ = slice_inputs
     ex = NullHopExecutor(RoShamBoCNN(), _policies(ttransfer)[1], device="cpu")
+    # pin the pack path: under interrupt management the pack-vs-SG gate is
+    # priced from the engine's live copy timings, so a loaded host could
+    # send a layer down the SG path, which packs nothing
+    ex.engine.prefer_sg = lambda sizes, model=None: False
     try:
         for _ in range(3):
             ex.run_frame(params, frame)
