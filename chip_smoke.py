@@ -36,14 +36,37 @@ Phases, in order; any failure exits non-zero before a result is printed:
    4 prompts x 128 tokens, 32 new tokens, greedy, under the kernel-level
    (interrupt) and the user-level polling policies, twice each: identical
    tokens across all four (an ``lm_serve`` line);
-9. each kernel timed at its path's shapes beside its bound, its plain
-   version and one library call (the yardstick; the port never calls it);
-10. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+9. the SSD kernel against its plain version on the card at mamba2-780m's
+   shape (B 2, S 2048, H 48, P 64, N 128, G 1, Q 256), zamba2-1.2b's (H 64,
+   N 64) and a G 2, Q 32 case, f32 and bf16 (y_diag, states, decay; the bf16
+   limit scales with each output row's RMS), and ``ssd_full`` through the
+   kernel against the plain ``ssd_chunked`` in f32 (an ``ssd_cases`` line);
+10. the SSM scoring path: mamba2-780m at full width (48 layers, weights
+   from a CUDA generator seeded with 0). In f32, prefill of 2 x 272 tokens
+   (one chunk and a padded tail, through the kernel) against 272 decode
+   steps from zero state (the recurrence, no kernel): last logits, SSM
+   states and conv tails. In bf16 (the mixer's f32 params kept f32),
+   ``Model.loss`` / ``Model.forward`` over B 2 x S 2048 tokens: exactly 48
+   SSD launches a forward, losses, forward wall time and a profiled
+   forward (an ``ssm_score`` line);
+11. the SSM serving path: mamba2-780m in bf16, 4 prompts x 600 tokens, 32
+   new tokens, greedy, under the kernel-level and the user-level polling
+   policies, twice each: identical tokens (an ``ssm_serve`` line);
+12. the hybrid path: zamba2-1.2b at full width (38 mamba layers, the shared
+   attention block every 6): the same f32 prefill-vs-recurrence check at
+   272 tokens (with the shared block's KV caches), the bf16 forward over
+   B 2 x S 2048 tokens (38 SSD launches) and one serving run, twice,
+   identical tokens (a ``hybrid`` line);
+13. each kernel timed at its path's shapes beside its bound, its plain
+   version and one library call where one exists (the yardstick; the port
+   never calls it);
+14. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -83,6 +106,29 @@ FLASH_CASES = [(2, 128, 128, 16, 2, 128, True, 0),
 LM_LOGIT_ATOL = 1e-3
 LM_BATCH, LM_SEQ = 2, 2048
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 32
+# SSD, kernel vs plain: f32 at the reference's own 1e-3 (ssd_full against
+# ssd_chunked, tests/test_kernels.py); bf16 |d| <= 2e-2 |ref| + 0.05 RMS of
+# the output row (y_diag over P, states over N, decay over H), as flash:
+# att and the state decay are rounded to bf16, and a rounding that lands
+# the other way moves a sum by one bf16 step of one term
+SSD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, None)}
+SSD_BF16_ATOL_ROW_RMS = 0.05
+# (B, S, H, P, G, N, Q): mamba2-780m, zamba2-1.2b, two groups at Q 32
+SSD_CASES = [(2, 2048, 48, 64, 1, 128, 256),
+             (2, 2048, 64, 64, 1, 64, 256),
+             (2, 512, 8, 64, 2, 64, 32)]
+# SSM prefill (kernel) against the token-by-token recurrence, f32, full
+# width: last logits within SSM_LOGIT_ATOL; SSM states, conv tails and the
+# hybrid's K/V within SSM_STATE_REL x max |ref| (a CPU run of the plain
+# SSD at full width, 6-7 layers, gave 1.3e-5 / 6.7e-5 on logits up to 4
+# and 3e-6 / 2e-5 of max |state|)
+SSM_PREFILL = 272  # one 256-token chunk and a padded tail
+SSM_LOGIT_ATOL = 5e-3
+SSM_STATE_REL = 5e-3
+SSM_SERVE_PROMPT = 600
+# params the reference keeps f32 in every dtype
+F32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "d_skip", "dt_bias",
+              "norm_scale")
 FRAMES_PER_POLICY = 4  # one warm-up frame + 3 timed (+1 profiled)
 
 
@@ -135,6 +181,19 @@ def max_err(torch, got, ref, tol) -> float:
     return float(diff.max())
 
 
+def launched(torch, lib, sym: str, expect: int, fn, what: str):
+    """``fn()``, synchronised; fails unless it launched ``lib``'s ``sym``
+    exactly ``expect`` times."""
+    before = lib.launches[sym]
+    out = fn()
+    torch.cuda.synchronize()
+    got = lib.launches[sym] - before
+    if got != expect:
+        fail(f"{what}: {lib.name}.{sym} launched {got} times, expected "
+             f"{expect}")
+    return out
+
+
 def device_events(torch, prof) -> list[tuple[str, float, int]]:
     """(name, ms, count) of the device-side entries of a ``torch.profiler``
     trace: kernels, copies and fills. A CPU op's own
@@ -165,12 +224,87 @@ def device_profile(torch, fn, top: int = 6) -> dict:
                        sorted(ev, key=lambda e: -e[1])[:top]]}
 
 
-def _cast_weights(params: dict, dtype) -> dict:
-    """The same weights in ``dtype``; norm params stay f32, as the
-    reference keeps them in every dtype."""
-    return {k: (v if k in ("ln1", "ln2", "final_norm")
-                else _cast_weights(v, dtype)) if isinstance(v, dict)
-            else v.to(dtype) for k, v in params.items()}
+def _cast_weights(tree, dtype):
+    """The same weights in ``dtype``; the norm params and the Mamba2
+    mixer's ``a_log``, ``d_skip``, ``dt_bias`` and ``norm_scale`` stay f32,
+    as the reference keeps them in every dtype."""
+    if isinstance(tree, list):
+        return [_cast_weights(v, dtype) for v in tree]
+    return {k: v if k in F32_PARAMS
+            else _cast_weights(v, dtype) if isinstance(v, (dict, list))
+            else v.to(dtype) for k, v in tree.items()}
+
+
+def wall_ms(torch, fn, reps: int = 3) -> float:
+    """Best host-clock time of ``fn()`` ended by a synchronise."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def rms_close(torch, got, ref, tol, row_rms: float | None, dim: int = -1):
+    """(ok, max |d|, max (|d| - rtol |ref|) / RMS(ref row)): ``got`` within
+    atol + rtol |ref|, where a None atol is ``row_rms`` x the RMS of each
+    ``ref`` row over ``dim``."""
+    g, r = got.float(), ref.float()
+    if not bool(torch.isfinite(g).all()):
+        return False, float("inf"), float("inf")
+    rtol, atol = tol
+    rms = r.pow(2).mean(dim, keepdim=True).sqrt().clamp_min(1e-30)
+    if atol is None:
+        atol = row_rms * rms
+    diff = (g - r).abs()
+    ok = bool((diff <= atol + rtol * r.abs()).all())
+    return ok, float(diff.max()), float(((diff - rtol * r.abs()) / rms).max())
+
+
+SERVE_POLICIES = ("kernel-level", "user-level polling")
+
+
+def serve_runs(np, model, params, scfg, prompts, new_tokens: int,
+               policies, vocab: int, reps: int = 2):
+    """``ServingEngine.generate`` under each named policy, ``reps`` times
+    each, greedy: fails unless every run gives the first run's tokens.
+    Returns (per-run rows, the tokens)."""
+    from repro_torch.core.transfer import TransferPolicy
+    from repro_torch.serve.engine import ServingEngine
+
+    make = {"kernel-level": TransferPolicy.kernel_level,
+            "user-level polling": TransferPolicy.user_level_polling}
+    b = prompts.shape[0]
+    rows, first = [], None
+    for name in policies:
+        policy = make[name]()
+        eng = ServingEngine(model, params, scfg, policy=policy)
+        if eng.engine.device.type != "cuda":
+            fail(f"serving engine for {policy.tag} is on {eng.engine.device}")
+        try:
+            for rep in range(reps):
+                res = eng.generate(prompts, max_new_tokens=new_tokens)
+                toks = np.stack([r.tokens for r in res])
+                if toks.shape != (b, new_tokens) or not (
+                        (toks >= 0) & (toks < vocab)).all():
+                    fail(f"{policy.tag}: bad tokens {toks}")
+                if first is None:
+                    first = toks
+                elif not np.array_equal(toks, first):
+                    fail(f"{model.cfg.name} {policy.tag} run {rep}: greedy "
+                         f"tokens differ from the first run's")
+                r0 = res[0]
+                rows.append({"policy": policy.tag, "run": rep,
+                             "prefill_ms": r0.prefill_s * 1e3,
+                             "decode_ms": r0.decode_s * 1e3,
+                             "tokens_per_s": b * new_tokens / r0.decode_s,
+                             "tokens_per_s_per_request": r0.tokens_per_s,
+                             "tx_bytes": eng.engine.tx_bytes_total,
+                             "rx_bytes": eng.engine.rx_bytes_total})
+        finally:
+            eng.close()
+    return rows, first
 
 
 def lm_paths(np, torch, dev, libs, flash_lib):
@@ -178,9 +312,8 @@ def lm_paths(np, torch, dev, libs, flash_lib):
     width; each driven with every launch count set to 0 just before it and
     read just after. Returns the scoring path's flash launches."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.transfer import TransferPolicy
     from repro_torch.models.api import build_model
-    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.serve.engine import ServeConfig
 
     sym = "flash_attention_fwd"
     cfg = get_config("qwen2.5-3b", dtype="float32")
@@ -200,24 +333,9 @@ def lm_paths(np, torch, dev, libs, flash_lib):
                for dt in ("float32", "bfloat16")}
 
     def flash_run(fn):
-        """One forward through the flash kernel: exactly one launch a
-        layer."""
-        before = flash_lib.launches[sym]
-        out = fn()
-        torch.cuda.synchronize()
-        if flash_lib.launches[sym] - before != cfg.n_layers:
-            fail(f"flash kernel launched {flash_lib.launches[sym] - before} "
-                 f"times in one forward, expected {cfg.n_layers}")
-        return out
-
-    def wall_ms(fn, reps=3):
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            best = min(best, (time.perf_counter() - t0) * 1e3)
-        return best
+        """One forward through the flash kernel: one launch a layer."""
+        return launched(torch, flash_lib, sym, cfg.n_layers, fn,
+                        f"one {cfg.name} forward")
 
     score = {"model": cfg.name, "params": cfg.param_count(),
              "batch": LM_BATCH, "seq": LM_SEQ, "init_s": init_s}
@@ -251,10 +369,10 @@ def lm_paths(np, torch, dev, libs, flash_lib):
             fail(f"bf16 losses not finite: {lfl}, {lpl}")
         score["bf16"] = {
             "loss_flash": lfl, "loss_plain": lpl,
-            "forward_ms_flash": wall_ms(lambda: flash_run(
+            "forward_ms_flash": wall_ms(torch, lambda: flash_run(
                 lambda: flash_m["bfloat16"].forward(params16, batch))),
             "forward_ms_plain": wall_ms(
-                lambda: plain_m["bfloat16"].forward(params16, batch)),
+                torch, lambda: plain_m["bfloat16"].forward(params16, batch)),
             "profile_flash_forward": device_profile(torch, lambda: flash_run(
                 lambda: flash_m["bfloat16"].forward(params16, batch)))}
     torch.cuda.synchronize()
@@ -272,38 +390,10 @@ def lm_paths(np, torch, dev, libs, flash_lib):
                            dtype=np.int32)
     scfg = ServeConfig(max_batch=SERVE_BATCH,
                        max_seq=SERVE_PROMPT + SERVE_NEW + 8)
-    rows, first = [], None
     for lib in libs:
         lib.launches = dict.fromkeys(lib.launches, 0)
-    for name, policy in (("kernel-level", TransferPolicy.kernel_level()),
-                         ("user-level polling",
-                          TransferPolicy.user_level_polling())):
-        eng = ServingEngine(model, params16, scfg, policy=policy)
-        if eng.engine.device.type != "cuda":
-            fail(f"serving engine for {policy.tag} is on {eng.engine.device}")
-        try:
-            for rep in range(2):
-                res = eng.generate(prompts, max_new_tokens=SERVE_NEW)
-                toks = np.stack([r.tokens for r in res])
-                if toks.shape != (SERVE_BATCH, SERVE_NEW) or not (
-                        (toks >= 0) & (toks < cfg.vocab)).all():
-                    fail(f"{policy.tag}: bad tokens {toks}")
-                if first is None:
-                    first = toks
-                elif not np.array_equal(toks, first):
-                    fail(f"{policy.tag} run {rep}: greedy tokens differ "
-                         f"from the first run's")
-                r0 = res[0]
-                rows.append({"policy": policy.tag, "run": rep,
-                             "prefill_ms": r0.prefill_s * 1e3,
-                             "decode_ms": r0.decode_s * 1e3,
-                             "tokens_per_s": SERVE_BATCH * SERVE_NEW
-                             / r0.decode_s,
-                             "tokens_per_s_per_request": r0.tokens_per_s,
-                             "tx_bytes": eng.engine.tx_bytes_total,
-                             "rx_bytes": eng.engine.rx_bytes_total})
-        finally:
-            eng.close()
+    rows, first = serve_runs(np, model, params16, scfg, prompts, SERVE_NEW,
+                             SERVE_POLICIES, cfg.vocab)
     # where a decode step's time goes: one step after a prefill of the
     # same prompts, under the profiler
     with torch.no_grad():
@@ -319,6 +409,264 @@ def lm_paths(np, torch, dev, libs, flash_lib):
     del params16
     torch.cuda.empty_cache()
     return lm_launches
+
+
+def ssd_inputs(torch, dev, dtype, b, s, h, p, g, n, gen):
+    """The model's distributions: x, B, C cut out of one projection-like
+    [B, S, H*P + 2*G*N] tensor (strided views, as the model passes them),
+    B and C scaled so that C.B is ~unit; dt = softplus(randn + dt_bias); A
+    from -1 to -16 over the heads, as ``a_log`` gives it."""
+    xbc = torch.randn((b, s, h * p + 2 * g * n), generator=gen)
+    xbc[..., h * p:] *= n ** -0.25
+    xbc = xbc.to(dev, dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen) + math.log(math.e - 1)).to(dev)
+    a = -torch.linspace(1.0, 16.0, h).to(dev)
+    return (xbc[..., :h * p].reshape(b, s, h, p), dt, a,
+            xbc[..., h * p:h * p + g * n].reshape(b, s, g, n),
+            xbc[..., h * p + g * n:].reshape(b, s, g, n))
+
+
+def ssd_cases(np, torch, dev, gen) -> dict:
+    """9. the SSD kernel against its plain version; returns max |d| per
+    dtype (y_diag, states, decay together)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_full, ssd_intra_chunk
+    from repro_torch.models.layers.ssm import ssd_chunked
+
+    rows, bad, errs = [], [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt_name = str(dtype).split(".")[1]
+        tol = SSD_TOL[dt_name]
+        for case in SSD_CASES:
+            b, s, h, p, g, n, q = case
+            args = ssd_inputs(torch, dev, dtype, b, s, h, p, g, n, gen)
+            got = ssd_intra_chunk(*args, chunk=q)
+            ref = ssd_intra_chunk(*args, chunk=q, use_kernel=False)
+            torch.cuda.synchronize()
+            row = {"dtype": dt_name, "case": list(case)}
+            for name, gt, rt in zip(("y_diag", "states", "decay"), got, ref):
+                if gt.dtype != torch.float32 or gt.shape != rt.shape:
+                    fail(f"ssd {case} {name}: {gt.dtype} {tuple(gt.shape)}")
+                ok, err, excess = rms_close(torch, gt, rt, tol,
+                                            SSD_BF16_ATOL_ROW_RMS)
+                if not ok:
+                    bad.append((dt_name, case, name))
+                row[name] = {"max_abs_err": err,
+                             "max_excess_over_row_rms": excess}
+                errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            rows.append(row)
+            del got, ref, args
+    # the full SSD through the kernel against the plain ssd_chunked, f32,
+    # at mamba2-780m's shape and from a nonzero state
+    b, s, h, p, g, n, q = SSD_CASES[0]
+    args = ssd_inputs(torch, dev, torch.float32, b, s, h, p, g, n, gen)
+    init = torch.randn((b, h, p, n), generator=gen).to(dev)
+    y1, f1 = ssd_full(*args, chunk=q, initial_state=init)
+    y2, f2 = ssd_chunked(*args, chunk=q, initial_state=init,
+                         return_final_state=True)
+    full = {}
+    for name, gt, rt in (("y", y1, y2), ("final_state", f1, f2)):
+        ok, err, _ = rms_close(torch, gt, rt, SSD_TOL["float32"], None)
+        full[name] = err
+        if not ok:
+            bad.append(("float32", SSD_CASES[0], f"ssd_full {name}"))
+    print("ssd_cases " + json.dumps({"cases": rows,
+                                     "ssd_full_vs_ssd_chunked": full}))
+    if bad:
+        fail(f"ssd kernel disagrees with its plain version in {bad} (tol "
+             f"{SSD_TOL}, bf16 atol {SSD_BF16_ATOL_ROW_RMS} x the row's RMS)")
+    return errs
+
+
+def prefill_vs_recurrence(np, torch, model, params, dev, ssd_lib) -> dict:
+    """f32: prefill of 2 x SSM_PREFILL tokens (through the SSD kernel)
+    against as many decode steps from the zero state (the recurrence; no
+    kernel launch): last logits, SSM states, conv tails and, for the
+    hybrid, the shared block's K/V."""
+    sym = "ssd_intra_chunk"
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, SSM_PREFILL))).to(dev)
+    s_max = SSM_PREFILL + 8
+    with torch.no_grad():
+        last, cache = launched(
+            torch, ssd_lib, sym, cfg.n_layers,
+            lambda: model.prefill(params, {"tokens": tok}, s_max),
+            f"{cfg.name} prefill")
+        rec = model.init_cache(2, s_max, device=dev)
+
+        def recurrence():
+            nonlocal rec
+            for t in range(SSM_PREFILL):
+                step, rec = model.decode(params, tok[:, t:t + 1], rec)
+            return step
+
+        t0 = time.perf_counter()
+        step = launched(torch, ssd_lib, sym, 0, recurrence,
+                        f"{cfg.name} decode recurrence")
+        decode_s = time.perf_counter() - t0
+    pairs = [("logits", last, step)]
+    if isinstance(cache, list):  # the hybrid: per group
+        for gi, (c, r) in enumerate(zip(cache, rec)):
+            pairs += [(f"ssm{gi}", c["ssm"].ssm, r["ssm"].ssm),
+                      (f"conv{gi}", c["ssm"].conv, r["ssm"].conv),
+                      (f"k{gi}", c["kv"].k, r["kv"].k),
+                      (f"v{gi}", c["kv"].v, r["kv"].v)]
+    else:
+        pairs += [("ssm", cache.ssm, rec.ssm), ("conv", cache.conv, rec.conv)]
+    out = {"tokens": SSM_PREFILL, "decode_steps_s": decode_s,
+           "logit_atol": SSM_LOGIT_ATOL, "state_rel": SSM_STATE_REL}
+    worst = {"ssm": 0.0, "conv": 0.0, "k": 0.0, "v": 0.0}
+    for name, got, ref in pairs:
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{cfg.name} prefill {name} not finite")
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if name == "logits":
+            out["logits"] = {"max_abs_err": err, "absmax": scale}
+            limit = SSM_LOGIT_ATOL
+        else:
+            key = name.rstrip("0123456789")
+            worst[key] = max(worst[key], err / max(scale, 1e-30))
+            limit = SSM_STATE_REL * scale
+        if err > limit:
+            fail(f"{cfg.name}: prefill vs recurrence, {name}: max abs err "
+                 f"{err} > {limit}")
+    out["max_err_over_absmax"] = {k: v for k, v in worst.items() if v}
+    return out
+
+
+def ssm_paths(np, torch, dev, libs, ssd_lib) -> int:
+    """10.-12. mamba2-780m scoring and serving, zamba2-1.2b, at full
+    width; each path driven with every launch count set to 0 just before
+    it and read just after. Returns the mamba2 scoring path's SSD
+    launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeConfig
+
+    sym = "ssd_intra_chunk"
+
+    def zero():
+        for lib in libs:
+            lib.launches = dict.fromkeys(lib.launches, 0)
+
+    def launches():
+        return {lib.name: dict(lib.launches) for lib in libs}
+
+    def one_forward(cfg, fn):
+        """One forward through the SSD kernel: one launch a mamba layer."""
+        return launched(torch, ssd_lib, sym, cfg.n_layers, fn,
+                        f"one {cfg.name} forward")
+
+    rng = np.random.default_rng(0)
+
+    def tokens(vocab):
+        seq = rng.integers(0, vocab, (LM_BATCH, LM_SEQ + 1), dtype=np.int64)
+        return {"tokens": torch.from_numpy(seq[:, :-1]).to(dev),
+                "labels": torch.from_numpy(seq[:, 1:]).to(dev)}
+
+    # 10. mamba2-780m scoring
+    cfg = get_config("mamba2-780m", dtype="float32")
+    batch = tokens(cfg.vocab)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    score = {"model": cfg.name, "params": cfg.param_count(),
+             "batch": LM_BATCH, "seq": LM_SEQ,
+             "init_s": time.perf_counter() - t0}
+    zero()
+    m32 = build_model(cfg)
+    score["f32_prefill_vs_recurrence"] = prefill_vs_recurrence(
+        np, torch, m32, params, dev, ssd_lib)
+    m16 = build_model(cfg.replace(dtype="bfloat16"))
+    with torch.no_grad():
+        lf = one_forward(cfg, lambda: m32.loss(params, batch))
+        score["f32_loss"] = float(lf[0])
+        params16 = _cast_weights(params, torch.bfloat16)
+        del params
+        torch.cuda.empty_cache()
+        l16 = float(one_forward(cfg, lambda: m16.loss(params16, batch))[0])
+        logits = one_forward(cfg, lambda: m16.forward(params16, batch))[0]
+        want = (LM_BATCH, LM_SEQ, cfg.vocab_padded)
+        if (tuple(logits.shape) != want or logits.dtype != torch.float32
+                or not bool(torch.isfinite(logits).all())
+                or not np.isfinite(l16)):
+            fail(f"{cfg.name} bf16 logits {tuple(logits.shape)} (want "
+                 f"{want}) or loss {l16} not finite")
+        del logits
+        score["bf16"] = {
+            "loss": l16,
+            "forward_ms": wall_ms(torch, lambda: one_forward(
+                cfg, lambda: m16.forward(params16, batch))),
+            "profile_forward": device_profile(torch, lambda: one_forward(
+                cfg, lambda: m16.forward(params16, batch)))}
+    torch.cuda.synchronize()
+    ssd_launches = ssd_lib.launches[sym]
+    score["launches"] = launches()
+    score["forwards_through_ssd"] = ssd_launches // cfg.n_layers
+    if ssd_launches == 0:
+        fail("the SSM scoring path never launched the SSD kernel")
+    print("ssm_score " + json.dumps(score))
+
+    # 11. mamba2-780m serving, bf16: prefill runs the SSD kernel, decode
+    # steps the recurrence
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SSM_SERVE_PROMPT),
+                           dtype=np.int32)
+    scfg = ServeConfig(max_batch=SERVE_BATCH,
+                       max_seq=SSM_SERVE_PROMPT + SERVE_NEW + 8)
+    zero()
+    rows, first = launched(
+        torch, ssd_lib, sym, cfg.n_layers * 2 * len(SERVE_POLICIES),
+        lambda: serve_runs(np, m16, params16, scfg, prompts, SERVE_NEW,
+                           SERVE_POLICIES, cfg.vocab),
+        f"{cfg.name} serving (one launch a layer a prefill)")
+    serve_launches = launches()
+    with torch.no_grad():
+        tok = torch.from_numpy(prompts).to(dev)
+        _, cache = m16.prefill(params16, {"tokens": tok}, scfg.max_seq)
+        step = device_profile(torch, lambda: m16.decode(
+            params16, tok[:, -1:], cache))
+    print("ssm_serve " + json.dumps({
+        "model": cfg.name, "dtype": "bfloat16", "batch": SERVE_BATCH,
+        "prompt": SSM_SERVE_PROMPT, "new_tokens": SERVE_NEW, "runs": rows,
+        "tokens_head": first[:, :8].tolist(), "profile_decode_step": step,
+        "launches": serve_launches}))
+    del params16, cache
+    torch.cuda.empty_cache()
+
+    # 12. zamba2-1.2b
+    cfg = get_config("zamba2-1.2b", dtype="float32")
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+    hyb = {"model": cfg.name, "params": cfg.param_count()}
+    zero()
+    m32 = build_model(cfg)
+    hyb["f32_prefill_vs_recurrence"] = prefill_vs_recurrence(
+        np, torch, m32, params, dev, ssd_lib)
+    params16 = _cast_weights(params, torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+    m16 = build_model(cfg.replace(dtype="bfloat16"))
+    hbatch = tokens(cfg.vocab)
+    with torch.no_grad():
+        l16 = float(one_forward(cfg, lambda: m16.loss(params16, hbatch))[0])
+        if not np.isfinite(l16):
+            fail(f"{cfg.name} bf16 loss {l16}")
+        hyb["bf16"] = {"loss": l16, "batch": LM_BATCH, "seq": LM_SEQ,
+                       "forward_ms": wall_ms(torch, lambda: one_forward(
+                           cfg, lambda: m16.forward(params16, hbatch)))}
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SSM_SERVE_PROMPT),
+                           dtype=np.int32)
+    rows, first = serve_runs(np, m16, params16, scfg, prompts, SERVE_NEW,
+                             SERVE_POLICIES[:1], cfg.vocab)
+    hyb["serve"] = {"dtype": "bfloat16", "batch": SERVE_BATCH,
+                    "prompt": SSM_SERVE_PROMPT, "new_tokens": SERVE_NEW,
+                    "runs": rows, "tokens_head": first[:, :8].tolist()}
+    hyb["launches"] = launches()
+    print("hybrid " + json.dumps(hyb))
+    del params16
+    torch.cuda.empty_cache()
+    return ssd_launches
 
 
 def main() -> None:
@@ -349,11 +697,14 @@ def main() -> None:
     from repro_torch.kernels.flash_attention.kernel import FLASH
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd_scan.kernel import SSD
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
 
+    libs = (CONV2D, MATMUL, FLASH, SSD)
     t0 = time.perf_counter()
-    build_all([CONV2D, MATMUL, FLASH])
+    build_all(list(libs))
     print(f"build: {time.perf_counter() - t0:.2f} s")
-    for lib in (CONV2D, MATMUL, FLASH):
+    for lib in libs:
         for line in lib.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {lib.name}: {line.strip()}")
@@ -471,7 +822,7 @@ def main() -> None:
               for f in frames]
     rows, logits_seen = [], []
     n_frames = 0
-    for lib in (CONV2D, MATMUL, FLASH):
+    for lib in libs:
         lib.launches = dict.fromkeys(lib.launches, 0)
     for name, policy in policies:
         ex = NullHopExecutor(cnn, policy)
@@ -556,7 +907,7 @@ def main() -> None:
             x = cnn.layer_apply(spec, params[spec.name], x,
                                 conv=conv2d_relu_ref)
         feats.append(x.reshape(1, -1).contiguous())
-    for lib in (CONV2D, MATMUL, FLASH):
+    for lib in libs:
         lib.launches = dict.fromkeys(lib.launches, 0)
     for (policy, _f, logits), feat in zip(logits_seen, feats):
         head = streamed_matmul(feat, params["fc"]["w"], policy) + params["fc"]["b"]
@@ -568,10 +919,13 @@ def main() -> None:
     print(f"streamed-matmul path: {len(feats)} heads, launches {mm_launches}")
 
     # 7. the LM scoring path, 8. the serving path
-    lm_launches = lm_paths(np, torch, dev, (CONV2D, MATMUL, FLASH),
-                           FLASH)
+    lm_launches = lm_paths(np, torch, dev, libs, FLASH)
 
-    # 9. timing at the paths' shapes (B = 1 frame for conv and matmul)
+    # 9. the SSD kernel against its plain version; 10.-12. the SSM paths
+    ssd_errs = ssd_cases(np, torch, dev, gen)
+    ssm_launches = ssm_paths(np, torch, dev, libs, SSD)
+
+    # 13. timing at the paths' shapes (B = 1 frame for conv and matmul)
     conv_in = []
     for h, w, cin, cout in layer_shapes:
         conv_in.append((
@@ -666,6 +1020,42 @@ def main() -> None:
         "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
         "ms": fl_ms, "ms_f32": fl_ms32, "plain_ms": fl_plain,
         "bound_ms": fl_bound, "bound_by": fl_by, "library_ms": fl_lib,
+    })
+    # the SSD kernel at the SSM scoring path's shape: mamba2-780m, B 2,
+    # S 2048, bf16 x/B/C (f32 beside it). No single PyTorch call computes
+    # this function, so there is no library time.
+    b, s_, h, p, g, n, q = SSD_CASES[0]
+    sargs = ssd_inputs(torch, dev, torch.bfloat16, b, s_, h, p, g, n, gen)
+    sd_ms = time_ms(torch, lambda: ssd_intra_chunk(*sargs, chunk=q),
+                    iters=20)
+    sd_plain = time_ms(torch, lambda: ssd_intra_chunk(
+        *sargs, chunk=q, use_kernel=False), iters=5)
+    sargs32 = ssd_inputs(torch, dev, torch.float32, b, s_, h, p, g, n, gen)
+    sd_ms32 = time_ms(torch, lambda: ssd_intra_chunk(*sargs32, chunk=q),
+                      iters=20)
+    # x, B, C (bf16), dt, a read once; y_diag, states, decay (f32) written
+    # once. Operations the function needs: C.B over the visible (q, k)
+    # pairs once per group (the heads of a group share it), the PV product
+    # over them and the state product per head
+    nc = s_ // q
+    tri = q * (q + 1) // 2
+    sd_bytes = (b * s_ * h * p * 2 + b * s_ * h * 4 + h * 4
+                + 2 * b * s_ * g * n * 2 + b * s_ * h * p * 4
+                + b * nc * h * p * n * 4 + b * nc * h * 4)
+    sd_flops = (2 * b * nc * g * tri * n + 2 * b * nc * h * tri * p
+                + 2 * b * nc * h * q * p * n)
+    sd_bound, sd_by = bound_ms(sd_bytes, sd_flops, BF16_FLOPS)
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
+        "launches": ssm_launches,
+        "max_abs_err": ssd_errs["float32"],
+        "max_abs_err_bf16": ssd_errs["bfloat16"],
+        "ms": sd_ms, "ms_f32": sd_ms32, "plain_ms": sd_plain,
+        "bound_ms": sd_bound, "bound_by": sd_by, "library_ms": None,
+        "library_note": "no single PyTorch call computes the SSD "
+                        "intra-chunk function",
     })
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Registry mapping --arch ids to ModelConfig builders.
 
-The reference's arch ids, all of them. The dense family and the paper's
-RoShamBo CNN are ported; every other arch raises ``NotImplementedError``
-naming the ROADMAP item that brings it, never a bare ``KeyError``."""
+The reference's arch ids, all of them. The dense, ssm and hybrid families
+and the paper's RoShamBo CNN are ported; every other arch raises
+``NotImplementedError`` naming the ROADMAP item that brings it, never a
+bare ``KeyError``."""
 
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ _ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
     "roshambo-nullhop": "repro_torch.configs.roshambo",
 }
 
@@ -24,8 +27,6 @@ _NOT_PORTED = {
     "pixtral-12b": "slice 4, item 15 (the vlm prefix-token config)",
     "deepseek-moe-16b": "slice 4, item 13 (models/layers/moe.py)",
     "granite-moe-1b-a400m": "slice 4, item 13 (models/layers/moe.py)",
-    "mamba2-780m": "slice 4, item 12 (models/layers/ssm.py)",
-    "zamba2-1.2b": "slice 4, item 12 (models/hybrid.py)",
 }
 
 # the reference's order of arch ids

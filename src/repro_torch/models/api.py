@@ -10,9 +10,10 @@ functions, as the reference's does:
 - ``init_cache(batch, s_max, s_enc=None, device=None) -> cache``
 
 Batches are dicts of tensors: ``tokens`` [B,S] and ``labels`` [B,S]. The
-dense family is ported; every other family raises ``NotImplementedError``
-naming its ROADMAP item. The reference's dry-run helpers (``input_specs``,
-``cache_specs``) are ROADMAP slice 7.
+dense and ssm families run through ``models/lm.py``, the hybrid family
+through ``models/hybrid.py``; every other family raises
+``NotImplementedError`` naming its ROADMAP item. The reference's dry-run
+helpers (``input_specs``, ``cache_specs``) are ROADMAP slice 7.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import hybrid, lm
 from repro_torch.models.config import ModelConfig
 
 # family -> the ROADMAP (Queue 1) item that ports it
@@ -30,8 +31,6 @@ _NOT_PORTED = {
     "vlm": "slice 4, item 15 (the vlm prefix-token config)",
     "audio": "slice 4, item 14 (models/encdec.py)",
     "moe": "slice 4, item 13 (models/layers/moe.py)",
-    "ssm": "slice 4, item 12 (models/layers/ssm.py)",
-    "hybrid": "slice 4, item 12 (models/hybrid.py)",
 }
 
 
@@ -66,20 +65,16 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP Queue 1, "
             f"{_NOT_PORTED[cfg.family]}")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg)
 
     def init(generator: torch.Generator, device=None) -> dict:
         return lm.init_params(cfg, generator, device)
 
     def fwd(params, batch):
         return lm.forward(cfg, params, batch["tokens"])
-
-    def loss(params, batch):
-        logits, aux = fwd(params, batch)
-        ce, acc = cross_entropy(logits, batch["labels"], cfg.vocab_padded)
-        total = ce + cfg.router_aux_coef * aux
-        return total, {"loss": ce, "aux": aux, "acc": acc}
 
     def pre(params, batch, s_max):
         s_tok = batch["tokens"].shape[1]
@@ -95,5 +90,34 @@ def build_model(cfg: ModelConfig) -> Model:
     def icache(batch_size, s_max, s_enc=None, device=None):
         return lm.init_cache(cfg, batch_size, s_max, device)
 
-    return Model(cfg=cfg, init=init, forward=fwd, loss=loss, prefill=pre,
-                 decode=dec, init_cache=icache)
+    return Model(cfg=cfg, init=init, forward=fwd, loss=_loss(cfg, fwd),
+                 prefill=pre, decode=dec, init_cache=icache)
+
+
+def _loss(cfg: ModelConfig, fwd: Callable) -> Callable:
+    def loss(params, batch):
+        logits, aux = fwd(params, batch)
+        ce, acc = cross_entropy(logits, batch["labels"], cfg.vocab_padded)
+        total = ce + cfg.router_aux_coef * aux
+        return total, {"loss": ce, "aux": aux, "acc": acc}
+    return loss
+
+
+def _build_hybrid(cfg: ModelConfig) -> Model:
+    def init(generator: torch.Generator, device=None) -> dict:
+        return hybrid.init_params(cfg, generator, device)
+
+    def fwd(params, batch):
+        return hybrid.forward(cfg, params, batch["tokens"])
+
+    def pre(params, batch, s_max):
+        return hybrid.prefill(cfg, params, batch["tokens"], s_max)
+
+    def dec(params, token, cache):
+        return hybrid.decode_step(cfg, params, token, cache)
+
+    def icache(batch_size, s_max, s_enc=None, device=None):
+        return hybrid.init_cache(cfg, batch_size, s_max, device)
+
+    return Model(cfg=cfg, init=init, forward=fwd, loss=_loss(cfg, fwd),
+                 prefill=pre, decode=dec, init_cache=icache)

@@ -9,8 +9,12 @@ copy) layer by layer. The skeleton is
 
     x -> [ block_0 ... block_{L-1} ] -> final_norm -> lm_head
 
-with block = (norm -> attention -> residual -> norm -> MLP -> residual).
-The moe and ssm families are ROADMAP slice 4 and raise here.
+with block = (norm -> attention -> residual -> norm -> MLP -> residual)
+for the dense family, or (norm -> Mamba2 mixer -> residual) for the ssm
+family. The decode cache is a stacked ``KVCache`` or ``SSMState``; each
+layer's new entries are written into the stacked [L, ...] tensors in place
+(the reference scans a fresh cache out). The moe and vlm families are
+ROADMAP slice 4 and raise here.
 """
 
 from __future__ import annotations
@@ -26,6 +30,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import KVCache, attn_apply, attn_params
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
 from repro_torch.models.layers.norm import apply_norm, norm_params
+from repro_torch.models.layers.ssm import (
+    SSMState,
+    mamba2_apply,
+    mamba2_params,
+    ssm_state_zeros,
+)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -33,10 +43,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family in ("moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.family!r} blocks are not ported yet: ROADMAP Queue 1, "
-            f"slice 4 (items 12-15); the port runs the dense family")
+            f"slice 4 (items 13 and 15); the port runs the dense and ssm "
+            f"families")
 
 
 def make_remat(cfg: ModelConfig) -> Callable:
@@ -45,8 +56,12 @@ def make_remat(cfg: ModelConfig) -> Callable:
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
+    """``fn`` over the leaves of nested dicts and lists (the hybrid's
+    ``groups`` is a list of stacked dicts)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -59,6 +74,9 @@ def init_block_params(generator: torch.Generator, cfg: ModelConfig,
     """Params for ONE block (``init_params`` stacks them)."""
     _check_family(cfg)
     dt = _dtype(cfg)
+    if cfg.family == "ssm":
+        return {"ln1": norm_params(cfg.norm, cfg.d_model, device),
+                "mixer": mamba2_params(generator, cfg, dt, device)}
     return {
         "ln1": norm_params(cfg.norm, cfg.d_model, device),
         "attn": attn_params(generator, cfg.d_model, cfg.n_heads,
@@ -111,7 +129,7 @@ def _copy_into(stacked: dict, one: dict, i: int) -> None:
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: no numpy twin
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(np.array(a).view(np.uint16)  # a copy
                                 ).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
@@ -129,8 +147,12 @@ def params_from_jax(params_np: dict, device: "torch.device | str") -> dict:
 
 def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 cache: KVCache | None = None, positions=None):
-    """Returns (x, new_cache, aux_loss); a dense block has no auxiliary
-    loss, so the last is 0.0."""
+    """Returns (x, new_cache, aux_loss); a dense or ssm block has no
+    auxiliary loss, so the last is 0.0."""
+    if cfg.family == "ssm":
+        h, new_state = mamba2_apply(
+            p["mixer"], apply_norm(cfg.norm, p["ln1"], x), cfg, state=cache)
+        return x + h, new_state, 0.0
     h, new_cache = attn_apply(
         p["attn"], apply_norm(cfg.norm, p["ln1"], x),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
@@ -153,12 +175,21 @@ def _layer(blocks: dict, i: int) -> dict:
 
 
 def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                caches: KVCache | None, positions):
+                caches: "KVCache | SSMState | None", positions):
     """Run the blocks in order over the stacked [L, ...] params (and the
     stacked cache, whose tensors each layer updates in place)."""
     _check_family(cfg)
     blocks = params["blocks"]
     aux = 0.0
+    if isinstance(caches, SSMState):
+        for i in range(cfg.n_layers):
+            x, st, _ = block_apply(cfg, _layer(blocks, i), x,
+                                   cache=SSMState(caches.ssm[i],
+                                                  caches.conv[i]))
+            caches.ssm[i].copy_(st.ssm)
+            caches.conv[i].copy_(st.conv)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, caches, aux
     length = caches.length if caches is not None else None
     for i in range(cfg.n_layers):
         lc = (KVCache(caches.k[i], caches.v[i], caches.length)
@@ -205,11 +236,16 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               device=None) -> KVCache:
-    """Stacked [L, ...] decode cache; one length for every layer (they
-    advance together), a Python int."""
+               device=None) -> "KVCache | SSMState":
+    """Stacked [L, ...] decode cache: for the dense family K/V with one
+    length for every layer (they advance together), a Python int; for the
+    ssm family the recurrent state (``s_max`` unused: it is O(1))."""
     _check_family(cfg)
     device = default_device(device)
+    if cfg.family == "ssm":
+        st = ssm_state_zeros(cfg, batch, _dtype(cfg), device)
+        return SSMState(*(t[None].repeat(cfg.n_layers, *([1] * t.dim()))
+                          for t in st))
     shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
     dt = _dtype(cfg)
     return KVCache(torch.zeros(shape, dtype=dt, device=device),
@@ -246,7 +282,7 @@ def prefill_chunked(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
-                caches: KVCache):
+                caches: "KVCache | SSMState"):
     """One decode step. token: [B, 1]; caches from prefill/init_cache
     (updated in place and returned)."""
     x = embed_tokens(cfg, params, token)

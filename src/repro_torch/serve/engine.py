@@ -5,15 +5,17 @@ Request flow (the paper's accelerator serves frames streamed by the PS; here
 the card serves prompts streamed by the host):
 
 - the prompt batch goes host -> device as a measured TX;
-- the engine prefills the KV cache and decodes steps for the whole batch;
+- the engine prefills the decode cache (K/V, or the SSM state of the
+  ssm and hybrid families) and decodes steps for the whole batch;
 - each decoded token comes back device -> host as an RX. Under INTERRUPT
   management the RX of step t overlaps decode step t+1: a token's RX is
   submitted from the thread that sampled it, and the engine's D2H stream
   first waits on that thread's current stream (where the sampling ran), so
   a token is never copied before it exists.
 
-The port runs prefill and decode eagerly (no ``jit``) and updates the KV
-cache in place (the reference donates it to the jitted decode step).
+The port runs prefill and decode eagerly (no ``jit``) and updates the
+decode cache in place (the reference donates it to the jitted decode
+step); the engine never looks inside the cache the model returns.
 Striped channels and adaptive transfer (``n_channels > 1``,
 ``adaptive_transfer``, ``online_adaptation``) need ``core/channels.py`` and
 ``core/adaptive.py``, ROADMAP Queue 1 items 7-8; until they are ported
@@ -210,7 +212,7 @@ class ServingEngine:
         ``qos`` merges over the engine's base spec. Admission runs first: a
         shed request raises :class:`AdmissionError`. NOT reentrant: one
         generate() at a time per ServingEngine (the sampling generator, the
-        KV cache and the reused token matrix are engine state)."""
+        decode cache and the reused token matrix are engine state)."""
         spec = self.qos.merged(qos)
         tok_spec = QosSpec(priority=PriorityClass.TOKEN).merged(spec)
         decision = self.admission.decide(spec.effective_tenant,

@@ -1,15 +1,19 @@
 """The port on the card: each CUDA kernel against its plain version, the
-transfer engine's copy streams, one NullHop frame, and a small dense LM
-through the flash kernel and the serving engine. Every test here is
+transfer engine's copy streams, one NullHop frame, a small dense LM
+through the flash kernel and the serving engine, and the smoke mamba2 /
+zamba2 models through the SSD kernel. Every test here is
 marked ``cuda`` and skips where there is no GPU. The file imports neither
 jax nor the reference package, so it runs on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.accel.nullhop import NullHopExecutor
 from repro_torch.accel.roshambo import RoShamBoCNN
@@ -35,8 +39,11 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_plain,
 )
+from repro_torch.kernels.ssd_scan.kernel import SSD
+from repro_torch.kernels.ssd_scan.ops import ssd_full, ssd_intra_chunk
 from repro_torch.kernels.streamed_matmul.ref import matmul_ref
 from repro_torch.models.api import build_model
+from repro_torch.models.layers.ssm import ssd_chunked
 from repro_torch.serve.engine import ServeConfig, ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -202,6 +209,141 @@ def test_serving_on_card_is_policy_independent(dev):
                             policy=policy)
         try:
             assert eng.engine.device.type == "cuda"
+            got.append(np.stack([r.tokens for r in eng.generate(prompts, 12)]))
+        finally:
+            eng.close()
+    np.testing.assert_array_equal(got[0], got[1])
+
+
+# SSD, kernel against plain: f32 at the reference's 1e-3 (ssd_full against
+# ssd_chunked, tests/test_kernels.py); bf16 rtol 2e-2 and an atol of 0.05 x
+# the RMS of each plain output row (y_diag over P, states over N), as flash
+SSD_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, None)}
+
+
+def _ssd_inputs(dev, dtype, b, s, h, p, g, n, seed, strided=False):
+    """The model's distributions: dt = softplus(randn + dt_bias), A from
+    -1 to -16 over the heads, B and C scaled so C.B is ~unit. ``strided``
+    cuts x, B and C out of one [B, S, H*P + 2*G*N] tensor, as the model's
+    projection split does."""
+    gen = torch.Generator().manual_seed(seed)
+    xbc = torch.randn((b, s, h * p + 2 * g * n), generator=gen)
+    xbc[..., h * p:] *= n ** -0.25
+    xbc = xbc.to(dev, dtype)
+    if not strided:
+        xbc = xbc.contiguous()
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bb = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cc = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    if not strided:
+        x, bb, cc = x.contiguous(), bb.contiguous(), cc.contiguous()
+    dt = F.softplus(torch.randn((b, s, h), generator=gen)
+                    + math.log(math.e - 1)).to(dev)
+    a = -torch.linspace(1.0, 16.0, h).to(dev)
+    return x, dt, a, bb, cc
+
+
+def _ssd_close(got, ref, dtype, row_dim=-1):
+    rtol, atol = SSD_TOL[dtype]
+    ref = ref.float()
+    if atol is None:
+        atol = 0.05 * ref.pow(2).mean(row_dim, keepdim=True).sqrt()
+    diff = (got.float() - ref).abs()
+    assert torch.isfinite(got).all()
+    assert bool((diff <= atol + rtol * ref.abs()).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,strided", [
+    (2, 64, 4, 16, 2, 8, 8, False),
+    (2, 64, 4, 16, 2, 8, 32, False),
+    (1, 48, 2, 16, 1, 16, 16, True),
+    (2, 128, 8, 64, 1, 64, 32, True),
+    (1, 512, 8, 64, 1, 128, 256, True),
+    (1, 256, 4, 64, 2, 16, 256, False),
+])
+def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, strided,
+                                  dtype):
+    args = _ssd_inputs(dev, dtype, b, s, h, p, g, n, seed=s + n,
+                       strided=strided)
+    before = SSD.launches["ssd_intra_chunk"]
+    got = ssd_intra_chunk(*args, chunk=chunk)
+    assert SSD.launches["ssd_intra_chunk"] == before + 1
+    ref = ssd_intra_chunk(*args, chunk=chunk, use_kernel=False)
+    for gt, rt in zip(got, ref):
+        assert gt.dtype == torch.float32 and gt.shape == rt.shape
+    _ssd_close(got[0], ref[0], dtype)
+    _ssd_close(got[1], ref[1], dtype)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-6)
+
+
+def test_ssd_kernel_refuses_what_it_is_not_built_for(dev):
+    x, dt, a, bb, cc = _ssd_inputs(dev, torch.float32, 1, 48, 2, 16, 1, 16, 0)
+    with pytest.raises(ValueError, match="divisible"):
+        ssd_intra_chunk(x, dt, a, bb, cc, chunk=32)
+    with pytest.raises(ValueError, match="built for"):
+        ssd_intra_chunk(x, dt, a, bb, cc, chunk=24)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_intra_chunk(x, dt.bfloat16(), a, bb, cc, chunk=16)
+
+
+def test_ssd_full_kernel_matches_ssd_chunked(dev):
+    x, dt, a, bb, cc = _ssd_inputs(dev, torch.float32, 2, 512, 8, 64, 1,
+                                   128, seed=3)
+    init = torch.randn((2, 8, 64, 128), generator=torch.Generator()
+                       .manual_seed(4)).to(dev)
+    y1, f1 = ssd_full(x, dt, a, bb, cc, chunk=256, initial_state=init)
+    y2, f2 = ssd_chunked(x, dt, a, bb, cc, chunk=256, initial_state=init,
+                         return_final_state=True)
+    torch.testing.assert_close(y1, y2, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(f1, f2, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_models_through_the_ssd_kernel(dev, arch):
+    """The smoke configs (P 16, N 16, Q 16) on the card: one SSD launch a
+    mamba layer in a forward; the f32 logits match the same model run on
+    the CPU (plain SSD); prefill (kernel) matches decode (recurrence)."""
+    cfg = smoke_config(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40))).to(dev)
+    before = SSD.launches["ssd_intra_chunk"]
+    logits, _ = model.forward(params, {"tokens": toks})
+    assert SSD.launches["ssd_intra_chunk"] == before + cfg.n_layers
+    cpu_params = _tree_to(params, "cpu")
+    ref, _ = model.forward(cpu_params, {"tokens": toks.cpu()})
+    torch.testing.assert_close(logits.cpu(), ref, rtol=0, atol=1e-3)
+    last, _ = model.prefill(params, {"tokens": toks}, 48)
+    cache = model.init_cache(2, 48, device=dev)
+    before = SSD.launches["ssd_intra_chunk"]
+    for t in range(toks.shape[1]):
+        step, cache = model.decode(params, toks[:, t:t + 1], cache)
+    assert SSD.launches["ssd_intra_chunk"] == before
+    torch.testing.assert_close(step, last, rtol=0, atol=1e-3)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_ssm_serving_on_card_is_policy_independent(dev):
+    cfg = smoke_config("mamba2-780m").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 21),
+                                                dtype=np.int32)
+    got = []
+    for policy in (TransferPolicy.kernel_level(),
+                   TransferPolicy.user_level_polling()):
+        eng = ServingEngine(model, params, ServeConfig(max_seq=48),
+                            policy=policy)
+        try:
             got.append(np.stack([r.tokens for r in eng.generate(prompts, 12)]))
         finally:
             eng.close()

@@ -37,7 +37,11 @@ SLICE_MODULES = [
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.models.layers.attention", "repro_torch.models.lm",
     "repro_torch.models.api", "repro_torch.serve", "repro_torch.serve.engine",
-    "repro_torch.launch.serve",
+    "repro_torch.launch.serve", "repro_torch.kernels.ssd_scan",
+    "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.kernel",
+    "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.layers.ssm",
+    "repro_torch.models.hybrid", "repro_torch.configs.mamba2_780m",
+    "repro_torch.configs.zamba2_1_2b",
 ]
 
 

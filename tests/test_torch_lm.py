@@ -35,8 +35,9 @@ from repro_torch.models.layers.rope import apply_rope
 torch.set_num_threads(1)
 
 DENSE = ["qwen2.5-3b", "h2o-danube-1.8b", "stablelm-12b", "internlm2-20b"]
+SSM = ["mamba2-780m", "zamba2-1.2b"]
 NOT_PORTED = ["seamless-m4t-medium", "pixtral-12b", "deepseek-moe-16b",
-              "granite-moe-1b-a400m", "mamba2-780m", "zamba2-1.2b"]
+              "granite-moe-1b-a400m"]
 ATOL = 1e-4
 
 
@@ -46,7 +47,7 @@ def _t(a) -> torch.Tensor:
 
 # ---- configs ----------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_configs_match_reference(arch):
     for full in (True, False):
         get = "get_config" if full else "smoke_config"
@@ -90,12 +91,12 @@ def test_shape_cells_match_reference():
                                                ref))
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "vlm", "audio", "hybrid"])
+@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
 def test_other_families_raise(family):
     cfg = registry.smoke_config("qwen2.5-3b").replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg)
-    if family in ("moe", "ssm"):
+    if family in ("moe", "vlm"):
         with pytest.raises(NotImplementedError, match="slice 4"):
             lm.init_params(cfg, torch.Generator(), "cpu")
 
