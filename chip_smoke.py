@@ -16,8 +16,12 @@ Phases, in order; any failure exits non-zero before a result is printed:
    attention at qwen2.5-3b's heads (16/2, D 128, causal, S 128 and 2048,
    B 2), h2o-danube's (32/8, D 80, S 4096, window 0 / 1024 / 4096), one
    non-causal case with Sq != Skv and ragged causal S = 1000 (D 160 and a
-   D 64 window), f32 and bf16 (the bf16 limit scales with each output
-   row's RMS; a ``flash_cases`` line gives each case's error);
+   D 64 window), f32 through the CUDA-core kernel and bf16 through the
+   tensor-core kernel, one launch of that route's symbol per case (the bf16
+   limit scales with each output row's RMS; a ``flash_cases`` line gives
+   each case's error); BLOCKS split-K at the classifier head's shape, two
+   calls bitwise equal and within ``MATMUL_TOL`` of the split-order plain
+   version;
 5. the NullHop path: ``NullHopExecutor.run_frame`` on the card for a few
    frames under each policy of the Table I scenario plus the interrupt-
    driven ring, logits held against the port's ``RoShamBoCNN.apply`` (plain
@@ -30,8 +34,10 @@ Phases, in order; any failure exits non-zero before a result is printed:
 7. the LM scoring path: qwen2.5-3b at full width (36 layers, weights from a
    CUDA generator seeded with 0), ``Model.forward`` / ``Model.loss`` over
    B 2 x S 2048 tokens with ``use_pallas_attention`` on: exactly 36 flash
-   launches a forward, f32 logits held against the plain-attention forward,
-   bf16 losses and forward wall times of both (an ``lm_score`` line);
+   launches a forward, of the CUDA-core symbol in f32 and of the
+   tensor-core symbol in bf16; f32 logits held against the plain-attention
+   forward, bf16 losses and forward wall times of both, and the flash
+   kernel's device ms in a profiled bf16 forward (an ``lm_score`` line);
 8. the serving path: ``ServingEngine.generate`` on the same model in bf16,
    4 prompts x 128 tokens, 32 new tokens, greedy, under the kernel-level
    (interrupt) and the user-level polling policies, twice each: identical
@@ -59,8 +65,13 @@ Phases, in order; any failure exits non-zero before a result is printed:
    identical tokens (a ``hybrid`` line);
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
-   never calls it);
+   never calls it); the classifier head's BLOCKS matmul in alternating
+   rounds with ``torch.matmul`` (both host-bound there), with the device
+   time of each and BLOCKS's one-split schedule beside them;
 14. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+
+Every time printed comes from this run on the card named by the ``card``
+line printed after the build (``nvidia-smi`` name and power limit).
 """
 
 from __future__ import annotations
@@ -130,6 +141,7 @@ SSM_SERVE_PROMPT = 600
 F32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "d_skip", "dt_bias",
               "norm_scale")
 FRAMES_PER_POLICY = 4  # one warm-up frame + 3 timed (+1 profiled)
+MM_ROUNDS = 7  # alternating timing rounds of matmul_blocks and torch.matmul
 
 
 def fail(msg: str) -> None:
@@ -183,14 +195,14 @@ def max_err(torch, got, ref, tol) -> float:
 
 def launched(torch, lib, sym: str, expect: int, fn, what: str):
     """``fn()``, synchronised; fails unless it launched ``lib``'s ``sym``
-    exactly ``expect`` times."""
-    before = lib.launches[sym]
+    exactly ``expect`` times and no other entry of ``lib``."""
+    before = dict(lib.launches)
     out = fn()
     torch.cuda.synchronize()
-    got = lib.launches[sym] - before
-    if got != expect:
-        fail(f"{what}: {lib.name}.{sym} launched {got} times, expected "
-             f"{expect}")
+    got = {s: lib.launches[s] - before[s] for s in before}
+    if got != {s: expect if s == sym else 0 for s in before}:
+        fail(f"{what}: {lib.name} launched {got}, expected {expect} x "
+             f"{sym} and nothing else")
     return out
 
 
@@ -204,9 +216,10 @@ def device_events(torch, prof) -> list[tuple[str, float, int]]:
             for e in prof.key_averages() if e.device_type == cuda]
 
 
-def device_profile(torch, fn, top: int = 6) -> dict:
+def device_profile(torch, fn, top: int = 6, match: str | None = None) -> dict:
     """One ``fn()`` under ``torch.profiler``: its wall time, the device
-    time the trace holds and the costliest device entries."""
+    time the trace holds and the costliest device entries; with ``match``,
+    the device ms and launches of the entries whose name holds it."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -217,11 +230,32 @@ def device_profile(torch, fn, top: int = 6) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     ev = device_events(torch, prof)
     device = sum(t for _, t, _ in ev)
-    return {"wall_ms": wall, "device_ms": device,
-            "device_busy_share": device / wall,
-            "device_launches": sum(n for _, _, n in ev),
-            "top_ms": [[k[:72], t, n] for k, t, n in
-                       sorted(ev, key=lambda e: -e[1])[:top]]}
+    out = {"wall_ms": wall, "device_ms": device,
+           "device_busy_share": device / wall,
+           "device_launches": sum(n for _, _, n in ev),
+           "top_ms": [[k[:72], t, n] for k, t, n in
+                      sorted(ev, key=lambda e: -e[1])[:top]]}
+    if match:
+        out["match"] = {"name": match,
+                        "device_ms": sum(t for k, t, _ in ev if match in k),
+                        "launches": sum(n for k, _, n in ev if match in k)}
+    return out
+
+
+def device_ms_per_call(torch, fn, n: int = 20) -> float:
+    """Device time of one ``fn()``: the device-side entries of a
+    ``torch.profiler`` trace over ``n`` calls, over ``n``. Unlike
+    ``time_ms`` it leaves out the host's cost of each launch, which is most
+    of a call at the classifier head's size."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(t for _, t, _ in device_events(torch, prof)) / n
 
 
 def _cast_weights(tree, dtype):
@@ -310,12 +344,14 @@ def serve_runs(np, model, params, scfg, prompts, new_tokens: int,
 def lm_paths(np, torch, dev, libs, flash_lib):
     """7. the LM scoring path and 8. the serving path, qwen2.5-3b at full
     width; each driven with every launch count set to 0 just before it and
-    read just after. Returns the scoring path's flash launches."""
+    read just after. Returns the scoring path's flash launches, by C
+    symbol (f32: CUDA cores, bf16: tensor cores)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import ServeConfig
 
-    sym = "flash_attention_fwd"
+    from repro_torch.kernels.flash_attention.kernel import SYMBOL
+
     cfg = get_config("qwen2.5-3b", dtype="float32")
     t0 = time.perf_counter()
     # drawn on the card by a CUDA generator (Philox) seeded with 0: 3.4e9
@@ -332,17 +368,19 @@ def lm_paths(np, torch, dev, libs, flash_lib):
     plain_m = {dt: build_model(cfg.replace(dtype=dt))
                for dt in ("float32", "bfloat16")}
 
-    def flash_run(fn):
-        """One forward through the flash kernel: one launch a layer."""
-        return launched(torch, flash_lib, sym, cfg.n_layers, fn,
-                        f"one {cfg.name} forward")
+    def flash_run(fn, dtype):
+        """One forward through the flash kernel of ``dtype``'s route (f32:
+        CUDA cores, bf16: tensor cores): one launch a layer."""
+        return launched(torch, flash_lib, SYMBOL[getattr(torch, dtype)],
+                        cfg.n_layers, fn, f"one {cfg.name} {dtype} forward")
 
     score = {"model": cfg.name, "params": cfg.param_count(),
              "batch": LM_BATCH, "seq": LM_SEQ, "init_s": init_s}
     for lib in libs:
         lib.launches = dict.fromkeys(lib.launches, 0)
     with torch.no_grad():
-        lf, _ = flash_run(lambda: flash_m["float32"].forward(params, batch))
+        lf, _ = flash_run(lambda: flash_m["float32"].forward(params, batch),
+                          "float32")
         lp, _ = plain_m["float32"].forward(params, batch)
         torch.cuda.synchronize()
         want = (LM_BATCH, LM_SEQ, cfg.vocab_padded)
@@ -356,31 +394,39 @@ def lm_paths(np, torch, dev, libs, flash_lib):
                  f"> atol {LM_LOGIT_ATOL}")
         del lf, lp
         score["f32"]["loss_flash"] = float(flash_run(
-            lambda: flash_m["float32"].loss(params, batch))[0])
+            lambda: flash_m["float32"].loss(params, batch), "float32")[0])
         score["f32"]["loss_plain"] = float(
             plain_m["float32"].loss(params, batch)[0])
         params16 = _cast_weights(params, torch.bfloat16)
         del params
         torch.cuda.empty_cache()
-        lfl = float(flash_run(lambda: flash_m["bfloat16"].loss(params16,
-                                                               batch))[0])
+        lfl = float(flash_run(lambda: flash_m["bfloat16"].loss(
+            params16, batch), "bfloat16")[0])
         lpl = float(plain_m["bfloat16"].loss(params16, batch)[0])
         if not (np.isfinite(lfl) and np.isfinite(lpl)):
             fail(f"bf16 losses not finite: {lfl}, {lpl}")
         score["bf16"] = {
             "loss_flash": lfl, "loss_plain": lpl,
             "forward_ms_flash": wall_ms(torch, lambda: flash_run(
-                lambda: flash_m["bfloat16"].forward(params16, batch))),
+                lambda: flash_m["bfloat16"].forward(params16, batch),
+                "bfloat16")),
             "forward_ms_plain": wall_ms(
                 torch, lambda: plain_m["bfloat16"].forward(params16, batch)),
             "profile_flash_forward": device_profile(torch, lambda: flash_run(
-                lambda: flash_m["bfloat16"].forward(params16, batch)))}
+                lambda: flash_m["bfloat16"].forward(params16, batch),
+                "bfloat16"), match="flash_fwd_tc")}
+        prof = score["bf16"]["profile_flash_forward"]["match"]
+        score["bf16"]["flash_device_ms"] = prof["device_ms"]
+        if prof["launches"] != cfg.n_layers:
+            fail(f"profiled bf16 forward: {prof['launches']} tensor-core "
+                 f"flash kernels in the trace, expected {cfg.n_layers}")
     torch.cuda.synchronize()
-    lm_launches = flash_lib.launches[sym]
+    lm_launches = dict(flash_lib.launches)
     score["launches"] = {lib.name: dict(lib.launches) for lib in libs}
-    score["forwards_through_flash"] = lm_launches // cfg.n_layers
-    if lm_launches == 0:
-        fail("the LM scoring path never launched the flash kernel")
+    score["forwards_through_flash"] = {
+        s: n // cfg.n_layers for s, n in lm_launches.items()}
+    if min(lm_launches.values()) == 0:
+        fail(f"the LM scoring path skipped a flash kernel: {lm_launches}")
     print("lm_score " + json.dumps(score))
 
     # 8. serving, bf16, the reference's default config (its decode steps
@@ -689,12 +735,14 @@ def main() -> None:
     from repro_torch.kernels.conv2d.ops import conv2d_relu
     from repro_torch.kernels.conv2d.ref import conv2d_relu_ref
     from repro_torch.kernels.streamed_matmul.kernel import (
-        MATMUL, matmul_blocks, matmul_unique, TILES, unique_fits)
+        MATMUL, blocks_plan, matmul_blocks, matmul_unique, sm_count,
+        split_k_ranges, TILES, unique_fits)
     from repro_torch.kernels.streamed_matmul.ops import (
         block_dims_for, streamed_matmul)
-    from repro_torch.kernels.streamed_matmul.ref import matmul_ref
+    from repro_torch.kernels.streamed_matmul.ref import (
+        matmul_blocks_split_ref, matmul_ref)
 
-    from repro_torch.kernels.flash_attention.kernel import FLASH
+    from repro_torch.kernels.flash_attention.kernel import FLASH, SYMBOL
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.ssd_scan.kernel import SSD
@@ -703,6 +751,7 @@ def main() -> None:
     libs = (CONV2D, MATMUL, FLASH, SSD)
     t0 = time.perf_counter()
     build_all(list(libs))
+    print(f"card: {card}")
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         for line in lib.ptxas_log.splitlines():
@@ -760,6 +809,18 @@ def main() -> None:
                 got = matmul_blocks(x, w, block_m=bm, block_n=bn, block_k=bk)
                 errs["matmul_blocks", dt] = max(errs["matmul_blocks", dt],
                                                 max_err(torch, got, ref, tol))
+                # split K: summed in slice order, so a second call is
+                # bitwise the first, and the split-order plain version
+                # agrees within the same limit
+                again = matmul_blocks(x, w, block_m=bm, block_n=bn,
+                                      block_k=bk)
+                if not torch.equal(got, again):
+                    fail(f"matmul_blocks {dt} {(m, k, n)} tile {(bm, bn, bk)}"
+                         f": two calls differ")
+                splits, per, _ = blocks_plan(m, n, k, (bm, bn, bk),
+                                             sm_count(0))
+                max_err(torch, got, matmul_blocks_split_ref(
+                    x, w, split_k_ranges(k, bk, splits, per)), tol)
             if unique_fits(m, k, n, x.element_size()):
                 got = matmul_unique(x, w)
                 errs["matmul_unique", dt] = max(errs["matmul_unique", dt],
@@ -772,8 +833,10 @@ def main() -> None:
             q = torch.randn((b, sq, h, d), generator=gen).to(dev, dtype)
             k = torch.randn((b, skv, hkv, d), generator=gen).to(dev, dtype)
             v = torch.randn((b, skv, hkv, d), generator=gen).to(dev, dtype)
-            got = flash_attention(q, k, v, causal=causal,
-                                  window=window).float()
+            got = launched(torch, FLASH, SYMBOL[dtype], 1,
+                           lambda: flash_attention(q, k, v, causal=causal,
+                                                   window=window),
+                           f"flash {dt} {case}").float()
             ref = flash_attention_plain(q, k, v, causal=causal,
                                         window=window).float()
             if not bool(torch.isfinite(got).all()):
@@ -959,14 +1022,44 @@ def main() -> None:
     m, k = fx.shape
     n = fw.shape[1]
     bm, bn, bk = block_dims_for(policies[3][1], m, k, n, 4)
+    mm_splits, mm_per, mm_skinny = blocks_plan(m, n, k, (bm, bn, bk),
+                                               sm_count(0))
     mm_bound, mm_by = bound_ms((m * k + k * n + m * n) * 4, 2 * m * k * n)
-    mm = {
-        "matmul_blocks": time_ms(torch, lambda: matmul_blocks(
-            fx, fw, block_m=bm, block_n=bn, block_k=bk)),
-        "matmul_unique": time_ms(torch, lambda: matmul_unique(fx, fw)),
-    }
+
+    def blocks():
+        return matmul_blocks(fx, fw, block_m=bm, block_n=bn, block_k=bk)
+
+    def lib():
+        return torch.matmul(fx, fw)
+
+    # At the head both calls are bound by the host's time, which moves by
+    # tens of percent from one timing to the next: so they are timed in
+    # alternating rounds and compared by the median and by the rounds won.
+    rounds = [(time_ms(torch, blocks, iters=200),
+               time_ms(torch, lib, iters=200)) for _ in range(MM_ROUNDS)]
+    mm_blocks_rounds, mm_lib_rounds = (sorted(r) for r in zip(*rounds))
+    mm = {"matmul_blocks": mm_blocks_rounds[MM_ROUNDS // 2],
+          "matmul_unique": time_ms(torch, lambda: matmul_unique(fx, fw))}
+    mm_lib = mm_lib_rounds[MM_ROUNDS // 2]
     mm_plain = time_ms(torch, lambda: matmul_ref(fx, fw))
-    mm_lib = time_ms(torch, lambda: torch.matmul(fx, fw))
+    # the same calls' device time alone (the host's launch cost left out)
+    mm_dev = {"matmul_blocks": device_ms_per_call(torch, blocks),
+              "matmul_unique": device_ms_per_call(
+                  torch, lambda: matmul_unique(fx, fw))}
+    mm_lib_dev = device_ms_per_call(torch, lib)
+    # BLOCKS's schedule before split-K, in this run: the same kernel as one
+    # split through the general (not skinny) kernel, one block walking K
+    y1 = torch.empty((m, n), device=dev)
+
+    def one_split():
+        MATMUL.launch("matmul_blocks", fx.data_ptr(), fw.data_ptr(),
+                      y1.data_ptr(), None, None, m, n, k, bm, 1,
+                      -(-k // bk), 0, 0, device=dev)
+        return y1
+
+    max_err(torch, one_split(), matmul_ref(fx, fw), MATMUL_TOL["float32"])
+    mm_one_split = time_ms(torch, one_split, iters=200)
+    mm_one_split_dev = device_ms_per_call(torch, one_split)
 
     kernels = [{
         "name": "conv2d", "route": "cuda",
@@ -989,9 +1082,18 @@ def main() -> None:
             "max_abs_err_bf16": errs[sym, "bfloat16"],
             "ms": mm[sym], "plain_ms": mm_plain, "bound_ms": mm_bound,
             "bound_by": mm_by, "library_ms": mm_lib,
+            "device_ms": mm_dev[sym], "library_device_ms": mm_lib_dev,
         })
+    kernels[-2].update({
+        "tile": [bm, bn, bk], "splits": mm_splits, "steps_per_split": mm_per,
+        "skinny": mm_skinny, "ms_rounds": mm_blocks_rounds,
+        "library_ms_rounds": mm_lib_rounds,
+        "rounds_won": sum(a <= b for a, b in rounds),
+        "ms_one_split": mm_one_split,
+        "device_ms_one_split": mm_one_split_dev})
     # flash at the LM path's shape: qwen2.5-3b heads, B 2, S 2048, causal,
-    # bf16 (the f32 kernel's time at the same shape beside it)
+    # bf16 on the tensor-core kernel (the f32 route's CUDA-core kernel at
+    # the same shape beside it)
     b, s_, h, hkv, d = LM_BATCH, LM_SEQ, 16, 2, 128
     fq = torch.randn((b, s_, h, d), generator=gen).to(dev, torch.bfloat16)
     fk = torch.randn((b, s_, hkv, d), generator=gen).to(dev, torch.bfloat16)
@@ -1015,11 +1117,13 @@ def main() -> None:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:115",
-        "launches": lm_launches,
+        "launches": sum(lm_launches.values()),
+        "launches_by_symbol": lm_launches,
         "max_abs_err": errs["flash_attention", "float32"],
         "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
         "ms": fl_ms, "ms_f32": fl_ms32, "plain_ms": fl_plain,
         "bound_ms": fl_bound, "bound_by": fl_by, "library_ms": fl_lib,
+        "symbol": SYMBOL[torch.bfloat16], "symbol_f32": SYMBOL[torch.float32],
     })
     # the SSD kernel at the SSM scoring path's shape: mamba2-780m, B 2,
     # S 2048, bf16 x/B/C (f32 beside it). No single PyTorch call computes

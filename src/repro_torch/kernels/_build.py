@@ -9,8 +9,12 @@ when a module is imported: the CPU tests import every module on a host
 that has no ``nvcc``.
 
 Each C entry point launches on the stream it is given, allocates nothing,
-and returns ``cudaGetLastError()``; :meth:`CudaLibrary.launch` raises if
-that is not 0 and counts the launch.
+and returns ``cudaGetLastError()``; :meth:`CudaLibrary.launch` passes the
+current stream of the tensors' device, raises if the result is not 0 and
+counts the launch. Its host cost matters for the small launches (the
+classifier head's matmul takes microseconds on the card), so it reads the
+raw stream handle and switches device only when the tensors are not on the
+current one.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ class CudaLibrary:
         self.launches: dict[str, int] = {sym: 0 for sym in signatures}
         self.ptxas_log = ""
         self._lib: ctypes.CDLL | None = None
+        self._fns: dict[str, Any] = {}
         self._lock = threading.Lock()
 
     def target(self) -> Path:
@@ -92,19 +97,30 @@ class CudaLibrary:
             if self._lib is None:
                 self.finish_build(self.start_build())
                 lib = ctypes.CDLL(str(self.target()))
+                fns = {}
                 for sym, argtypes in self.signatures.items():
                     fn = getattr(lib, sym)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
+                    fns[sym] = fn
                 self._lib = lib
+                self._fns = fns  # whole, so launch never sees it half made
             return self._lib
 
-    def launch(self, sym: str, *args: Any) -> None:
-        """Call entry point ``sym`` on the current stream of the current
-        device; raise on a non-zero ``cudaGetLastError()``."""
-        fn = getattr(self.load(), sym)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
+    def launch(self, sym: str, *args: Any, device: torch.device) -> None:
+        """Call entry point ``sym`` on the current stream of ``device`` (a
+        CUDA device), made the current device for the call; raise on a
+        non-zero ``cudaGetLastError()``."""
+        if not self._fns:
+            self.load()
+        fn = self._fns[sym]
+        cur = torch._C._cuda_getDevice()
+        idx = cur if device.index is None else device.index
+        if idx == cur:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+        else:
+            with torch.cuda.device(idx):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
         if err != 0:
             raise RuntimeError(
                 f"{self.name}.{sym} launch failed: CUDA error {err}")

@@ -51,8 +51,7 @@ def conv2d_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        CONV2D.launch("conv2d_bias_act", x.data_ptr(), w.data_ptr(),
-                      b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout, kh,
-                      kw, int(relu), _DTYPE_CODE[x.dtype])
+    CONV2D.launch("conv2d_bias_act", x.data_ptr(), w.data_ptr(),
+                  b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout, kh,
+                  kw, int(relu), _DTYPE_CODE[x.dtype], device=x.device)
     return y

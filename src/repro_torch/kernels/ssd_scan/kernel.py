@@ -81,11 +81,10 @@ def ssd_intra_chunk_call(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     st = torch.empty((bs, nc, h, p, n), **f32)
     dec = torch.empty((bs, nc, h), **f32)
     if y.numel():
-        with torch.cuda.device(x.device):
-            SSD.launch("ssd_intra_chunk", x.data_ptr(), dt.data_ptr(),
-                       a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                       st.data_ptr(), dec.data_ptr(), bs, s, h, p, g, n,
-                       chunk, x.stride(0), x.stride(1), x.stride(2),
-                       dt.stride(0), dt.stride(1), b.stride(0), b.stride(1),
-                       b.stride(2), _DTYPE_CODE[x.dtype])
+        SSD.launch("ssd_intra_chunk", x.data_ptr(), dt.data_ptr(),
+                   a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                   st.data_ptr(), dec.data_ptr(), bs, s, h, p, g, n,
+                   chunk, x.stride(0), x.stride(1), x.stride(2),
+                   dt.stride(0), dt.stride(1), b.stride(0), b.stride(1),
+                   b.stride(2), _DTYPE_CODE[x.dtype], device=x.device)
     return y, st, dec

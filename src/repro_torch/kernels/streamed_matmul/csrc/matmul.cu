@@ -8,17 +8,41 @@
 // (wrapper ops.py `streamed_matmul`, which picks the mode from the policy).
 //
 // BLOCKS. The TPU grid walked (M/bm, N/bn, K/bk) with K sequential and an
-// f32 scratch accumulator zeroed at k = 0 and flushed at the last k. Blocks
-// of a CUDA grid run in parallel and in no order, so the K axis becomes a
-// loop inside the block: each block owns one (BM x BN) output tile, streams
-// (BM x BK) and (BK x BN) operand tiles through shared memory one K step at
-// a time, and keeps the accumulator in registers (each of 256 threads owns a
-// (BM/16) x (BN/16) sub-tile) until the single flush at the end. Ragged
-// edges are masked, so any shape is accepted. What bounds it on an H100:
-// with f32 FMAs on the CUDA cores its ceiling is the 67 TFLOP/s f32 rate,
-// far below the tensor cores; at the small shapes the slice drives (the
-// RoShamBo classifier head) one launch costs more than the work. Tensor-core
-// tiles (wgmma) and a TMA-fed pipeline are later work.
+// f32 scratch accumulator zeroed at k = 0 and flushed at the last k. Here
+// each output tile (bm x bn) still streams its operands through shared
+// memory bk at a time into an f32 accumulator in registers, and (bm, bn, bk)
+// still come from the policy's block_bytes (ops.py `block_dims_for`). Blocks
+// of a CUDA grid run in parallel and in no order, so the K axis is a loop
+// inside the block. Ragged edges are masked, so any shape is accepted.
+//
+// What bounds BLOCKS on an H100: with f32 FMAs on the CUDA cores its
+// ceiling is the 67 TFLOP/s f32 rate (the f32 path is held to plain f32, so
+// no TF32 tensor cores; bf16 takes the same code). At the shape the slice
+// drives, the RoShamBo classifier head [1, 2048] @ [2048, 4] under a 64 KiB
+// policy, the tile shrinks to (32, 32, 16) and the output-tile grid is ONE
+// block: the first port's kernel walked 128 K steps, two barriers each, on one SM
+// while 131 waited, and 4 of its 256 threads owned an output, so latency
+// alone set its 0.12 ms. The design answers both:
+// - split-K: when the output-tile grid is smaller than the card's SMs (132
+//   on an H100 SXM; the wrapper reads the count), kernel.py's
+//   `split_k_plan` cuts K into contiguous ranges of whole bk steps, one
+//   block each (grid z). Each block writes an f32 partial into a
+//   [splits, M, N] scratch; the block that arrives last at its output
+//   tile's counter (an int atomic) sums the tile's partials in slice order
+//   and casts: no float atomics, so two calls give bitwise-equal results,
+//   and one launch (at the head's size the host's cost of a launch and an
+//   allocation is most of the call). One split (a grid that fills the
+//   card) writes y directly.
+// - skinny outputs (bm > M or bn > N, and few outputs: kernel.py `skinny`):
+//   the threads of a block split each K step among themselves, bk lanes an
+//   output unit (a row and 4 columns), and reduce with warp shuffles at the
+//   end, instead of owning output positions outside the matrix. Operand
+//   tiles are staged with 16-byte loads where the rows are aligned.
+// At the head this takes one launch of a few microseconds on the card, more
+// than cuBLAS's two kernels for the same product, and the call is bound by
+// the host: the Python wrapper, ctypes and the launch cost ~20 us, as
+// torch.matmul's own dispatch does (PERF.md gives both, device time and
+// call time, on an H100 80GB HBM3 at 700 W).
 //
 // UNIQUE. The TPU version was one grid step with both whole operands
 // resident in VMEM, and its wrapper accepted any operands within a 96 MiB
@@ -42,6 +66,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
 
 namespace {
 
@@ -52,16 +77,62 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) { *out = _
 
 constexpr int kThreads = 256;  // a 16 x 16 thread grid
 
+// Split-K epilogue of one output tile, [m0, m0 + mt) x [n0, n0 + nt), once
+// this block has written its f32 partial to part[blockIdx.z]: the block
+// that arrives last at the tile's counter sums the tile's partials in slice
+// order (z = 0, 1, ...) into y and re-arms the counter at 0 for the next
+// call on the stream. No float atomics: the sum's order is fixed, so two
+// calls give bitwise-equal results whichever block comes last. A thread an
+// output loads kBatch slices at a time, so their loads are in flight
+// together.
+template <typename T>
+__device__ void split_k_finish(const float* __restrict__ part,
+                               T* __restrict__ y, int* counter, int M, int N,
+                               int m0, int n0, int mt, int nt) {
+  constexpr int kBatch = 32;
+  __shared__ int last;
+  const int splits = gridDim.z, outs = mt * nt;
+  __threadfence();  // this block's partial is visible to every block
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const long long mn = static_cast<long long>(M) * N;
+  for (int oi = threadIdx.x; oi < outs; oi += kThreads) {
+    const long long o = static_cast<long long>(m0 + oi / nt) * N + n0 + oi % nt;
+    float acc = 0.f;
+    for (int z0 = 0; z0 < splits; z0 += kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        v[j] = z0 + j < splits ? __ldcg(part + (z0 + j) * mn + o) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) acc = z0 + j == 0 ? v[j] : acc + v[j];
+    }
+    from_f32(acc, &y[o]);
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+// Each of 256 threads (a 16 x 16 grid) owns a (BM/16) x (BN/16) sub-tile of
+// the block's output tile and accumulates it over the block's K range,
+// split z = blockIdx.z: bk steps [z * per, (z + 1) * per). With one split the
+// result goes to y in T, else the f32 partial to part[z] and split_k_finish
+// (counters: one per output tile).
 template <typename T, int BM, int BN, int BK>
 __global__ void __launch_bounds__(kThreads)
 matmul_blocks_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     T* __restrict__ y, int M, int N, int K) {
+                     T* __restrict__ y, float* __restrict__ part,
+                     int* counters, int M, int N, int K, int per) {
   constexpr int TM = BM / 16, TN = BN / 16;
   __shared__ float xs[BM][BK];
   __shared__ float ws[BK][BN];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * per * BK;
+  const int k_end = min(K, k_begin + per * BK);
 
   float acc[TM][TN];
 #pragma unroll
@@ -69,7 +140,7 @@ matmul_blocks_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     for (int i = tid; i < BM * BK; i += kThreads) {
       const int r = i / BK, c = i % BK;
       const int gm = m0 + r, gk = k0 + c;
@@ -96,6 +167,7 @@ matmul_blocks_kernel(const T* __restrict__ x, const T* __restrict__ w,
     __syncthreads();
   }
 
+  float* pz = part ? part + static_cast<long long>(blockIdx.z) * M * N : nullptr;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty + 16 * i;
@@ -103,9 +175,120 @@ matmul_blocks_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn < N) from_f32(acc[i][j], &y[static_cast<long long>(gm) * N + gn]);
+      if (gn >= N) continue;
+      const long long o = static_cast<long long>(gm) * N + gn;
+      if (pz) pz[o] = acc[i][j];
+      else from_f32(acc[i][j], &y[o]);
     }
   }
+  if (pz)
+    split_k_finish(part, y, counters + blockIdx.y * gridDim.x + blockIdx.x,
+                   M, N, m0, n0, min(BM, M - m0), min(BN, N - n0));
+}
+
+// 16 bytes of T as f32, or fewer: elements [0, n) of src (n <= V), each
+// zero past n; one vector load when all V are in and src is 16-byte aligned
+template <typename T>
+__device__ __forceinline__ void load16(float* dst, const T* src, int n) {
+  constexpr int V = 16 / sizeof(T);
+  if (n == V && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) dst[i] = to_f32(v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) dst[i] = i < n ? to_f32(src[i]) : 0.f;
+  }
+}
+
+constexpr int kSkinnyUnits = 4;  // output units (a row, 4 columns) a lane holds
+constexpr int kSkinnyMaxM = 128, kSkinnyMaxN = 128, kSkinnyMaxK = 32;
+
+// The skinny BLOCKS kernel (kernel.py `skinny`): the same output tile, K
+// range and staging as matmul_blocks_kernel, but the block's valid part
+// (mt x nt) is cut into units of one row and 4 columns, and BK lanes (a
+// warp or half of one) share each unit: lane kk takes column kk of every
+// K step, so the threads split each K step among themselves. Group g of
+// the 256 / BK groups holds units g + (256 / BK) i, i < kSkinnyUnits; the
+// lanes' sums are reduced with warp shuffles after the last step.
+template <typename T, int BK>
+__global__ void __launch_bounds__(kThreads)
+matmul_blocks_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            T* __restrict__ y, float* __restrict__ part,
+                            int* counters, int M, int N, int K, int BM,
+                            int BN, int per) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int G = kThreads / BK;
+  __shared__ float xs[kSkinnyMaxM][BK];
+  __shared__ float ws[BK][kSkinnyMaxN + 1];  // padded: lanes read one column
+  const int tid = threadIdx.x, g = tid / BK, kk = tid % BK;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int mt = min(BM, M - m0), nt = min(BN, N - n0);
+  const int nu = (nt + 3) / 4, units = mt * nu;
+  const int k_begin = blockIdx.z * per * BK;
+  const int k_end = min(K, k_begin + per * BK);
+
+  float acc[kSkinnyUnits][4];
+#pragma unroll
+  for (int i = 0; i < kSkinnyUnits; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    const int kt = min(BK, k_end - k0);
+    for (int i = tid; i < mt * (BK / V); i += kThreads) {
+      const int r = i / (BK / V), c = (i % (BK / V)) * V;
+      load16(&xs[r][c], x + static_cast<long long>(m0 + r) * K + k0 + c,
+             max(0, min(V, kt - c)));
+    }
+    const int nv = (nt + V - 1) / V;
+    for (int i = tid; i < BK * nv; i += kThreads) {
+      const int r = i / nv, c = (i % nv) * V;
+      float buf[V];
+      load16(buf, w + static_cast<long long>(k0 + r) * N + n0 + c,
+             r < kt ? min(V, nt - c) : 0);
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (c + e < nt) ws[r][c + e] = buf[e];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kSkinnyUnits; ++i) {
+      const int u = g + G * i;
+      if (u < units) {
+        const int r = u / nu, c = (u % nu) * 4;
+        const float a = xs[r][kk];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < nt) acc[i][e] = fmaf(a, ws[kk][c + e], acc[i][e]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* pz = part ? part + static_cast<long long>(blockIdx.z) * M * N : nullptr;
+#pragma unroll
+  for (int i = 0; i < kSkinnyUnits; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int off = BK / 2; off > 0; off >>= 1)
+        acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], off);
+    const int u = g + G * i;
+    if (kk != 0 || u >= units) continue;
+    const int r = u / nu, c = (u % nu) * 4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c + e >= nt) continue;
+      const long long o = static_cast<long long>(m0 + r) * N + n0 + c + e;
+      if (pz) pz[o] = acc[i][e];
+      else from_f32(acc[i][e], &y[o]);
+    }
+  }
+  if (pz)
+    split_k_finish(part, y, counters + blockIdx.y * gridDim.x + blockIdx.x,
+                   M, N, m0, n0, mt, nt);
 }
 
 template <typename T>
@@ -173,21 +356,39 @@ matmul_unique_grid_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T, int BM, int BN, int BK>
-int launch_blocks(const void* x, const void* w, void* y, int M, int N, int K,
-                  cudaStream_t s) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  matmul_blocks_kernel<T, BM, BN, BK><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), M, N, K);
+int launch_blocks(const void* x, const void* w, void* y, float* part,
+                  int* counters, int M, int N, int K, int splits, int per,
+                  int skinny, cudaStream_t s) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* yt = static_cast<T*>(y);
+  float* pz = splits > 1 ? part : nullptr;
+  if (skinny) {
+    // the lanes of the block hold at most this many units (kernel.py
+    // `skinny` chooses the kernel only below it)
+    const int units = min(M, BM) * ((min(N, BN) + 3) / 4);
+    if (units > (kThreads / BK) * kSkinnyUnits)
+      return static_cast<int>(cudaErrorInvalidValue);
+    static_assert(BM <= kSkinnyMaxM && BN <= kSkinnyMaxN && BK <= kSkinnyMaxK &&
+                  (BK == 16 || BK == 32), "skinny tile");
+    matmul_blocks_skinny_kernel<T, BK><<<grid, kThreads, 0, s>>>(
+        xt, wt, yt, pz, counters, M, N, K, BM, BN, per);
+  } else {
+    matmul_blocks_kernel<T, BM, BN, BK><<<grid, kThreads, 0, s>>>(
+        xt, wt, yt, pz, counters, M, N, K, per);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_blocks(const void* x, const void* w, void* y, int M, int N, int K,
-                    int tile, cudaStream_t s) {
+int dispatch_blocks(const void* x, const void* w, void* y, float* part,
+                    int* counters, int M, int N, int K, int tile, int splits,
+                    int per, int skinny, cudaStream_t s) {
   switch (tile) {
-    case 32: return launch_blocks<T, 32, 32, 16>(x, w, y, M, N, K, s);
-    case 64: return launch_blocks<T, 64, 64, 32>(x, w, y, M, N, K, s);
-    case 128: return launch_blocks<T, 128, 128, 32>(x, w, y, M, N, K, s);
+    case 32: return launch_blocks<T, 32, 32, 16>(x, w, y, part, counters, M, N, K, splits, per, skinny, s);
+    case 64: return launch_blocks<T, 64, 64, 32>(x, w, y, part, counters, M, N, K, splits, per, skinny, s);
+    case 128: return launch_blocks<T, 128, 128, 32>(x, w, y, part, counters, M, N, K, splits, per, skinny, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -215,13 +416,23 @@ int launch_unique(const void* x, const void* w, void* y, int M, int N, int K,
 
 }  // namespace
 
-// tile: the square output tile edge, 32, 64 or 128 (K steps of 16, 32, 32).
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError().
-extern "C" int matmul_blocks(const void* x, const void* w, void* y, int M,
-                             int N, int K, int tile, int dtype, void* stream) {
+// tile: the square output tile edge, 32, 64 or 128 (K steps of 16, 32,
+// 32); splits and per: grid z and the bk steps each split takes (kernel.py
+// `split_k_plan`); skinny: 1 for the skinny kernel (kernel.py `skinny`);
+// dtype: 0 = float32, 1 = bfloat16. When splits > 1, part: an f32 scratch
+// of at least splits * M * N, and counters: one int per output tile, all 0
+// (the kernel leaves them 0 again). Each entry returns cudaGetLastError().
+extern "C" int matmul_blocks(const void* x, const void* w, void* y,
+                             void* part, void* counters, int M, int N, int K,
+                             int tile, int splits, int per, int skinny,
+                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_blocks<float>(x, w, y, M, N, K, tile, s);
-  if (dtype == 1) return dispatch_blocks<__nv_bfloat16>(x, w, y, M, N, K, tile, s);
+  float* pf = static_cast<float*>(part);
+  int* cf = static_cast<int*>(counters);
+  if (splits < 1 || (splits > 1 && (pf == nullptr || cf == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return dispatch_blocks<float>(x, w, y, pf, cf, M, N, K, tile, splits, per, skinny, s);
+  if (dtype == 1) return dispatch_blocks<__nv_bfloat16>(x, w, y, pf, cf, M, N, K, tile, splits, per, skinny, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

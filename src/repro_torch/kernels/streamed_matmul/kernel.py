@@ -5,20 +5,30 @@ Replaces ``src/repro/kernels/streamed_matmul/kernel.py``: ``matmul_blocks``
 (``_matmul_kernel``) and ``matmul_unique`` (``_matmul_unique_kernel``). The
 source's header says what bounds each on an H100 and how the design answers
 that. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises."""
+kernel or raises.
+
+BLOCKS fills the card by splitting K (``split_k_plan``) when its output
+tiles are fewer than the SMs, and takes a skinny kernel (``skinny``) when
+the matrix is narrower than the tile; both plans are pure functions of the
+shapes and the card's SM count. ``ref.matmul_blocks_split_ref`` is the
+plain version in the kernel's slices (held against the reference and, on
+the card, against the kernel); the CPU path takes the unsliced
+``ref.matmul_ref``."""
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import torch
 
+from repro_torch.analysis.validated import make_lock
 from repro_torch.kernels._build import I, P, CudaLibrary
 from repro_torch.kernels.streamed_matmul.ref import matmul_ref
 
 MATMUL = CudaLibrary(
     "matmul", Path(__file__).with_name("csrc") / "matmul.cu",
-    {"matmul_blocks": [P, P, P, I, I, I, I, I, P],
+    {"matmul_blocks": [P, P, P, P, P, I, I, I, I, I, I, I, I],
      "matmul_unique": [P, P, P, I, I, I, I, P]})
 
 # The (bm, bn, bk) tiles the BLOCKS kernel is compiled for: a 16x16 thread
@@ -38,18 +48,114 @@ SMEM_BUDGET = 232_448
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+THREADS = 256  # a BLOCKS block's threads
+SKINNY_UNITS = 4  # output units (a row, 4 columns) a lane group holds
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> tuple[int, int, int]:
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"bad operands {tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"needs CUDA tensors on one device, got {x.device} "
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_k_plan(m: int, n: int, k: int, tile: tuple[int, int, int],
+                 sms: int) -> tuple[int, int]:
+    """(splits, bk steps a split) for BLOCKS at (m, n, k) under ``tile`` on
+    a card of ``sms`` SMs. Where the output-tile grid is smaller, K is cut
+    into contiguous ranges of whole bk steps, one block each, so that
+    tiles x splits fills the card (at most one split a step, none empty);
+    a grid that fills the card keeps one split, a single pass."""
+    bm, bn, bk = tile
+    steps = _cdiv(k, bk)
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    want = min(steps, sms // tiles) if tiles else 1
+    if want <= 1:
+        return 1, steps
+    per = _cdiv(steps, want)
+    return _cdiv(steps, per), per
+
+
+def split_k_ranges(k: int, bk: int, splits: int,
+                   per: int) -> list[tuple[int, int]]:
+    """The [k0, k1) range of each split, in slice order."""
+    return [(z * per * bk, min(k, (z + 1) * per * bk)) for z in range(splits)]
+
+
+def skinny(m: int, n: int, tile: tuple[int, int, int]) -> bool:
+    """Whether BLOCKS takes its skinny kernel: the matrix is narrower than
+    the tile (bm > m or bn > n) and the tile's valid part, in units of a
+    row and 4 columns, fits the block's lane groups (256 / bk groups of bk
+    lanes, ``SKINNY_UNITS`` units each)."""
+    bm, bn, bk = tile
+    if bm <= m and bn <= n:
+        return False
+    units = min(m, bm) * _cdiv(min(n, bn), 4)
+    return units <= THREADS // bk * SKINNY_UNITS
+
+
+def blocks_plan(m: int, n: int, k: int, tile: tuple[int, int, int],
+                sms: int) -> tuple[int, int, bool]:
+    """(splits, bk steps a split, skinny): ``split_k_plan`` and ``skinny``
+    together."""
+    return (*split_k_plan(m, n, k, tile, sms), skinny(m, n, tile))
+
+
+class SplitWorkspace:
+    """The split-K scratch of BLOCKS, kept per (device, stream): f32
+    partials (at least splits x M x N) and one int counter per output tile,
+    zeroed once (the last block of a tile leaves its counter at 0 again).
+    Launches on one stream run in order, so they can share it. The buffers
+    only grow. A caller holds the tensors it was given until its launch is
+    enqueued, so a buffer that another thread replaces meanwhile is freed
+    only then, and the caching allocator hands it out again only in that
+    stream's order. Streams come from PyTorch's pool, which never frees
+    them, so a handle names one stream for the life of the process (a
+    stream wrapped with ``torch.cuda.ExternalStream`` must outlive its
+    launches here)."""
+
+    def __init__(self) -> None:
+        self._lock = make_lock("SplitWorkspace._lock")
+        # (device index, stream handle) -> (partials, counters)
+        self._bufs: dict[tuple[int | None, int],  # guarded-by: _lock
+                         tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def scratch(self, device: torch.device, stream: int, n_part: int,
+                n_tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(partials, counters) of at least ``n_part`` floats and
+        ``n_tiles`` zeroed ints for launches on ``stream`` of ``device``."""
+        key = (device.index, stream)
+        with self._lock:
+            part, cnt = self._bufs.get(key, (None, None))
+            if part is None or part.numel() < n_part:
+                part = torch.empty(n_part, dtype=torch.float32, device=device)
+            if cnt is None or cnt.numel() < n_tiles:
+                cnt = torch.zeros(n_tiles, dtype=torch.int32, device=device)
+            self._bufs[key] = (part, cnt)
+            return part, cnt
+
+
+SPLIT_WORKSPACE = SplitWorkspace()
+
+
+def _check(x: torch.Tensor, w: torch.Tensor,
+           dev: torch.device) -> tuple[int, int, int]:
+    # each attribute read once (``dev`` is x's device): at the classifier
+    # head's size the host's time is most of the call
+    xs, ws = x.shape, w.shape
+    if len(xs) != 2 or len(ws) != 2 or xs[1] != ws[0]:
+        raise ValueError(f"bad operands {tuple(xs)} @ {tuple(ws)}")
+    if dev.type != "cuda" or w.device != dev:
+        raise ValueError(f"needs CUDA tensors on one device, got {dev} "
                          f"and {w.device}")
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported dtypes {x.dtype}, {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("operands must be contiguous")
-    return x.shape[0], x.shape[1], w.shape[1]
+    return xs[0], xs[1], ws[1]
 
 
 def unique_fits(m: int, k: int, n: int, itemsize: int) -> bool:
@@ -59,19 +165,30 @@ def unique_fits(m: int, k: int, n: int, itemsize: int) -> bool:
 def matmul_blocks(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 128,
                   block_n: int = 128, block_k: int = 32) -> torch.Tensor:
     """BLOCKS-mode matmul: [M, K] @ [K, N], (bm, bn) output tiles, K
-    streamed through shared memory bk at a time. Ragged edges are masked."""
-    if x.device.type == "cpu":
+    streamed through shared memory bk at a time, split over blocks by
+    ``split_k_plan`` and summed in slice order. Ragged edges are masked."""
+    dev = x.device
+    if dev.type == "cpu":
         return matmul_ref(x, w)
-    m, k, n = _check(x, w)
+    m, k, n = _check(x, w, dev)
     tile = (block_m, block_n, block_k)
     if tile not in TILES:
         raise ValueError(f"no BLOCKS kernel for tile {tile}; built: {TILES}")
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if not (m and n and k):
         return y.zero_()
-    with torch.cuda.device(x.device):
-        MATMUL.launch("matmul_blocks", x.data_ptr(), w.data_ptr(),
-                      y.data_ptr(), m, n, k, block_m, _DTYPE_CODE[x.dtype])
+    idx = dev.index  # a tensor's device always has its index
+    splits, per, thin = blocks_plan(m, n, k, tile, sm_count(idx))
+    part_ptr = cnt_ptr = None
+    if splits > 1:
+        # held until the launch is enqueued (SplitWorkspace)
+        part, cnt = SPLIT_WORKSPACE.scratch(
+            dev, torch._C._cuda_getCurrentRawStream(idx), splits * m * n,
+            _cdiv(m, block_m) * _cdiv(n, block_n))
+        part_ptr, cnt_ptr = part.data_ptr(), cnt.data_ptr()
+    MATMUL.launch("matmul_blocks", x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                  part_ptr, cnt_ptr, m, n, k, block_m, splits, per,
+                  int(thin), _DTYPE_CODE[x.dtype], device=dev)
     return y
 
 
@@ -87,11 +204,10 @@ def matmul_unique(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             f"analogue. Use BLOCKS partitioning.")
     if x.device.type == "cpu":
         return matmul_ref(x, w)
-    m, k, n = _check(x, w)
+    m, k, n = _check(x, w, x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y.zero_()
-    with torch.cuda.device(x.device):
-        MATMUL.launch("matmul_unique", x.data_ptr(), w.data_ptr(),
-                      y.data_ptr(), m, n, k, _DTYPE_CODE[x.dtype])
+    MATMUL.launch("matmul_unique", x.data_ptr(), w.data_ptr(),
+                  y.data_ptr(), m, n, k, _DTYPE_CODE[x.dtype], device=x.device)
     return y

@@ -14,7 +14,13 @@ from repro.kernels.flash_attention.kernel import (
 )
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+from repro_torch.kernels.flash_attention.kernel import (
+    TC_BLOCK_KV,
+    TC_BLOCK_Q,
+    TC_WARPGROUP_Q,
+    flash_attention_bshd,
+    visible_kv_tiles,
+)
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_plain,
@@ -153,3 +159,44 @@ def test_wrappers_refuse_non_cuda_tensors(d):
         flash_attention(q, k, k)
     with pytest.raises(ValueError):
         flash_attention_bshd(q, k, k)
+
+
+def _admitted(sq, skv, causal, window):
+    """[Sq, Skv] bool: the (q, k) pairs the mask admits (ref.py's rule)."""
+    qpos = np.arange(sq)[:, None]
+    kpos = np.arange(skv)[None, :]
+    ok = np.ones((sq, skv), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= qpos - kpos < window
+    return ok
+
+
+@pytest.mark.parametrize("bq", [TC_BLOCK_Q, TC_WARPGROUP_Q])
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (2048, 2048, True, 0), (4096, 4096, True, 1024), (1000, 1000, True, 96),
+    (200, 333, False, 0), (333, 333, True, 0), (77, 77, True, 0),
+    (640, 640, False, 200), (300, 190, False, 0), (1, 300, False, 0),
+    (129, 129, True, 64), (200, 90, True, 0), (90, 200, True, 0),
+])
+def test_visible_kv_tiles_cover_the_mask_and_nothing_else(sq, skv, causal,
+                                                         window, bq):
+    """At the tensor-core kernel's tiles (128-row blocks, 64-row
+    warpgroups, 64-key tiles): every (q, k) pair the mask admits lies in a
+    visited tile of its q tile, and every visited tile holds such a pair
+    (none is masked for every row)."""
+    ok = _admitted(sq, skv, causal, window)
+    bkv = TC_BLOCK_KV
+    for q0 in range(0, sq, bq):
+        rows = ok[q0:q0 + bq]
+        t_lo, t_hi = visible_kv_tiles(q0, bq, bkv, sq, skv, causal, window)
+        seen = np.nonzero(rows.any(axis=0))[0]
+        if seen.size == 0:
+            assert t_hi <= t_lo
+            continue
+        assert t_lo * bkv <= seen.min() and seen.max() < t_hi * bkv
+        for t in range(t_lo, t_hi):
+            assert rows[:, t * bkv:(t + 1) * bkv].any(), (q0, t)
+    # rows past Sq see nothing
+    assert visible_kv_tiles(sq, bq, bkv, sq, skv, causal, window) == (0, 0)

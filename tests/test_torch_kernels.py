@@ -3,6 +3,8 @@ on the same numpy inputs. On the CPU the port's wrappers run their plain
 versions; the CUDA kernels themselves are checked on the card
 (tests/test_torch_cuda.py and ``chip_smoke.py``)."""
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,12 +21,20 @@ from repro_torch.kernels.conv2d.ref import conv2d_relu_ref
 from repro_torch.kernels.streamed_matmul.kernel import (
     SMEM_BUDGET,
     TILES,
+    SplitWorkspace,
+    blocks_plan,
     matmul_blocks,
     matmul_unique,
+    skinny,
+    split_k_plan,
+    split_k_ranges,
     unique_fits,
 )
 from repro_torch.kernels.streamed_matmul.ops import block_dims_for, streamed_matmul
-from repro_torch.kernels.streamed_matmul.ref import matmul_ref
+from repro_torch.kernels.streamed_matmul.ref import (
+    matmul_blocks_split_ref,
+    matmul_ref,
+)
 
 # the suite runs in several worker processes on one host: one intra-op
 # thread each keeps torch from oversubscribing the cores that the
@@ -159,3 +169,97 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     with pytest.raises(ValueError):
         matmul_blocks(torch.zeros(4, 4, device="meta"),
                       torch.zeros(4, 4, device="meta"))
+
+
+SMS = 132  # an H100 SXM's streaming multiprocessors
+
+# (m, k, n): the classifier head, ragged K, one row, a grid of 4 tiles, and
+# grids that fill the card (1 split) under every built tile
+SPLIT_SHAPES = [(1, 2048, 4), (1, 2050, 4), (3, 1000, 10), (100, 777, 33),
+                (256, 3000, 256), (512, 300, 1024), (2048, 64, 2048),
+                (0, 64, 4), (4, 0, 4)]
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+def test_split_k_plan_covers_k_once_in_whole_steps(m, k, n, tile):
+    bm, bn, bk = tile
+    splits, per = split_k_plan(m, n, k, tile, SMS)
+    ranges = split_k_ranges(k, bk, splits, per)
+    assert len(ranges) == splits >= 1
+    # contiguous, in order, from 0 to K, each starting on a whole bk step
+    # and none empty (unless K itself is)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0
+    for k0, k1 in ranges:
+        assert k0 % bk == 0 and k1 - k0 <= per * bk
+        assert k1 > k0 or k == 0
+    tiles = -(-m // bm) * -(-n // bn)
+    if tiles >= SMS:
+        assert splits == 1  # the tile grid already fills the card
+    assert splits == 1 or tiles * splits <= SMS
+    assert blocks_plan(m, n, k, tile, SMS) == (splits, per,
+                                               skinny(m, n, tile))
+
+
+@pytest.mark.parametrize("m,n,tile,want", [
+    (1, 4, (32, 32, 16), True),
+    (1, 4, (128, 128, 32), True),
+    (3, 10, (64, 64, 32), True),
+    (32, 32, (32, 32, 16), False),     # the matrix fills the tile
+    (100, 33, (128, 128, 32), False),  # too many outputs for the lanes
+    (16, 16, (32, 32, 16), True),      # 16 x 4 units, 16 groups of 16 lanes
+    (17, 16, (32, 32, 16), False),
+])
+def test_skinny_rule(m, n, tile, want):
+    assert skinny(m, n, tile) is want
+
+
+def test_split_workspace_grown_by_another_thread_keeps_the_callers_scratch():
+    """A caller's scratch stays its own while a second thread grows the
+    workspace of the same (device, stream) before the caller launches: the
+    caller holds tensors, not addresses, and the new buffers are others."""
+    ws, cpu = SplitWorkspace(), torch.device("cpu")
+    part, cnt = ws.scratch(cpu, 7, 64, 4)
+    assert part.numel() >= 64 and int(cnt.abs().sum()) == 0
+    part.fill_(1.0)
+    grown = []
+    t = threading.Thread(target=lambda: grown.append(
+        ws.scratch(cpu, 7, 4096, 256)))
+    t.start()
+    t.join()
+    (gpart, gcnt), = grown
+    assert gpart.numel() >= 4096 and gcnt.numel() >= 256
+    assert gpart.data_ptr() != part.data_ptr()
+    assert gcnt.data_ptr() != cnt.data_ptr()
+    assert bool((part == 1.0).all())  # the caller's partials, untouched
+    # a later call of the stream gets the grown buffers; another stream
+    # has its own
+    again = ws.scratch(cpu, 7, 64, 4)
+    assert again[0] is gpart and again[1] is gcnt
+    assert ws.scratch(cpu, 8, 64, 4)[0] is not gpart
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,blocks,tile", [
+    (1, 2048, 4, (1, 4, 512), (32, 32, 16)),
+    (64, 768, 96, (32, 32, 128), (64, 64, 32)),
+    (256, 512, 128, (128, 128, 128), (128, 128, 32)),
+])
+def test_split_order_blocks_matches_pallas(m, k, n, blocks, tile, dtype):
+    """The plain split-order BLOCKS (f32 partials over the planned K
+    ranges, summed in slice order) against the reference's Pallas
+    ``matmul_blocks`` in interpret mode."""
+    jx, jw, tx, tw = _mm_inputs(m, k, n, dtype, seed=4)
+    ref = np.asarray(jax_matmul_blocks(jx, jw, block_m=blocks[0],
+                                       block_n=blocks[1], block_k=blocks[2],
+                                       interpret=True), np.float32)
+    splits, per = split_k_plan(m, n, k, tile, SMS)
+    assert splits > 1
+    got = matmul_blocks_split_ref(tx, tw, split_k_ranges(k, tile[2], splits,
+                                                         per))
+    assert got.dtype == tx.dtype
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol,
+                               atol=tol * 10)
