@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero before a result is printed:
    the card must stay float32 to be held against a float32 kernel);
 4. each kernel against its plain PyTorch version on the card: conv2d at the
    five RoShamBo layer shapes for B = 1 and B = 32, ReLU on and off, f32 and
-   bf16; the streamed matmul under UNIQUE and BLOCKS, f32 and bf16; flash
+   bf16, one launch a call, two calls bitwise equal and within ``CONV_TOL``
+   of the split-order plain version of its plan as well; the streamed
+   matmul under UNIQUE and BLOCKS, f32 and bf16 (UNIQUE's two calls bitwise
+   equal, and its single block within ``MATMUL_TOL`` of its order); flash
    attention at qwen2.5-3b's heads (16/2, D 128, causal, S 128 and 2048,
    B 2), h2o-danube's (32/8, D 80, S 4096, window 0 / 1024 / 4096), one
    non-causal case with Sq != Skv and ragged causal S = 1000 (D 160 and a
@@ -26,9 +29,10 @@ Phases, in order; any failure exits non-zero before a result is printed:
    frames under each policy of the Table I scenario plus the interrupt-
    driven ring, logits held against the port's ``RoShamBoCNN.apply`` (plain
    conv on the card); a Table-I row per policy, with the median per-chunk
-   copy time and, from one more frame under ``torch.profiler``, the device
-   time a frame holds; the conv kernel's launch count must rise by 10 per
-   frame (5 layers + the 5-layer sparsity pass);
+   copy time and, from one more frame under ``torch.profiler`` (after a
+   warm-up step of small kernels), the device time a frame holds; the conv
+   kernel's launch count must rise by 10 per frame (5 layers + the 5-layer
+   sparsity pass);
 6. the streamed-matmul path: the RoShamBo classifier head of the same
    frames through ``streamed_matmul`` under each policy's partitioning;
 7. the LM scoring path: qwen2.5-3b at full width (36 layers, weights from a
@@ -65,9 +69,12 @@ Phases, in order; any failure exits non-zero before a result is printed:
    identical tokens (a ``hybrid`` line);
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
-   never calls it); the classifier head's BLOCKS matmul in alternating
-   rounds with ``torch.matmul`` (both host-bound there), with the device
-   time of each and BLOCKS's one-split schedule beside them;
+   never calls it); conv2d per RoShamBo layer at batch 1 (events and
+   device ms of the kernel and of ``F.conv2d``, and the layer's plan) and
+   the five-layer sum in alternating rounds with ``F.conv2d``; the
+   classifier head's BLOCKS and UNIQUE matmuls in alternating rounds with
+   ``torch.matmul`` (all host-bound there), with the device time of each
+   and BLOCKS's one-split schedule beside them;
 14. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 Every time printed comes from this run on the card named by the ``card``
@@ -141,7 +148,7 @@ SSM_SERVE_PROMPT = 600
 F32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "d_skip", "dt_bias",
               "norm_scale")
 FRAMES_PER_POLICY = 4  # one warm-up frame + 3 timed (+1 profiled)
-MM_ROUNDS = 7  # alternating timing rounds of matmul_blocks and torch.matmul
+ROUNDS = 7  # alternating timing rounds of a kernel and its library call
 
 
 def fail(msg: str) -> None:
@@ -212,8 +219,11 @@ def device_events(torch, prof) -> list[tuple[str, float, int]]:
     ``self_device_time_total`` repeats the time of the kernels it launched,
     so summing every entry would count that time twice."""
     cuda = torch.autograd.DeviceType.CUDA
+    # a schedule's step marker is listed as a device entry holding the
+    # step's wall time; it is no device work
     return [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == cuda]
+            for e in prof.key_averages()
+            if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
 
 
 def device_profile(torch, fn, top: int = 6, match: str | None = None) -> dict:
@@ -243,19 +253,36 @@ def device_profile(torch, fn, top: int = 6, match: str | None = None) -> dict:
 
 
 def device_ms_per_call(torch, fn, n: int = 20) -> float:
-    """Device time of one ``fn()``: the device-side entries of a
-    ``torch.profiler`` trace over ``n`` calls, over ``n``. Unlike
+    """Device time of one ``fn()`` from a ``torch.profiler`` trace of ``n``
+    calls: for each kernel (device entry) its mean time, times the launches
+    a call makes of it (its entries over ``n``, rounded). Unlike
     ``time_ms`` it leaves out the host's cost of each launch, which is most
-    of a call at the classifier head's size."""
+    of a call at the classifier head's size.
+
+    A trace can lose entries (on an H100, late in a run: traces of 20 conv
+    launches held 15 or 19 entries, three times in a row; early in a run,
+    some traces held none), so the time comes from each kernel's mean, not
+    from the sum; the trace is the second step of a profiler schedule,
+    after a warm-up step of the same calls; and a trace in which some
+    kernel holds fewer than n / 2 entries is taken again, a third failing
+    the run rather than print a time it never measured."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(t for _, t, _ in device_events(torch, prof)) / n
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ev = device_events(torch, prof)
+        if ev and all(c >= n / 2 for _, _, c in ev):
+            return sum(t / c * round(c / n) for _, t, c in ev)
+    fail(f"three profiler traces of {n} calls lost entries: "
+         f"{[(k[:40], c) for k, _, c in ev]}")
 
 
 def _cast_weights(tree, dtype):
@@ -731,16 +758,18 @@ def main() -> None:
 
     # 2. build
     from repro_torch.kernels._build import build_all
-    from repro_torch.kernels.conv2d.kernel import CONV2D
+    from repro_torch.kernels.conv2d.kernel import (
+        CONV2D, conv_plan, conv_ranges)
     from repro_torch.kernels.conv2d.ops import conv2d_relu
-    from repro_torch.kernels.conv2d.ref import conv2d_relu_ref
+    from repro_torch.kernels.conv2d.ref import (
+        conv2d_relu_ref, conv2d_split_ref)
     from repro_torch.kernels.streamed_matmul.kernel import (
         MATMUL, blocks_plan, matmul_blocks, matmul_unique, sm_count,
-        split_k_ranges, TILES, unique_fits)
+        split_k_ranges, TILES, unique_fits, unique_one_block, unique_plan)
     from repro_torch.kernels.streamed_matmul.ops import (
         block_dims_for, streamed_matmul)
     from repro_torch.kernels.streamed_matmul.ref import (
-        matmul_blocks_split_ref, matmul_ref)
+        matmul_blocks_split_ref, matmul_ref, matmul_unique_order_ref)
 
     from repro_torch.kernels.flash_attention.kernel import FLASH, SYMBOL
     from repro_torch.kernels.flash_attention.ops import (
@@ -779,9 +808,12 @@ def main() -> None:
 
     # 4. kernels against their plain versions
     # max |kernel - plain| per kernel and dtype
-    errs = {(kern, dt): 0.0 for kern in ("conv2d", "matmul_blocks",
-                                         "matmul_unique", "flash_attention")
+    errs = {(kern, dt): 0.0 for kern in ("conv2d", "conv2d_split_order",
+                                         "matmul_blocks", "matmul_unique",
+                                         "matmul_unique_order",
+                                         "flash_attention")
             for dt in ("float32", "bfloat16")}
+    sms = sm_count(0)
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[1]
         tol = CONV_TOL[dt]
@@ -791,12 +823,25 @@ def main() -> None:
                 wt = (torch.randn((3, 3, cin, cout), generator=gen)
                       * (2.0 / (9 * cin)) ** 0.5).to(dev, dtype)
                 b = (torch.randn((cout,), generator=gen) * 0.1).to(dev, dtype)
+                _, splits, per = conv_plan(bsz, h, w, cin, cout, 3, 3, sms)
+                ranges = conv_ranges(3, 3, cin, splits, per)
                 for relu in (True, False):
-                    got = conv2d_relu(x, wt, b, relu=relu)
+                    got = launched(torch, CONV2D, "conv2d_bias_act", 1,
+                                   lambda: conv2d_relu(x, wt, b, relu=relu),
+                                   f"conv2d {dt} B {bsz} {(h, w, cin, cout)}")
                     ref = conv2d_relu_ref(x, wt, b, relu=relu)
-                    torch.cuda.synchronize()
                     errs["conv2d", dt] = max(errs["conv2d", dt],
                                              max_err(torch, got, ref, tol))
+                    # split K is summed in slice order: a second call is
+                    # bitwise the first, and the split-order plain version
+                    # agrees within the same limit
+                    if not torch.equal(got, conv2d_relu(x, wt, b, relu=relu)):
+                        fail(f"conv2d {dt} B {bsz} {(h, w, cin, cout)} "
+                             f"relu {relu}: two calls differ")
+                    errs["conv2d_split_order", dt] = max(
+                        errs["conv2d_split_order", dt],
+                        max_err(torch, got, conv2d_split_ref(
+                            x, wt, b, ranges, relu=relu), tol))
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[1]
         tol = MATMUL_TOL[dt]
@@ -825,6 +870,15 @@ def main() -> None:
                 got = matmul_unique(x, w)
                 errs["matmul_unique", dt] = max(errs["matmul_unique", dt],
                                                 max_err(torch, got, ref, tol))
+                # a fixed reduction order: two calls bitwise equal
+                if not torch.equal(got, matmul_unique(x, w)):
+                    fail(f"matmul_unique {dt} {(m, k, n)}: two calls differ")
+                if unique_one_block(m, k, n, x.element_size()):
+                    order = matmul_unique_order_ref(
+                        x, w, unique_plan(m, n, k)[1])
+                    errs["matmul_unique_order", dt] = max(
+                        errs["matmul_unique_order", dt],
+                        max_err(torch, got, order, tol))
     flash_cases, flash_bad = [], []
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[1]
@@ -885,6 +939,7 @@ def main() -> None:
               for f in frames]
     rows, logits_seen = [], []
     n_frames = 0
+    warm = torch.zeros(1, device=dev)  # the profiler's warm-up kernels
     for lib in libs:
         lib.launches = dict.fromkeys(lib.launches, 0)
     for name, policy in policies:
@@ -922,13 +977,30 @@ def main() -> None:
             # what the copy costs apart from queueing and completion
             samples = list(ex.engine.chunk_samples)
             # one more frame under the profiler, for the device time a frame
-            # holds (kernels + copies); its wall time is not used
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                run_checked(1)
-                torch.cuda.synchronize()
-            device_ms = sum(t for _, t, _ in device_events(torch, prof))
+            # holds (kernels + copies); its wall time is not used. As in
+            # device_ms_per_call, the traced frame is a schedule's second
+            # step (the first a few small kernels), and a trace without the
+            # frame's 10 conv kernels is taken again
+            for _ in range(3):
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU,
+                                    torch.profiler.ProfilerActivity.CUDA],
+                        schedule=torch.profiler.schedule(
+                            wait=0, warmup=1, active=1, repeat=1)) as prof:
+                    for _ in range(8):
+                        warm.add_(1.0)
+                    torch.cuda.synchronize()
+                    prof.step()
+                    run_checked(1)
+                    torch.cuda.synchronize()
+                    prof.step()
+                ev = device_events(torch, prof)
+                if sum(c for k, _, c in ev if "conv2d_igemm" in k) == 10:
+                    break
+            else:
+                fail(f"{policy.tag}: three traces of a frame lost conv "
+                     f"kernels")
+            device_ms = sum(t for _, t, _ in ev)
         finally:
             ex.close()
         chunk_us = {d: sorted(dt * 1e6 for dd, _m, _n, dt in samples
@@ -995,22 +1067,52 @@ def main() -> None:
             torch.randn((1, h, w, cin), generator=gen).to(dev),
             (torch.randn((3, 3, cin, cout), generator=gen) * 0.1).to(dev),
             torch.zeros(cout).to(dev)))
-    conv_kernel_ms = conv_plain_ms = conv_lib_ms = conv_bound = 0.0
-    per_layer = []
+    conv_plain_ms = conv_bound = conv_dev = conv_lib_dev = 0.0
+    per_layer, conv_calls, lib_calls = [], [], []
     for (x, w, b), (h, wd, cin, cout) in zip(conv_in, layer_shapes):
-        k_ms = time_ms(torch, lambda: conv2d_relu(x, w, b))
-        p_ms = time_ms(torch, lambda: conv2d_relu_ref(x, w, b))
         xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
-        l_ms = time_ms(torch, lambda: F.conv2d(xn, wn, b, padding=1))
+
+        def kern(x=x, w=w, b=b):
+            return conv2d_relu(x, w, b)
+
+        def lib_conv(xn=xn, wn=wn, b=b):  # NCHW view of the same input
+            return F.conv2d(xn, wn, b, padding=1)
+
+        k_ms = time_ms(torch, kern)
+        p_ms = time_ms(torch, lambda: conv2d_relu_ref(x, w, b))
+        l_ms = time_ms(torch, lib_conv)
+        k_dev = device_ms_per_call(torch, kern)
+        l_dev = device_ms_per_call(torch, lib_conv)
         nbytes = (x.numel() + w.numel() + b.numel() + h * wd * cout) * 4
         b_ms, _ = bound_ms(nbytes, 2 * h * wd * cout * 9 * cin)
-        per_layer.append([h, wd, cin, cout, k_ms, p_ms, l_ms, b_ms])
-        conv_kernel_ms += k_ms
+        tile, splits, per = conv_plan(1, h, wd, cin, cout, 3, 3, sms)
+        per_layer.append([h, wd, cin, cout, k_ms, p_ms, l_ms, k_dev, l_dev,
+                          b_ms, list(tile), splits, per])
+        conv_calls.append(kern)
+        lib_calls.append(lib_conv)
         conv_plain_ms += p_ms
-        conv_lib_ms += l_ms
         conv_bound += b_ms
+        conv_dev += k_dev
+        conv_lib_dev += l_dev
     print("conv2d per layer [H, W, Cin, Cout, kernel_ms, plain_ms, "
-          "library_ms, bound_ms]: " + json.dumps(per_layer))
+          "library_ms, kernel_device_ms, library_device_ms, bound_ms, "
+          "tile, splits, chunks_per_split]: " + json.dumps(per_layer))
+
+    def five(calls):
+        def run():
+            for c in calls:
+                c()
+        return run
+
+    # The five layers at batch 1 are ~20 us calls bound by the host, whose
+    # time moves by tens of percent from one timing to the next: so the
+    # five-layer sum is timed in alternating rounds against F.conv2d (bias,
+    # no ReLU; TF32 off) and compared by the median and the rounds won.
+    conv_rounds = [(time_ms(torch, five(conv_calls)),
+                    time_ms(torch, five(lib_calls))) for _ in range(ROUNDS)]
+    conv_k_rounds, conv_l_rounds = (sorted(r) for r in zip(*conv_rounds))
+    print(f"conv2d five layers, {ROUNDS} alternating rounds (kernel ms, "
+          f"F.conv2d ms): {json.dumps(conv_rounds)}")
     conv_bytes = sum((h * wd * cin + 9 * cin * cout + cout + h * wd * cout) * 4
                      for h, wd, cin, cout in layer_shapes)
     conv_flops = sum(2 * h * wd * cout * 9 * cin
@@ -1032,20 +1134,27 @@ def main() -> None:
     def lib():
         return torch.matmul(fx, fw)
 
-    # At the head both calls are bound by the host's time, which moves by
+    def unique():
+        return matmul_unique(fx, fw)
+
+    # At the head every call is bound by the host's time, which moves by
     # tens of percent from one timing to the next: so they are timed in
-    # alternating rounds and compared by the median and by the rounds won.
+    # alternating rounds (BLOCKS, torch.matmul, UNIQUE) and each kernel is
+    # compared with torch.matmul by the median and by the rounds won.
     rounds = [(time_ms(torch, blocks, iters=200),
-               time_ms(torch, lib, iters=200)) for _ in range(MM_ROUNDS)]
-    mm_blocks_rounds, mm_lib_rounds = (sorted(r) for r in zip(*rounds))
-    mm = {"matmul_blocks": mm_blocks_rounds[MM_ROUNDS // 2],
-          "matmul_unique": time_ms(torch, lambda: matmul_unique(fx, fw))}
-    mm_lib = mm_lib_rounds[MM_ROUNDS // 2]
+               time_ms(torch, lib, iters=200),
+               time_ms(torch, unique, iters=200)) for _ in range(ROUNDS)]
+    mm_rounds = {"matmul_blocks": sorted(r[0] for r in rounds),
+                 "matmul_unique": sorted(r[2] for r in rounds)}
+    mm_won = {"matmul_blocks": sum(r[0] <= r[1] for r in rounds),
+              "matmul_unique": sum(r[2] <= r[1] for r in rounds)}
+    mm_lib_rounds = sorted(r[1] for r in rounds)
+    mm = {sym: v[ROUNDS // 2] for sym, v in mm_rounds.items()}
+    mm_lib = mm_lib_rounds[ROUNDS // 2]
     mm_plain = time_ms(torch, lambda: matmul_ref(fx, fw))
     # the same calls' device time alone (the host's launch cost left out)
     mm_dev = {"matmul_blocks": device_ms_per_call(torch, blocks),
-              "matmul_unique": device_ms_per_call(
-                  torch, lambda: matmul_unique(fx, fw))}
+              "matmul_unique": device_ms_per_call(torch, unique)}
     mm_lib_dev = device_ms_per_call(torch, lib)
     # BLOCKS's schedule before split-K, in this run: the same kernel as one
     # split through the general (not skinny) kernel, one block walking K
@@ -1068,9 +1177,16 @@ def main() -> None:
         "launches": main_launches["conv2d_bias_act"],
         "max_abs_err": errs["conv2d", "float32"],
         "max_abs_err_bf16": errs["conv2d", "bfloat16"],
-        "ms": conv_kernel_ms, "plain_ms": conv_plain_ms,
+        "max_abs_err_split_order": errs["conv2d_split_order", "float32"],
+        # the five RoShamBo layers at batch 1: medians of the alternating
+        # rounds; device ms summed over the layers
+        "ms": conv_k_rounds[ROUNDS // 2], "plain_ms": conv_plain_ms,
         "bound_ms": conv_bound, "bound_by": conv_by,
-        "library_ms": conv_lib_ms,
+        "library_ms": conv_l_rounds[ROUNDS // 2],
+        "ms_rounds": conv_k_rounds, "library_ms_rounds": conv_l_rounds,
+        "rounds_won": sum(a <= b for a, b in conv_rounds),
+        "device_ms": conv_dev, "library_device_ms": conv_lib_dev,
+        "plans": [[list(t), sp, pe] for *_, t, sp, pe in per_layer],
     }]
     for sym, line in (("matmul_blocks", 61), ("matmul_unique", 92)):
         kernels.append({
@@ -1083,14 +1199,14 @@ def main() -> None:
             "ms": mm[sym], "plain_ms": mm_plain, "bound_ms": mm_bound,
             "bound_by": mm_by, "library_ms": mm_lib,
             "device_ms": mm_dev[sym], "library_device_ms": mm_lib_dev,
+            "ms_rounds": mm_rounds[sym], "library_ms_rounds": mm_lib_rounds,
+            "rounds_won": mm_won[sym],
         })
     kernels[-2].update({
         "tile": [bm, bn, bk], "splits": mm_splits, "steps_per_split": mm_per,
-        "skinny": mm_skinny, "ms_rounds": mm_blocks_rounds,
-        "library_ms_rounds": mm_lib_rounds,
-        "rounds_won": sum(a <= b for a, b in rounds),
-        "ms_one_split": mm_one_split,
+        "skinny": mm_skinny, "ms_one_split": mm_one_split,
         "device_ms_one_split": mm_one_split_dev})
+    kernels[-1].update({"plan": list(unique_plan(m, n, k))})
     # flash at the LM path's shape: qwen2.5-3b heads, B 2, S 2048, causal,
     # bf16 on the tensor-core kernel (the f32 route's CUDA-core kernel at
     # the same shape beside it)

@@ -1,30 +1,44 @@
-// Row-streamed direct conv2d + bias + optional ReLU, NHWC / HWIO, SAME
-// padding, stride 1 — NullHop's MAC array on Hopper.
+// Implicit-GEMM conv2d + bias + optional ReLU, NHWC / HWIO, SAME padding,
+// stride 1 — NullHop's MAC array on Hopper.
 //
 // Replaces: src/repro/kernels/conv2d/kernel.py `_conv_kernel` / `conv2d_slabs`
 // (the Pallas TPU kernel, wrapper ops.py `conv2d_relu`).
 //
 // What bounds it on an H100: at the RoShamBo shapes (64x64x1->16 down to
 // 4x4x128->128) each layer moves at most ~0.6 MB and does at most ~10 MFLOP
-// per frame, so the bytes bound and the FLOP bound are both well under a
-// microsecond; a launch costs more than either. At batch 32 the layers stay
-// below the 67 TFLOP/s f32 rate by orders of magnitude, so the kernel is
-// bounded by its own serial inner loop (K*K*Cin FMAs per output per thread)
-// and by how few blocks the deep layers give the card (H*B blocks).
+// per frame, so the bytes bound and the FLOP bound are both under a
+// microsecond. What is left is latency and occupancy: how many SMs the
+// launch keeps busy and how long each block's dependent chain is. The first
+// port gave a block one output row, so at batch 1 conv4 (8x8x64->128) ran
+// on 8 SMs of 132 and conv5 (4x4x128->128) on 4, each thread walking 2,304
+// FMAs in a row, each FMA loading its weight from L2.
 //
-// Design: one block per (batch, output row, run of TW output columns). The
-// block stages the KH input rows that window needs — the overlapping rows
-// NullHop streams in, read straight from x with the padding halo masked to
-// zero — into shared memory as f32, once. The TPU kernel needed ops.py to
-// gather overlapping row slabs because BlockSpecs are disjoint; here the
-// block computes its own offsets, so there is no gather pass. Each thread
-// then owns (pixel, output channel) pairs, Cout-fastest: weight reads are
-// coalesced across the warp, input reads are shared-memory broadcasts, and
-// the f32 accumulator stays in a register. Bias and ReLU are fused into the
-// store. A later PR can move the K*K shifted dots onto tensor cores (wgmma).
+// Design: the conv is a GEMM, M = B*H*W output pixels, N = Cout, K =
+// KH*KW*Cin (k = (dy*KW + dx)*Cin + ci, the HWIO order, so row k of the
+// weight matrix is contiguous). A block owns a 64-pixel x 32-channel output
+// tile and walks its K range in 32-wide chunks through a two-stage ring in
+// shared memory: the weight tile [32 k x 32 channels] and the input tile
+// [64 pixels x 32 k] gathered from x, each k decoded to (dy, dx, ci) and the
+// padding halo filled with zeros. The copies are 16-byte `cp.async` (zero-
+// filled where masked) where Cin and Cout are multiples of 16 bytes' worth of
+// elements, and plain loads otherwise (conv1's Cin = 1). Each thread keeps a
+// 2 x 4 micro-tile of f32 accumulators in registers. f32 stays on the CUDA
+// cores (TF32 would miss the f32 limits); bf16 is staged as bf16 and widened
+// in registers.
+//
+// Where the output tiles are fewer than the SMs (conv2-conv5 at batch 1),
+// kernel.py's `conv_plan` cuts K into contiguous ranges of whole chunks, one
+// block each (grid z): every block writes its f32 partial to a per-stream
+// scratch, and the last block to reach the tile's int counter sums the
+// partials in slice order, adds the bias, applies the ReLU, and re-arms the
+// counter at 0 — BLOCKS's split-K scheme (streamed_matmul/csrc/matmul.cu).
+// No float atomics: two calls give bitwise-equal results. A grid that fills
+// the card takes one split and writes y directly, bias and ReLU in the
+// epilogue. One launch a call either way.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
 
 namespace {
 
@@ -32,90 +46,292 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
 __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) { *out = __float2bfloat16(v); }
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.f); }
 
+// four consecutive elements of a shared-memory row as f32 (8- or 16-byte
+// aligned: a channel group of the weight tile)
+__device__ __forceinline__ void load4(const float* p, float out[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = __bfloat162float(v[i]);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// the tile kernel.py's CONV_TILE names: 64 output pixels x 32 output
+// channels, K taken 32 at a time; 256 threads as a 32 x 8 grid, thread
+// (tr, tc) holding pixels tr and tr + 32 and channels 4 tc .. 4 tc + 3
 constexpr int kThreads = 256;
-constexpr int kSmemBytes = 48 * 1024;  // static-launch limit, no opt-in needed
+constexpr int BM = 64, BN = 32, BK = 32;
+constexpr int kTM = 2, kTN = 4;
+static_assert(BM == 32 * kTM && BN == 8 * kTN, "thread grid");
 
+template <typename T>
+struct Stage {
+  static constexpr int kPad = 16 / sizeof(T);  // rows stay 16-byte aligned;
+                                               // 4 pixel rows a warp reads
+                                               // fall in distinct banks
+  T a[2][BM][BK + kPad];  // gathered input, pixel-major
+  T b[2][BK][BN];         // weights, k-major
+};
+
+struct Shape {
+  int B, H, W, Cin, Cout, KH, KW;
+  int M, K;  // B*H*W, KH*KW*Cin
+};
+
+// stage chunk `c` (k in [c*BK, c*BK + BK)) of the block's tile into ring
+// slot `st`: 16-byte cp.async where `vec_a` / `vec_b` (every 16-byte group
+// lies inside one (dy, dx) / one weight row, and the base is aligned),
+// element loads otherwise; masked elements (past M, K or Cout, or in the
+// padding halo) are zeros
+template <typename T>
+__device__ __forceinline__ void load_chunk(Stage<T>& s, int st, int c,
+                                           const T* __restrict__ x,
+                                           const T* __restrict__ w,
+                                           const Shape& sh, int m0, int n0,
+                                           bool vec_a, bool vec_b) {
+  constexpr int V = 16 / sizeof(T);
+  const int tid = threadIdx.x, k0 = c * BK;
+  const int ph = sh.KH / 2, pw = sh.KW / 2, hw = sh.H * sh.W;
+  auto src_a = [&](int r, int kk, bool& valid) -> const T* {
+    const int p = m0 + r;
+    valid = p < sh.M && kk < sh.K;
+    if (!valid) return x;
+    const int ci = kk % sh.Cin, t = kk / sh.Cin;
+    const int dx = t % sh.KW, dy = t / sh.KW;
+    const int b = p / hw, rem = p % hw;
+    const int hy = rem / sh.W + dy - ph, wx = rem % sh.W + dx - pw;
+    valid = hy >= 0 && hy < sh.H && wx >= 0 && wx < sh.W;
+    if (!valid) return x;
+    return x + ((static_cast<long long>(b) * sh.H + hy) * sh.W + wx) * sh.Cin + ci;
+  };
+  // each loop's trip count is a constant, so the loads of a thread are
+  // issued together; a masked element loads x[0] / w[0] and stores a zero
+  if (vec_a) {
+    constexpr int n = BM * (BK / V);
+#pragma unroll
+    for (int j = 0; j < (n + kThreads - 1) / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      if (n % kThreads != 0 && i >= n) break;
+      const int r = i / (BK / V), cc = (i % (BK / V)) * V;
+      bool valid;
+      const T* src = src_a(r, k0 + cc, valid);
+      cp_async16(&s.a[st][r][cc], src, valid);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BM * BK / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / BK, cc = i % BK;
+      bool valid;
+      const T v = *src_a(r, k0 + cc, valid);
+      s.a[st][r][cc] = valid ? v : zero<T>();
+    }
+  }
+  if (vec_b) {
+    constexpr int n = BK * (BN / V);
+#pragma unroll
+    for (int j = 0; j < (n + kThreads - 1) / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      if (n % kThreads != 0 && i >= n) break;
+      const int r = i / (BN / V), cc = (i % (BN / V)) * V;
+      const int kk = k0 + r, co = n0 + cc;
+      const bool valid = kk < sh.K && co < sh.Cout;
+      cp_async16(&s.b[st][r][cc],
+                 valid ? w + static_cast<long long>(kk) * sh.Cout + co : w, valid);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BK * BN / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / BN, cc = i % BN;
+      const int kk = k0 + r, co = n0 + cc;
+      const bool valid = kk < sh.K && co < sh.Cout;
+      const T v = w[valid ? static_cast<long long>(kk) * sh.Cout + co : 0];
+      s.b[st][r][cc] = valid ? v : zero<T>();
+    }
+  }
+}
+
+// grid (M tiles, N tiles, splits); block z takes chunks [z*per, z*per + per).
+// One split: y = act(acc + bias). More: the f32 partial to part[z], and the
+// last block of the tile sums part[0..splits) in slice order, then bias and
+// ReLU (counters: one per output tile, 0 between launches).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv2d_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ bias, T* __restrict__ y,
-                   int H, int W, int Cin, int Cout, int KH, int KW, int TW,
-                   int relu) {
-  extern __shared__ float xs[];  // [KH][TW + KW - 1][Cin]
-  const int w0 = blockIdx.x * TW;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int ph = KH / 2, pw = KW / 2;
-  const int sw = TW + KW - 1;
+conv2d_igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ bias, T* __restrict__ y,
+                    float* __restrict__ part, int* counters, Shape sh,
+                    int per, int relu, int vec_a, int vec_b) {
+  __shared__ __align__(16) unsigned char raw[sizeof(Stage<T>)];
+  Stage<T>& s = *reinterpret_cast<Stage<T>*>(raw);
+  const int tid = threadIdx.x, tr = tid / 8, tc = tid % 8;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int chunks = (sh.K + BK - 1) / BK;
+  const int c_begin = blockIdx.z * per, c_end = min(chunks, c_begin + per);
 
-  const int n_in = KH * sw * Cin;
-  for (int i = threadIdx.x; i < n_in; i += blockDim.x) {
-    const int ci = i % Cin;
-    const int c = (i / Cin) % sw;
-    const int r = i / (Cin * sw);
-    const int hy = h + r - ph;
-    const int wx = w0 + c - pw;
-    float v = 0.f;
-    if (hy >= 0 && hy < H && wx >= 0 && wx < W)
-      v = to_f32(x[((static_cast<long long>(b) * H + hy) * W + wx) * Cin + ci]);
-    xs[i] = v;
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  if (c_begin < c_end) {
+    load_chunk(s, 0, c_begin, x, w, sh, m0, n0, vec_a, vec_b);
+    cp_async_commit();
   }
-  __syncthreads();
+  for (int c = c_begin; c < c_end; ++c) {
+    const int st = (c - c_begin) & 1;
+    if (c + 1 < c_end) {
+      load_chunk(s, st ^ 1, c + 1, x, w, sh, m0, n0, vec_a, vec_b);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[kTM], bv[kTN];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) a[i] = to_f32(s.a[st][tr + 32 * i][kk]);
+      load4(&s.b[st][kk][tc * kTN], bv);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();  // the next chunk's prefetch overwrites this slot
+  }
 
-  const int n_out = TW * Cout;
-  for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-    const int co = o % Cout;
-    const int p = o / Cout;
-    if (w0 + p >= W) continue;
-    float acc = 0.f;
-    for (int dy = 0; dy < KH; ++dy) {
-      for (int dx = 0; dx < KW; ++dx) {
-        const float* xrow = xs + (dy * sw + p + dx) * Cin;
-        const T* wrow = w + static_cast<long long>((dy * KW + dx) * Cin) * Cout + co;
-        for (int ci = 0; ci < Cin; ++ci)
-          acc = fmaf(xrow[ci], to_f32(wrow[static_cast<long long>(ci) * Cout]), acc);
+  const int N = sh.Cout;
+  const long long mn = static_cast<long long>(sh.M) * N;
+  float* pz = gridDim.z > 1 ? part + blockIdx.z * mn : nullptr;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int p = m0 + tr + 32 * i;
+    if (p >= sh.M) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int co = n0 + tc * kTN + j;
+      if (co >= N) continue;
+      const long long o = static_cast<long long>(p) * N + co;
+      if (pz) {
+        pz[o] = acc[i][j];
+      } else {
+        float v = acc[i][j] + to_f32(bias[co]);
+        if (relu) v = fmaxf(v, 0.f);
+        from_f32(v, &y[o]);
       }
     }
-    acc += to_f32(bias[co]);
-    if (relu) acc = fmaxf(acc, 0.f);
-    from_f32(acc, &y[((static_cast<long long>(b) * H + h) * W + w0 + p) * Cout + co]);
   }
-}
+  if (!pz) return;
 
-// Columns per block: enough (pixel, channel) pairs to keep 256 threads busy,
-// no wider than the row, and a staged window under the shared-memory limit.
-int tile_cols(int W, int Cin, int Cout, int KH, int KW) {
-  int tw = 1024 / Cout;
-  if (tw < 1) tw = 1;
-  if (tw > W) tw = W;
-  while (tw > 1 && KH * (tw + KW - 1) * Cin * static_cast<int>(sizeof(float)) > kSmemBytes)
-    --tw;
-  return tw;
+  // split-K epilogue: the last block to arrive sums the tile's partials in
+  // slice order. A thread holds kOuts outputs of the tile and reads the
+  // slices kZ at a time, all kOuts x kZ loads issued before the first sum
+  // (clamped to valid addresses, the extra ones unused)
+  constexpr int kOuts = BM * BN / kThreads, kZ = 4;
+  __shared__ int last;
+  int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
+  const int splits = gridDim.z;
+  __threadfence();  // this block's partial is visible to every block
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int mt = min(BM, sh.M - m0), nt = min(BN, N - n0);
+  long long off[kOuts];
+  int co[kOuts];
+  float v[kOuts];
+#pragma unroll
+  for (int q = 0; q < kOuts; ++q) {
+    const int oi = min(tid + kThreads * q, mt * nt - 1);
+    co[q] = n0 + oi % nt;
+    off[q] = static_cast<long long>(m0 + oi / nt) * N + co[q];
+    v[q] = 0.f;
+  }
+  for (int z0 = 0; z0 < splits; z0 += kZ) {
+    float pv[kZ][kOuts];
+#pragma unroll
+    for (int j = 0; j < kZ; ++j) {
+      const float* pj = part + min(z0 + j, splits - 1) * mn;
+#pragma unroll
+      for (int q = 0; q < kOuts; ++q) pv[j][q] = __ldcg(pj + off[q]);
+    }
+#pragma unroll
+    for (int j = 0; j < kZ; ++j)
+#pragma unroll
+      for (int q = 0; q < kOuts; ++q)
+        if (z0 + j < splits) v[q] = z0 + j == 0 ? pv[j][q] : v[q] + pv[j][q];
+  }
+#pragma unroll
+  for (int q = 0; q < kOuts; ++q) {
+    if (tid + kThreads * q >= mt * nt) continue;
+    float o = v[q] + to_f32(bias[co[q]]);
+    if (relu) o = fmaxf(o, 0.f);
+    from_f32(o, &y[off[q]]);
+  }
+  if (tid == 0) *counter = 0;
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const void* b, void* y, int B, int H,
-           int W, int Cin, int Cout, int KH, int KW, int relu, cudaStream_t s) {
-  const int tw = tile_cols(W, Cin, Cout, KH, KW);
-  const size_t smem = static_cast<size_t>(KH) * (tw + KW - 1) * Cin * sizeof(float);
-  if (smem > static_cast<size_t>(kSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((W + tw - 1) / tw, H, B);
-  conv2d_rows_kernel<T><<<grid, kThreads, smem, s>>>(
+int launch(const void* x, const void* w, const void* b, void* y, float* part,
+           int* counters, const Shape& sh, int splits, int per, int relu,
+           cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec_a = sh.Cin % V == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vec_b = sh.Cout % V == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  dim3 grid((sh.M + BM - 1) / BM, (sh.Cout + BN - 1) / BN, splits);
+  conv2d_igemm_kernel<T><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(y), H, W, Cin, Cout, KH, KW, tw, relu);
+      static_cast<T*>(y), part, counters, sh, per, relu, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+// tile_m, tile_n, chunk: the plan's tile (kernel.py `conv_plan`), which must
+// be the one compiled here (64, 32, 32); splits and per: grid z and the K
+// chunks each split takes. When splits > 1, part: an f32 scratch of at least
+// splits * B*H*W * Cout, and counters: one int per output tile, all 0 (the
+// kernel leaves them 0 again). dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after the launch.
 extern "C" int conv2d_bias_act(const void* x, const void* w, const void* b,
-                               void* y, int B, int H, int W, int Cin, int Cout,
-                               int KH, int KW, int relu, int dtype,
-                               void* stream) {
+                               void* y, void* part, void* counters, int B,
+                               int H, int W, int Cin, int Cout, int KH, int KW,
+                               int tile_m, int tile_n, int chunk, int splits,
+                               int per, int relu, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, b, y, B, H, W, Cin, Cout, KH, KW, relu, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, b, y, B, H, W, Cin, Cout, KH, KW, relu, s);
+  float* pf = static_cast<float*>(part);
+  int* cf = static_cast<int*>(counters);
+  if (tile_m != BM || tile_n != BN || chunk != BK || splits < 1 ||
+      splits > 65535 || per < 1 ||
+      (splits > 1 && (pf == nullptr || cf == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape sh{B, H, W, Cin, Cout, KH, KW, B * H * W, KH * KW * Cin};
+  if (dtype == 0) return launch<float>(x, w, b, y, pf, cf, sh, splits, per, relu, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w, b, y, pf, cf, sh, splits, per, relu, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

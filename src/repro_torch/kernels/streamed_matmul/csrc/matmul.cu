@@ -51,21 +51,42 @@
 // "One residency, no K-streamed partition" maps to two launches here,
 // chosen by the operands' size:
 // - operands that fit one block's shared memory (232,448 bytes after
-//   opt-in) go to ONE block holding both whole operands (matmul_unique_kernel);
+//   opt-in, less the barrier and alignment) go to ONE block holding both
+//   whole operands (matmul_unique_kernel);
 // - larger operands go to a grid of 64 x 64 output tiles in which each block
 //   runs the whole K extent straight from device memory (through L1/L2),
 //   with no staged K ring in shared memory (matmul_unique_grid_kernel).
-// The grid alone would do for every shape, but at the classifier head's
-// [1, 2048] @ [2048, 4] only four of its threads work, each waiting on
-// 2,048 loads in turn: 0.236 ms there against the single block's 0.064 ms
-// (chip_smoke.py's timings, both in one call on an H100 80GB HBM3 at
-// 700 W; PERF.md). The single block is
-// bounded by one SM's FMA rate and the grid by the card's 67 TFLOP/s f32
-// CUDA-core rate; UNIQUE is the "send everything at once" policy point,
-// kept for the paper's comparison, not a fast path.
+//
+// What bounds the single block on an H100: at the classifier head,
+// [1, 2048] @ [2048, 4] in f32, the operands are 40 KB and the product 8,192
+// FMAs, so the bytes bound is 12 ns; the launch, one copy's latency into one
+// SM and the reduction set its time. The first port's block staged the
+// operands element by element and then let 4 of its 1,024 threads walk
+// K = 2,048 alone: 10.9 us on the card against cuBLAS's 2.6 (PERF.md). The
+// design answers both:
+// - each operand lands in shared memory with ONE 1-D bulk copy (the TMA
+//   unit's cp.async.bulk, completing on an mbarrier) where its address and
+//   byte count are 16-byte multiples (both are at the head), else with
+//   16-byte vector loads and a scalar tail; bf16 stays bf16 there and is
+//   widened in registers;
+// - every thread works: a thread holds a micro-tile of rows x 4 outputs in
+//   registers (kernel.py `unique_plan`: rows 4, or 1 when M < 4), and
+//   `splits` threads share each micro-tile's K, interleaved (thread s takes
+//   k = s, s + splits, ...). At the head: one micro-tile, 256 splits, eight
+//   k each. The block has 256 threads: at the head a block of 1,024 took
+//   longer on the card (PERF.md), and a wider block would only help
+//   outputs large enough that the grid kernel takes them anyway. The partials are summed in a fixed order, xor shuffles inside a
+//   warp and then the warps' sums in warp order through shared memory, so
+//   two calls are bitwise equal, with one launch and no scratch in device
+//   memory. The dynamic shared-memory limit is raised once for each kernel
+//   and device, not on every launch.
+// The grid alone would do for every shape, but at the head only four of its
+// threads would work, each waiting on 2,048 loads in turn. UNIQUE is the
+// "send everything at once" policy point, kept for the paper's comparison.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -291,23 +312,186 @@ matmul_blocks_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    M, N, m0, n0, mt, nt);
 }
 
+constexpr int kUniqueThreads = 256;  // kernel.py UNIQUE_THREADS
+constexpr int kUniqueTN = 4;           // columns of a thread's micro-tile
+constexpr size_t kSmemPerBlock = 232448;  // an H100 block's opt-in maximum
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+// one arrival that also expects `bytes` of bulk-copy traffic on the barrier
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra.uni DONE;\nbra.uni WAIT;\nDONE:\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+// a 1-D bulk copy (the TMA unit, no tensor map) of `bytes` from global to
+// shared memory, completing on the barrier; addresses and size 16-byte
+// multiples
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+__device__ __forceinline__ bool bulk_ok(const void* src, size_t bytes) {
+  return bytes > 0 && (bytes & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+}
+// src[0, n) -> dst by the block's threads where bulk_ok is false: 16-byte
+// vector loads when src is 16-byte aligned, then a scalar tail (all scalar
+// when it is not); dst is 16-byte aligned
 template <typename T>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ void copy_vec(T* dst, const T* __restrict__ src, int n) {
+  constexpr int V = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nv = n / V;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < nv; i += kUniqueThreads) d4[i] = __ldg(s4 + i);
+    done = nv * V;
+  }
+  for (int i = done + threadIdx.x; i < n; i += kUniqueThreads) dst[i] = src[i];
+}
+
+__host__ __device__ __forceinline__ size_t round16(size_t b) { return (b + 15) & ~size_t(15); }
+
+// Dynamic shared memory of the single block: the barrier (16 bytes), x
+// (rounded up to 16 bytes, so w starts aligned), w; at least the cross-warp
+// reduction's [32 warps][TM x 4] floats, which reuse x's place.
+__host__ __device__ __forceinline__ size_t unique_smem_bytes(int M, int N, int K, size_t item) {
+  const size_t ops = 16 + round16(static_cast<size_t>(M) * K * item) +
+                     static_cast<size_t>(K) * N * item;
+  const size_t red = 16 + (kUniqueThreads / 32) * 4 * kUniqueTN * sizeof(float);
+  return ops > red ? ops : red;
+}
+
+// UNIQUE's single block: both whole operands in shared memory, every
+// thread at work. Micro-tiles of TM x 4 outputs (row-major over the
+// output); S = `splits` consecutive threads share a micro-tile, thread s of
+// them taking k = s, s + S, ... into TM x 4 f32 accumulators (fmaf in k
+// order). The S partials are summed in a fixed order — xor shuffles inside
+// a warp (offsets min(S, 32)/2 .. 1), then, when S > 32, the warps' sums in
+// warp order through shared memory — so two calls are bitwise equal
+// (ref.py matmul_unique_order_ref is the same order). S > 1 only when the
+// micro-tiles fit the block at once; with more micro-tiles than threads
+// (S = 1) a thread walks several.
+template <typename T, int TM>
+__global__ void __launch_bounds__(kUniqueThreads)
 matmul_unique_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     T* __restrict__ y, int M, int N, int K) {
+                     T* __restrict__ y, int M, int N, int K, int splits) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  T* ws = xs + static_cast<long long>(M) * K;
-  const int mk = M * K, kn = K * N;
-  for (int i = threadIdx.x; i < mk; i += blockDim.x) xs[i] = x[i];
-  for (int i = threadIdx.x; i < kn; i += blockDim.x) ws[i] = w[i];
-  __syncthreads();
-  for (int o = threadIdx.x; o < M * N; o += blockDim.x) {
-    const int i = o / N, j = o % N;
-    float acc = 0.f;
-    for (int kk = 0; kk < K; ++kk)
-      acc = fmaf(to_f32(xs[i * K + kk]), to_f32(ws[kk * N + j]), acc);
-    from_f32(acc, &y[o]);
+  const int tid = threadIdx.x;
+  const size_t xbytes = static_cast<size_t>(M) * K * sizeof(T);
+  const size_t wbytes = static_cast<size_t>(K) * N * sizeof(T);
+  T* xs = reinterpret_cast<T*>(smem + 16);
+  T* ws = reinterpret_cast<T*>(smem + 16 + round16(xbytes));
+  const uint32_t bar = smem_u32(smem);
+  const bool xb = bulk_ok(x, xbytes), wb = bulk_ok(w, wbytes);
+  if (xb || wb) {
+    if (tid == 0) {
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_expect(bar, static_cast<uint32_t>((xb ? xbytes : 0) + (wb ? wbytes : 0)));
+      if (xb) bulk_load(smem_u32(xs), x, static_cast<uint32_t>(xbytes), bar);
+      if (wb) bulk_load(smem_u32(ws), w, static_cast<uint32_t>(wbytes), bar);
+    }
+  }
+  if (!xb) copy_vec(xs, x, M * K);
+  if (!wb) copy_vec(ws, w, K * N);
+  __syncthreads();  // the vector copies, and the barrier's init
+  if (xb || wb) mbar_wait(bar, 0);
+
+  const int S = splits, s = tid % S;
+  const int tiles_n = (N + kUniqueTN - 1) / kUniqueTN;
+  const int tiles = (M + TM - 1) / TM * tiles_n;
+  for (int t0 = 0; t0 < tiles; t0 += kUniqueThreads / S) {
+    const int t = t0 + tid / S;
+    const int r0 = t / tiles_n * TM, c0 = t % tiles_n * kUniqueTN;
+    float acc[TM][kUniqueTN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < kUniqueTN; ++j) acc[i][j] = 0.f;
+    if (t < tiles) {
+      // ragged edges read a clamped row / column and are not stored
+      const T* xr[TM];
+      int wc[kUniqueTN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) xr[i] = xs + static_cast<long long>(min(r0 + i, M - 1)) * K;
+#pragma unroll
+      for (int j = 0; j < kUniqueTN; ++j) wc[j] = min(c0 + j, N - 1);
+#pragma unroll 4
+      for (int k = s; k < K; k += S) {
+        float a[TM], b[kUniqueTN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = to_f32(xr[i][k]);
+        const T* wr = ws + static_cast<long long>(k) * N;
+#pragma unroll
+        for (int j = 0; j < kUniqueTN; ++j) b[j] = to_f32(wr[wc[j]]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < kUniqueTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+    if (S > 1) {
+#pragma unroll
+      for (int off = (S < 32 ? S : 32) / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < kUniqueTN; ++j)
+            acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
+    }
+    if (S <= 32) {  // lane s = 0 of the group holds the sum
+      if (s == 0 && t < tiles) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          if (r0 + i >= M) continue;
+#pragma unroll
+          for (int j = 0; j < kUniqueTN; ++j)
+            if (c0 + j < N) from_f32(acc[i][j], &y[static_cast<long long>(r0 + i) * N + c0 + j]);
+        }
+      }
+      continue;
+    }
+    // S > 32, one pass (the micro-tiles fit the block at once): lane 0 of
+    // each warp puts the warp's sums in shared memory, then a thread an
+    // output adds its tile's S / 32 warps in warp order
+    constexpr int E = TM * kUniqueTN;
+    float* red = reinterpret_cast<float*>(smem + 16);  // [warp][E]
+    __syncthreads();  // every warp is done reading the operands
+    if (tid % 32 == 0)
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kUniqueTN; ++j) red[tid / 32 * E + i * kUniqueTN + j] = acc[i][j];
+    __syncthreads();
+    const int nw = S / 32;
+    for (int o = tid; o < tiles * E; o += kUniqueThreads) {
+      const int tt = o / E, e = o % E;
+      const int row = tt / tiles_n * TM + e / kUniqueTN;
+      const int col = tt % tiles_n * kUniqueTN + e % kUniqueTN;
+      const float* rw = red + tt * nw * E + e;
+      float v = rw[0];
+#pragma unroll 8
+      for (int q = 1; q < nw; ++q) v += rw[q * E];
+      if (row < M && col < N) from_f32(v, &y[static_cast<long long>(row) * N + col]);
+    }
   }
 }
 
@@ -393,25 +577,53 @@ int dispatch_blocks(const void* x, const void* w, void* y, float* part,
   }
 }
 
-constexpr size_t kSmemPerBlock = 232448;  // an H100 block's opt-in maximum
+// the single block's dynamic shared memory may reach an H100 block's opt-in
+// maximum: raised once for each kernel and device, not on every launch
+template <typename T, int TM>
+cudaError_t allow_max_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(matmul_unique_kernel<T, TM>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kSmemPerBlock));
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+template <typename T, int TM>
+int launch_unique_block(const void* x, const void* w, void* y, int M, int N,
+                        int K, int splits, size_t smem, cudaStream_t s) {
+  const cudaError_t e = allow_max_smem<T, TM>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  matmul_unique_kernel<T, TM><<<1, kUniqueThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+      M, N, K, splits);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T>
 int launch_unique(const void* x, const void* w, void* y, int M, int N, int K,
-                  cudaStream_t s) {
-  const size_t smem = (static_cast<size_t>(M) * K + static_cast<size_t>(K) * N) * sizeof(T);
+                  int rows, int splits, cudaStream_t s) {
+  const size_t smem = unique_smem_bytes(M, N, K, sizeof(T));
   if (smem > kSmemPerBlock) {
     dim3 grid((N + 63) / 64, (M + 63) / 64);
     matmul_unique_grid_kernel<T><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), M, N, K);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t e = cudaFuncSetAttribute(matmul_unique_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  matmul_unique_kernel<T><<<1, 1024, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  // splits: a power of two (kernel.py unique_plan); more than one only
+  // when the micro-tiles x splits fit the block
+  const int tiles = (M + rows - 1) / rows * ((N + kUniqueTN - 1) / kUniqueTN);
+  if (splits < 1 || (splits & (splits - 1)) != 0 || splits > kUniqueThreads ||
+      (splits > 1 && static_cast<long long>(tiles) * splits > kUniqueThreads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 4) return launch_unique_block<T, 4>(x, w, y, M, N, K, splits, smem, s);
+  if (rows == 1) return launch_unique_block<T, 1>(x, w, y, M, N, K, splits, smem, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -436,10 +648,14 @@ extern "C" int matmul_blocks(const void* x, const void* w, void* y,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// rows and splits: the single block's plan (kernel.py `unique_plan`: a
+// thread's micro-tile is rows x 4 outputs, rows 1 or 4, and `splits`
+// threads share its K); the grid kernel ignores both.
 extern "C" int matmul_unique(const void* x, const void* w, void* y, int M,
-                             int N, int K, int dtype, void* stream) {
+                             int N, int K, int rows, int splits, int dtype,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_unique<float>(x, w, y, M, N, K, s);
-  if (dtype == 1) return launch_unique<__nv_bfloat16>(x, w, y, M, N, K, s);
+  if (dtype == 0) return launch_unique<float>(x, w, y, M, N, K, rows, splits, s);
+  if (dtype == 1) return launch_unique<__nv_bfloat16>(x, w, y, M, N, K, rows, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,29 +7,37 @@ source's header says what bounds each on an H100 and how the design answers
 that. A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.
 
-BLOCKS fills the card by splitting K (``split_k_plan``) when its output
+BLOCKS fills the card by splitting K (``split_k_plan``, the split-K scheme
+of ``repro_torch.kernels._split``, shared with conv2d) when its output
 tiles are fewer than the SMs, and takes a skinny kernel (``skinny``) when
-the matrix is narrower than the tile; both plans are pure functions of the
-shapes and the card's SM count. ``ref.matmul_blocks_split_ref`` is the
-plain version in the kernel's slices (held against the reference and, on
-the card, against the kernel); the CPU path takes the unsliced
-``ref.matmul_ref``."""
+the matrix is narrower than the tile. UNIQUE's single block spreads the
+product over all its threads (``unique_plan``). Every plan is a pure
+function of the shapes and the card's SM count. ``ref.matmul_blocks_split_ref``
+and ``ref.matmul_unique_order_ref`` are the plain versions in the kernels'
+orders (held against the reference and, on the card, against the
+kernels); the CPU path takes the plain ``ref.matmul_ref``."""
 
 from __future__ import annotations
 
-import functools
 from pathlib import Path
 
 import torch
 
-from repro_torch.analysis.validated import make_lock
 from repro_torch.kernels._build import I, P, CudaLibrary
+from repro_torch.kernels._split import (  # noqa: F401 (re-exported)
+    SPLIT_WORKSPACE,
+    SplitWorkspace,
+    cdiv,
+    sm_count,
+    split_plan,
+    split_ranges as split_k_ranges,
+)
 from repro_torch.kernels.streamed_matmul.ref import matmul_ref
 
 MATMUL = CudaLibrary(
     "matmul", Path(__file__).with_name("csrc") / "matmul.cu",
     {"matmul_blocks": [P, P, P, P, P, I, I, I, I, I, I, I, I],
-     "matmul_unique": [P, P, P, I, I, I, I, P]})
+     "matmul_unique": [P, P, P, I, I, I, I, I, I, P]})
 
 # The (bm, bn, bk) tiles the BLOCKS kernel is compiled for: a 16x16 thread
 # grid, each thread (bm/16)x(bn/16) accumulators; the K step's operand
@@ -40,26 +48,19 @@ TILES = ((32, 32, 16), (64, 64, 32), (128, 128, 32))
 # (src/repro/kernels/streamed_matmul/ops.py, VMEM_BUDGET) is 96 MiB over
 # (m*k + k*n + m*n) * itemsize, and above it the same ValueError is raised.
 # On the card, operands within one block's shared memory (SMEM_BUDGET, the
-# 232,448 bytes an H100 block may opt in to) run as one block holding both;
-# larger ones run as a grid of output tiles, each walking the whole K
-# extent from device memory (csrc/matmul.cu says why both stay).
+# 232,448 bytes an H100 block may opt in to, less the block's barrier and
+# alignment: 16 + x's bytes rounded up to 16 + w's bytes) run as one block
+# holding both; larger ones run as a grid of output tiles, each walking
+# the whole K extent from device memory (csrc/matmul.cu says why both
+# stay).
 UNIQUE_BUDGET = 96 * 2**20
 SMEM_BUDGET = 232_448
+UNIQUE_THREADS = 256  # the single block's threads (csrc/matmul.cu)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 THREADS = 256  # a BLOCKS block's threads
 SKINNY_UNITS = 4  # output units (a row, 4 columns) a lane group holds
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """The streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def split_k_plan(m: int, n: int, k: int, tile: tuple[int, int, int],
@@ -70,19 +71,7 @@ def split_k_plan(m: int, n: int, k: int, tile: tuple[int, int, int],
     tiles x splits fills the card (at most one split a step, none empty);
     a grid that fills the card keeps one split, a single pass."""
     bm, bn, bk = tile
-    steps = _cdiv(k, bk)
-    tiles = _cdiv(m, bm) * _cdiv(n, bn)
-    want = min(steps, sms // tiles) if tiles else 1
-    if want <= 1:
-        return 1, steps
-    per = _cdiv(steps, want)
-    return _cdiv(steps, per), per
-
-
-def split_k_ranges(k: int, bk: int, splits: int,
-                   per: int) -> list[tuple[int, int]]:
-    """The [k0, k1) range of each split, in slice order."""
-    return [(z * per * bk, min(k, (z + 1) * per * bk)) for z in range(splits)]
+    return split_plan(cdiv(m, bm) * cdiv(n, bn), cdiv(k, bk), sms)
 
 
 def skinny(m: int, n: int, tile: tuple[int, int, int]) -> bool:
@@ -93,7 +82,7 @@ def skinny(m: int, n: int, tile: tuple[int, int, int]) -> bool:
     bm, bn, bk = tile
     if bm <= m and bn <= n:
         return False
-    units = min(m, bm) * _cdiv(min(n, bn), 4)
+    units = min(m, bm) * cdiv(min(n, bn), 4)
     return units <= THREADS // bk * SKINNY_UNITS
 
 
@@ -104,41 +93,6 @@ def blocks_plan(m: int, n: int, k: int, tile: tuple[int, int, int],
     return (*split_k_plan(m, n, k, tile, sms), skinny(m, n, tile))
 
 
-class SplitWorkspace:
-    """The split-K scratch of BLOCKS, kept per (device, stream): f32
-    partials (at least splits x M x N) and one int counter per output tile,
-    zeroed once (the last block of a tile leaves its counter at 0 again).
-    Launches on one stream run in order, so they can share it. The buffers
-    only grow. A caller holds the tensors it was given until its launch is
-    enqueued, so a buffer that another thread replaces meanwhile is freed
-    only then, and the caching allocator hands it out again only in that
-    stream's order. Streams come from PyTorch's pool, which never frees
-    them, so a handle names one stream for the life of the process (a
-    stream wrapped with ``torch.cuda.ExternalStream`` must outlive its
-    launches here)."""
-
-    def __init__(self) -> None:
-        self._lock = make_lock("SplitWorkspace._lock")
-        # (device index, stream handle) -> (partials, counters)
-        self._bufs: dict[tuple[int | None, int],  # guarded-by: _lock
-                         tuple[torch.Tensor, torch.Tensor]] = {}
-
-    def scratch(self, device: torch.device, stream: int, n_part: int,
-                n_tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """(partials, counters) of at least ``n_part`` floats and
-        ``n_tiles`` zeroed ints for launches on ``stream`` of ``device``."""
-        key = (device.index, stream)
-        with self._lock:
-            part, cnt = self._bufs.get(key, (None, None))
-            if part is None or part.numel() < n_part:
-                part = torch.empty(n_part, dtype=torch.float32, device=device)
-            if cnt is None or cnt.numel() < n_tiles:
-                cnt = torch.zeros(n_tiles, dtype=torch.int32, device=device)
-            self._bufs[key] = (part, cnt)
-            return part, cnt
-
-
-SPLIT_WORKSPACE = SplitWorkspace()
 
 
 def _check(x: torch.Tensor, w: torch.Tensor,
@@ -160,6 +114,25 @@ def _check(x: torch.Tensor, w: torch.Tensor,
 
 def unique_fits(m: int, k: int, n: int, itemsize: int) -> bool:
     return (m * k + k * n + m * n) * itemsize <= UNIQUE_BUDGET
+
+
+def unique_one_block(m: int, k: int, n: int, itemsize: int) -> bool:
+    """Whether UNIQUE runs as the single block holding both operands in
+    shared memory (csrc/matmul.cu ``unique_smem_bytes``), not as the grid."""
+    return 16 + cdiv(m * k * itemsize, 16) * 16 + k * n * itemsize \
+        <= SMEM_BUDGET
+
+
+def unique_plan(m: int, n: int, k: int) -> tuple[int, int]:
+    """(rows, splits) of UNIQUE's single block: each thread holds a
+    micro-tile of ``rows`` x 4 outputs (4 x 4, or 1 x 4 when M < 4), and
+    ``splits`` threads share each micro-tile's K, thread s taking k = s,
+    s + splits, ... — the largest power of two with micro-tiles x splits
+    within the block's ``UNIQUE_THREADS`` and splits <= K. With more
+    micro-tiles than threads a thread takes several, one split each."""
+    rows = 4 if m >= 4 else 1
+    cap = min(UNIQUE_THREADS // (cdiv(m, rows) * cdiv(n, 4)), k)
+    return rows, 1 << (cap.bit_length() - 1) if cap >= 1 else 1
 
 
 def matmul_blocks(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 128,
@@ -184,7 +157,7 @@ def matmul_blocks(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 128,
         # held until the launch is enqueued (SplitWorkspace)
         part, cnt = SPLIT_WORKSPACE.scratch(
             dev, torch._C._cuda_getCurrentRawStream(idx), splits * m * n,
-            _cdiv(m, block_m) * _cdiv(n, block_n))
+            cdiv(m, block_m) * cdiv(n, block_n))
         part_ptr, cnt_ptr = part.data_ptr(), cnt.data_ptr()
     MATMUL.launch("matmul_blocks", x.data_ptr(), w.data_ptr(), y.data_ptr(),
                   part_ptr, cnt_ptr, m, n, k, block_m, splits, per,
@@ -208,6 +181,8 @@ def matmul_unique(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y.zero_()
+    rows, splits = unique_plan(m, n, k)
     MATMUL.launch("matmul_unique", x.data_ptr(), w.data_ptr(),
-                  y.data_ptr(), m, n, k, _DTYPE_CODE[x.dtype], device=x.device)
+                  y.data_ptr(), m, n, k, rows, splits, _DTYPE_CODE[x.dtype],
+                  device=x.device)
     return y

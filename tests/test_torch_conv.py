@@ -1,0 +1,111 @@
+"""The conv2d kernel's plan and its split-order plain version against the
+reference's Pallas conv (interpret mode) on the same numpy inputs. The
+CUDA kernel itself is held against both on the card
+(tests/test_torch_cuda.py and ``chip_smoke.py``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.conv2d.ops import conv2d_relu as jax_conv2d_relu
+from repro_torch.kernels import _split
+from repro_torch.kernels.conv2d import kernel as conv_kernel
+from repro_torch.kernels.conv2d.kernel import CONV_TILE, conv_plan, conv_ranges
+from repro_torch.kernels.conv2d.ref import conv2d_relu_ref, conv2d_split_ref
+from repro_torch.kernels.streamed_matmul import kernel as mm_kernel
+
+# one intra-op thread a worker process (see tests/test_torch_kernels.py)
+torch.set_num_threads(1)
+
+# the five RoShamBo layers (hw, cin, cout)
+ROSHAMBO = [(64, 1, 16), (32, 16, 32), (16, 32, 64), (8, 64, 128),
+            (4, 128, 128)]
+
+
+def _inputs(bsz, h, w, cin, cout, kh=3, kw=3, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bsz, h, w, cin)).astype(np.float32)
+    wt = (rng.standard_normal((kh, kw, cin, cout)) * 0.2).astype(np.float32)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    return x, wt, b
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("bsz", [1, 32])
+@pytest.mark.parametrize("hw,cin,cout", ROSHAMBO)
+def test_conv_plan_covers_k_once_and_fills_the_card(hw, cin, cout, bsz, sms):
+    bm, bn, bk = CONV_TILE
+    tile, splits, per = conv_plan(bsz, hw, hw, cin, cout, 3, 3, sms)
+    assert tile == CONV_TILE
+    k = 9 * cin
+    ranges = conv_ranges(3, 3, cin, splits, per)
+    # contiguous, in order, from 0 to K, whole chunks, none empty
+    assert len(ranges) == splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (_, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0
+    for k0, k1 in ranges:
+        assert k0 % bk == 0 and 0 < k1 - k0 <= per * bk
+    tiles = -(-bsz * hw * hw // bm) * -(-cout // bn)
+    assert splits * tiles <= max(sms, tiles)
+    if tiles >= sms:
+        assert splits == 1  # the tiles already fill the card
+
+
+def test_conv_plan_at_batch_1_splits_the_deep_layers():
+    """At batch 1 on an H100's 132 SMs conv1 (K = 9, one chunk) keeps one
+    split and conv2-conv5 split K; at batch 32 only conv5's 32 tiles
+    leave room to split."""
+    b1 = [conv_plan(1, hw, hw, cin, cout, 3, 3, 132)[1:]
+          for hw, cin, cout in ROSHAMBO]
+    assert b1 == [(1, 1), (5, 1), (9, 1), (18, 1), (18, 2)]
+    b32 = [conv_plan(32, hw, hw, cin, cout, 3, 3, 132)[1]
+           for hw, cin, cout in ROSHAMBO]
+    assert b32 == [1, 1, 1, 1, 4]
+
+
+def test_conv_and_blocks_share_one_split_workspace():
+    assert conv_kernel.SPLIT_WORKSPACE is _split.SPLIT_WORKSPACE
+    assert mm_kernel.SPLIT_WORKSPACE is _split.SPLIT_WORKSPACE
+    assert mm_kernel.SplitWorkspace is _split.SplitWorkspace
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("hw,cin,cout", ROSHAMBO)
+def test_conv2d_split_ref_matches_pallas(hw, cin, cout, relu):
+    """Each layer's real Cin / Cout at 8 x 8, summed over the K ranges of
+    the layer's own plan (batch 1, 132 and 8 SMs), against the Pallas conv
+    in interpret mode."""
+    x, w, b = _inputs(1, 8, 8, cin, cout, seed=hw)
+    ref = np.asarray(jax_conv2d_relu(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(b), tile_h=8, relu=relu,
+                                     interpret=True))
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
+    for sms in (132, 8):
+        _, splits, per = conv_plan(1, hw, hw, cin, cout, 3, 3, sms)
+        got = conv2d_split_ref(tx, tw, tb, conv_ranges(3, 3, cin, splits,
+                                                       per), relu=relu)
+        assert got.shape == (1, 8, 8, cout) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bsz,h,w,cin,cout,kh,kw", [
+    (2, 7, 9, 3, 5, 3, 3),
+    (1, 5, 6, 4, 7, 5, 3),
+])
+def test_conv2d_split_ref_ragged_matches_plain(bsz, h, w, cin, cout, kh, kw):
+    """Shapes no tile divides, and a 5 x 3 kernel, in the kernel's K order
+    against the plain shifted-dot version, f32 and bf16."""
+    x, wt, b = _inputs(bsz, h, w, cin, cout, kh, kw, seed=3)
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, wt, b))
+    _, splits, per = conv_plan(bsz, h, w, cin, cout, kh, kw, 132)
+    ranges = conv_ranges(kh, kw, cin, splits, per)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        args = [t.to(dtype) for t in (tx, tw, tb)]
+        got = conv2d_split_ref(*args, ranges, relu=False)
+        assert got.dtype == dtype
+        np.testing.assert_allclose(
+            got.float().numpy(),
+            conv2d_relu_ref(*args, relu=False).float().numpy(),
+            rtol=tol, atol=tol)

@@ -26,12 +26,12 @@ from repro_torch.core.transfer import (
     TransferPolicy,
 )
 from repro_torch.configs.registry import smoke_config
-from repro_torch.kernels.conv2d.kernel import CONV2D
+from repro_torch.kernels._split import SPLIT_WORKSPACE
+from repro_torch.kernels.conv2d.kernel import CONV2D, conv_plan, conv_ranges
 from repro_torch.kernels.conv2d.ops import conv2d_relu
-from repro_torch.kernels.conv2d.ref import conv2d_relu_ref
+from repro_torch.kernels.conv2d.ref import conv2d_relu_ref, conv2d_split_ref
 from repro_torch.kernels.streamed_matmul.kernel import (
     MATMUL,
-    SPLIT_WORKSPACE,
     TILES,
     matmul_blocks,
     matmul_unique,
@@ -39,6 +39,8 @@ from repro_torch.kernels.streamed_matmul.kernel import (
     sm_count,
     split_k_plan,
     split_k_ranges,
+    unique_one_block,
+    unique_plan,
 )
 from repro_torch.kernels.flash_attention.kernel import FLASH, SYMBOL
 from repro_torch.kernels.flash_attention.ops import (
@@ -50,6 +52,7 @@ from repro_torch.kernels.ssd_scan.ops import ssd_full, ssd_intra_chunk
 from repro_torch.kernels.streamed_matmul.ref import (
     matmul_blocks_split_ref,
     matmul_ref,
+    matmul_unique_order_ref,
 )
 from repro_torch.models.api import build_model
 from repro_torch.models.layers.ssm import ssd_chunked
@@ -72,20 +75,97 @@ def dev():
     return torch.device("cuda")
 
 
+def _conv_case(dev, dtype, bsz, h, w, cin, cout, kh=3, kw=3, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((bsz, h, w, cin), generator=g).to(dev, dtype)
+    wt = (torch.randn((kh, kw, cin, cout), generator=g) * 0.2).to(dev, dtype)
+    b = (torch.randn((cout,), generator=g) * 0.1).to(dev, dtype)
+    return x, wt, b
+
+
+def _conv_checked(x, w, b, relu, tol):
+    """One launch per call, two calls bitwise equal, within ``tol`` of the
+    plain version and of the split-order plain version of the plan."""
+    bsz, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    before = CONV2D.launches["conv2d_bias_act"]
+    got = conv2d_relu(x, w, b, relu=relu)
+    again = conv2d_relu(x, w, b, relu=relu)
+    assert CONV2D.launches["conv2d_bias_act"] == before + 2
+    assert torch.equal(got, again)  # no float atomics: bitwise equal
+    _, splits, per = conv_plan(bsz, h, wd, cin, cout, kh, kw,
+                               sm_count(torch.cuda.current_device()))
+    split = conv2d_split_ref(x, w, b, conv_ranges(kh, kw, cin, splits, per),
+                             relu=relu)
+    for ref in (conv2d_relu_ref(x, w, b, relu=relu), split):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+    # the last block of each split tile leaves its counter at 0
+    for _part, cnt in SPLIT_WORKSPACE._bufs.values():
+        assert int(cnt.abs().sum()) == 0
+    return splits
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("bsz", [1, 2, 32])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("hw,cin,cout", ROSHAMBO)
-def test_conv2d_kernel_matches_plain(dev, hw, cin, cout, dtype, tol):
-    g = torch.Generator().manual_seed(hw + cin)
-    x = torch.randn((2, hw, hw, cin), generator=g).to(dev, dtype)
-    w = (torch.randn((3, 3, cin, cout), generator=g) * 0.2).to(dev, dtype)
-    b = (torch.randn((cout,), generator=g) * 0.1).to(dev, dtype)
-    before = CONV2D.launches["conv2d_bias_act"]
-    got = conv2d_relu(x, w, b, relu=False)
-    assert CONV2D.launches["conv2d_bias_act"] == before + 1
-    torch.testing.assert_close(got.float(),
-                               conv2d_relu_ref(x, w, b, relu=False).float(),
-                               rtol=tol, atol=tol)
+def test_conv2d_kernel_matches_plain(dev, hw, cin, cout, dtype, tol, bsz,
+                                     relu):
+    x, w, b = _conv_case(dev, dtype, bsz, hw, hw, cin, cout, seed=hw + cin)
+    splits = _conv_checked(x, w, b, relu, tol)
+    # batch 1 splits K over the SMs from conv2 on (conv1's K = 9 is one
+    # chunk); a grid that fills the card takes one split
+    tiles = -(-bsz * hw * hw // 64) * -(-cout // 32)
+    chunks = -(-9 * cin // 32)
+    assert (splits > 1) == (2 * tiles <= sm_count(
+        torch.cuda.current_device()) and chunks > 1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bsz,h,w,cin,cout,kh,kw", [
+    (2, 7, 9, 3, 5, 3, 3),     # ragged tiles, element loads
+    (1, 5, 6, 4, 7, 5, 3),     # a 5 x 3 kernel, split K
+    (3, 11, 13, 24, 40, 3, 3),  # 16-byte copies in f32, not in bf16
+])
+def test_conv2d_kernel_ragged_shapes(dev, bsz, h, w, cin, cout, kh, kw,
+                                     dtype, tol):
+    x, wt, b = _conv_case(dev, dtype, bsz, h, w, cin, cout, kh, kw, seed=7)
+    for relu in (True, False):
+        _conv_checked(x, wt, b, relu, tol)
+
+
+def test_conv2d_survives_scratch_growth_by_another_thread(dev, monkeypatch):
+    """Between two conv launches on one stream, and between a launch's
+    scratch lookup and its launch, a second thread grows the split-K
+    workspace of that stream and a tensor of the old scratch's size is
+    allocated. Each call holds its own scratch, so its partials land
+    there: both results match, and the other tensor keeps its fill."""
+    x, w, b = _conv_case(dev, torch.float32, 1, 4, 4, 128, 128, seed=3)
+    ref = conv2d_relu_ref(x, w, b)
+    scratch = SPLIT_WORKSPACE.scratch
+    decoys = []
+
+    def grown_meanwhile(device, stream, n_part, n_tiles):
+        part, cnt = scratch(device, stream, n_part, n_tiles)
+        t = threading.Thread(target=scratch, args=(
+            device, stream, 4 * part.numel(), 4 * cnt.numel()))
+        t.start()
+        t.join()
+        decoys.append(torch.full_like(part, float("nan")))
+        return part, cnt
+
+    monkeypatch.setattr(SPLIT_WORKSPACE, "scratch", grown_meanwhile)
+    first = conv2d_relu(x, w, b)
+    second = conv2d_relu(x, w, b)
+    torch.cuda.synchronize()
+    assert len(decoys) == 2, "the calls took no split-K scratch"
+    for got in (first, second):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(first, second)
+    assert all(bool(d.isnan().all()) for d in decoys)
 
 
 @pytest.mark.parametrize("tile", TILES)
@@ -221,6 +301,33 @@ def test_matmul_unique_grid_path_matches_plain(dev):
     w = torch.randn((384, 512), generator=g).to(dev)
     torch.testing.assert_close(matmul_unique(x, w), matmul_ref(x, w),
                                rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,offset", [
+    (1, 2048, 4, 0),     # the classifier head: one micro-tile, 256 splits
+    (100, 70, 33, 0),    # w's bytes not a 16-byte multiple: vector loads
+    (100, 70, 33, 1),    # x and w one element off 16 bytes: scalar loads
+    (128, 128, 128, 0),  # 1,024 micro-tiles of 4 x 4, four a thread
+    (3, 5, 1, 0),        # M < 4: 1 x 4 micro-tiles, ragged columns
+])
+def test_matmul_unique_single_block_matches_plain(dev, m, k, n, offset,
+                                                  dtype):
+    g = torch.Generator().manual_seed(m + k)
+    # an offset view: contiguous, but not on a 16-byte boundary
+    xb = torch.randn((m * k + offset,), generator=g).to(dev, dtype)
+    wb = torch.randn((k * n + offset,), generator=g).to(dev, dtype)
+    x, w = xb[offset:].view(m, k), wb[offset:].view(k, n)
+    assert unique_one_block(m, k, n, x.element_size())
+    before = MATMUL.launches["matmul_unique"]
+    got = matmul_unique(x, w)
+    again = matmul_unique(x, w)
+    assert MATMUL.launches["matmul_unique"] == before + 2
+    assert torch.equal(got, again)  # a fixed reduction order
+    rtol, atol = (2e-4, 2e-3) if dtype == torch.float32 else (2e-2, 2e-1)
+    _, splits = unique_plan(m, n, k)
+    for ref in (matmul_ref(x, w), matmul_unique_order_ref(x, w, splits)):
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
 
 
 # f32: rtol = atol = 2e-4. bf16: rtol 2e-2 and an atol of 0.05 x the RMS

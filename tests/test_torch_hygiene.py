@@ -21,6 +21,7 @@ SLICE_MODULES = [
     "repro_torch.core.runtime", "repro_torch.core.qos",
     "repro_torch.core.transfer", "repro_torch.core.cost_model",
     "repro_torch.core.streaming", "repro_torch.kernels._build",
+    "repro_torch.kernels._split",
     "repro_torch.kernels.conv2d", "repro_torch.kernels.conv2d.kernel",
     "repro_torch.kernels.conv2d.ref", "repro_torch.kernels.streamed_matmul",
     "repro_torch.kernels.streamed_matmul.kernel",

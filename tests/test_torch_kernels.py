@@ -29,11 +29,15 @@ from repro_torch.kernels.streamed_matmul.kernel import (
     split_k_plan,
     split_k_ranges,
     unique_fits,
+    UNIQUE_THREADS,
+    unique_one_block,
+    unique_plan,
 )
 from repro_torch.kernels.streamed_matmul.ops import block_dims_for, streamed_matmul
 from repro_torch.kernels.streamed_matmul.ref import (
     matmul_blocks_split_ref,
     matmul_ref,
+    matmul_unique_order_ref,
 )
 
 # the suite runs in several worker processes on one host: one intra-op
@@ -263,3 +267,52 @@ def test_split_order_blocks_matches_pallas(m, k, n, blocks, tile, dtype):
     tol = 2e-2 if dtype == "bfloat16" else 2e-4
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol,
                                atol=tol * 10)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 4), (100, 70, 33)])
+def test_matmul_unique_order_matches_pallas(m, k, n, dtype):
+    """UNIQUE's single block in its order (its plan's splits, the xor
+    pairs inside a warp, the warps in order) against the reference's Pallas
+    ``matmul_unique`` in interpret mode."""
+    jx, jw, tx, tw = _mm_inputs(m, k, n, dtype, seed=5)
+    ref = np.asarray(jax_matmul_unique(jx, jw, interpret=True), np.float32)
+    assert unique_one_block(m, k, n, tx.element_size())
+    _, splits = unique_plan(m, n, k)
+    got = matmul_unique_order_ref(tx, tw, splits)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol,
+                               atol=tol * 10)
+
+
+# (m, n, k): the classifier head, the sweep's ragged shape and its cube,
+# M < 4, short K, more micro-tiles than threads
+@pytest.mark.parametrize("m,n,k,want", [
+    (1, 4, 2048, (1, 256)),
+    (100, 33, 70, (4, 1)),
+    (128, 128, 128, (4, 1)),
+    (3, 1, 5, (1, 4)),
+    (7, 6, 9, (4, 8)),
+    (1000, 100, 10, (4, 1)),
+    (1, 1, 1, (1, 1)),
+])
+def test_unique_plan_uses_every_thread_once(m, n, k, want):
+    rows, splits = unique_plan(m, n, k)
+    assert (rows, splits) == want
+    tiles = -(-m // rows) * -(-n // 4)
+    assert splits & (splits - 1) == 0 and splits <= max(k, 1)
+    # several splits only while the micro-tiles fit the block's threads,
+    # and then a doubling would not fit
+    assert splits == 1 or tiles * splits <= UNIQUE_THREADS
+    assert tiles * splits * 2 > UNIQUE_THREADS or splits * 2 > k
+
+
+def test_matmul_unique_order_with_several_warps_a_tile():
+    """splits > 32: lanes pair by xor inside each warp, warps add in
+    order; the same numbers as the plain product."""
+    _, _, tx, tw = _mm_inputs(2, 4096, 4, "float32", seed=6)
+    assert unique_plan(2, 4, 4096) == (1, 128)
+    np.testing.assert_allclose(matmul_unique_order_ref(tx, tw, 128).numpy(),
+                               matmul_ref(tx, tw).numpy(), rtol=1e-5,
+                               atol=1e-4)
