@@ -40,33 +40,41 @@ Phases, in order; any failure exits non-zero before a result is printed:
    B 2 x S 2048 tokens with ``use_pallas_attention`` on: exactly 36 flash
    launches a forward, of the CUDA-core symbol in f32 and of the
    tensor-core symbol in bf16; f32 logits held against the plain-attention
-   forward, bf16 losses and forward wall times of both, and the flash
-   kernel's device ms in a profiled bf16 forward (an ``lm_score`` line);
+   forward, bf16 losses and forward wall times of both, the flash
+   kernel's device ms in a profiled bf16 forward, and the logits head's
+   (its bf16-in, f32-out product's kernels in that forward, and the
+   product alone beside the up-cast f32 product it replaced, on the same
+   hidden states; an ``lm_score`` line);
 8. the serving path: ``ServingEngine.generate`` on the same model in bf16,
    4 prompts x 128 tokens, 32 new tokens, greedy, under the kernel-level
    (interrupt) and the user-level polling policies, twice each: identical
    tokens across all four (an ``lm_serve`` line);
 9. the SSD kernel against its plain version on the card at mamba2-780m's
    shape (B 2, S 2048, H 48, P 64, N 128, G 1, Q 256), zamba2-1.2b's (H 64,
-   N 64) and a G 2, Q 32 case, f32 and bf16 (y_diag, states, decay; the bf16
-   limit scales with each output row's RMS), and ``ssd_full`` through the
-   kernel against the plain ``ssd_chunked`` in f32 (an ``ssd_cases`` line);
+   N 64) and a G 2, Q 32 case, f32 (CUDA cores) and bf16 (tensor cores;
+   y_diag, states, decay; the bf16 limit scales with each output row's
+   RMS); the state pass bitwise against its loop on the bf16 kernel's
+   outputs at mamba2's shape, from zeros and from a random state, one
+   launch a call; and ``ssd_full`` through both kernels against the plain
+   ``ssd_chunked`` in f32 (an ``ssd_cases`` line);
 10. the SSM scoring path: mamba2-780m at full width (48 layers, weights
    from a CUDA generator seeded with 0). In f32, prefill of 2 x 272 tokens
    (one chunk and a padded tail, through the kernel) against 272 decode
    steps from zero state (the recurrence, no kernel): last logits, SSM
    states and conv tails. In bf16 (the mixer's f32 params kept f32),
    ``Model.loss`` / ``Model.forward`` over B 2 x S 2048 tokens: exactly 48
-   SSD launches a forward, losses, forward wall time and a profiled
-   forward (an ``ssm_score`` line);
+   launches of each SSD kernel (intra-chunk, state pass) a forward,
+   losses, forward wall time and a profiled forward with the SSD kernels'
+   device ms (an ``ssm_score`` line);
 11. the SSM serving path: mamba2-780m in bf16, 4 prompts x 600 tokens, 32
    new tokens, greedy, under the kernel-level and the user-level polling
    policies, twice each: identical tokens (an ``ssm_serve`` line);
 12. the hybrid path: zamba2-1.2b at full width (38 mamba layers, the shared
    attention block every 6): the same f32 prefill-vs-recurrence check at
    272 tokens (with the shared block's KV caches), the bf16 forward over
-   B 2 x S 2048 tokens (38 SSD launches) and one serving run, twice,
-   identical tokens (a ``hybrid`` line);
+   B 2 x S 2048 tokens (38 launches of each SSD kernel), its wall time and
+   a profiled forward, and one serving run, twice, identical tokens (a
+   ``hybrid`` line);
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
    never calls it); conv2d per RoShamBo layer at batch 1 (events and
@@ -74,7 +82,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
    the five-layer sum in alternating rounds with ``F.conv2d``; the
    classifier head's BLOCKS and UNIQUE matmuls in alternating rounds with
    ``torch.matmul`` (all host-bound there), with the device time of each
-   and BLOCKS's one-split schedule beside them;
+   and BLOCKS's one-split schedule beside them; the SSD kernel in bf16
+   and f32 and the state pass at mamba2's shape, with the device ms of a
+   launch of each in mamba2's profiled forward;
 14. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 Every time printed comes from this run on the card named by the ``card``
@@ -144,6 +154,9 @@ SSM_PREFILL = 272  # one 256-token chunk and a padded tail
 SSM_LOGIT_ATOL = 5e-3
 SSM_STATE_REL = 5e-3
 SSM_SERVE_PROMPT = 600
+SSD_SYMS = ("ssd_intra_chunk", "ssd_state_pass")
+# their kernels' names in a profiler trace (bf16 intra-chunk, state pass)
+SSD_KERNEL_NAMES = ("ssd_chunk_tc_kernel", "ssd_state_pass_kernel")
 # params the reference keeps f32 in every dtype
 F32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "d_skip", "dt_bias",
               "norm_scale")
@@ -200,16 +213,18 @@ def max_err(torch, got, ref, tol) -> float:
     return float(diff.max())
 
 
-def launched(torch, lib, sym: str, expect: int, fn, what: str):
+def launched(torch, lib, sym, expect: int, fn, what: str):
     """``fn()``, synchronised; fails unless it launched ``lib``'s ``sym``
-    exactly ``expect`` times and no other entry of ``lib``."""
+    (one C symbol, or each of a tuple of them) exactly ``expect`` times and
+    no other entry of ``lib``."""
+    syms = (sym,) if isinstance(sym, str) else tuple(sym)
     before = dict(lib.launches)
     out = fn()
     torch.cuda.synchronize()
     got = {s: lib.launches[s] - before[s] for s in before}
-    if got != {s: expect if s == sym else 0 for s in before}:
+    if got != {s: expect if s in syms else 0 for s in before}:
         fail(f"{what}: {lib.name} launched {got}, expected {expect} x "
-             f"{sym} and nothing else")
+             f"each of {syms} and nothing else")
     return out
 
 
@@ -226,10 +241,12 @@ def device_events(torch, prof) -> list[tuple[str, float, int]]:
             if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
 
 
-def device_profile(torch, fn, top: int = 6, match: str | None = None) -> dict:
+def device_profile(torch, fn, top: int = 6, match=None, names=()) -> dict:
     """One ``fn()`` under ``torch.profiler``: its wall time, the device
-    time the trace holds and the costliest device entries; with ``match``,
-    the device ms and launches of the entries whose name holds it."""
+    time the trace holds and the costliest device entries; with ``match``
+    (a string, or a tuple of them), the device ms and launches of the
+    entries whose name holds it; with ``names``, {name: (device ms,
+    launches)} of the entries named so (``matched``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -245,10 +262,17 @@ def device_profile(torch, fn, top: int = 6, match: str | None = None) -> dict:
            "device_launches": sum(n for _, _, n in ev),
            "top_ms": [[k[:72], t, n] for k, t, n in
                       sorted(ev, key=lambda e: -e[1])[:top]]}
-    if match:
-        out["match"] = {"name": match,
-                        "device_ms": sum(t for k, t, _ in ev if match in k),
-                        "launches": sum(n for k, _, n in ev if match in k)}
+    def entry(m):
+        return {"name": m,
+                "device_ms": sum(t for k, t, _ in ev if m in k),
+                "launches": sum(n for k, _, n in ev if m in k)}
+
+    if isinstance(match, str):
+        out["match"] = entry(match)
+    elif match:
+        out["match"] = [entry(m) for m in match]
+    if names:
+        out["matched"] = {k: (t, n) for k, t, n in ev if k in names}
     return out
 
 
@@ -260,28 +284,32 @@ def device_ms_per_call(torch, fn, n: int = 20) -> float:
     of a call at the classifier head's size.
 
     A trace can lose entries (on an H100, late in a run: traces of 20 conv
-    launches held 15 or 19 entries, three times in a row; early in a run,
-    some traces held none), so the time comes from each kernel's mean, not
-    from the sum; the trace is the second step of a profiler schedule,
-    after a warm-up step of the same calls; and a trace in which some
-    kernel holds fewer than n / 2 entries is taken again, a third failing
-    the run rather than print a time it never measured."""
+    launches held 15 or 19 entries, three times in a row; some traces held
+    none, once three scheduled traces in a row), so the time comes from
+    each kernel's mean, not from the sum; the trace is the second step of
+    a profiler schedule, after a warm-up step of the same calls, or, every
+    other attempt, one plain profiling session of the calls; and a trace
+    in which some kernel holds fewer than n / 2 entries is taken again, a
+    sixth failing the run rather than print a time it never measured."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    for attempt in range(6):
+        scheduled = attempt % 2 == 0
+        sched = (torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                         repeat=1) if scheduled else None)
         with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-            for _ in range(2):
+            for _ in range(2 if scheduled else 1):
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
-                prof.step()
+                if scheduled:
+                    prof.step()
         ev = device_events(torch, prof)
         if ev and all(c >= n / 2 for _, _, c in ev):
             return sum(t / c * round(c / n) for _, t, c in ev)
-    fail(f"three profiler traces of {n} calls lost entries: "
+    fail(f"six profiler traces of {n} calls lost entries: "
          f"{[(k[:40], c) for k, _, c in ev]}")
 
 
@@ -368,6 +396,71 @@ def serve_runs(np, model, params, scfg, prompts, new_tokens: int,
     return rows, first
 
 
+def trace_names(torch, fn) -> dict:
+    """{device entry name: launches} of one ``fn()`` under the profiler,
+    after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {k: n for k, _, n in device_events(torch, prof)}
+
+
+def head_kernels(torch, cfg, model, params, batch):
+    """The logits head of a bf16 scoring forward: its hidden states caught
+    on the way into ``lm.logits_from_hidden``, and {name: launches} of the
+    kernels the head alone launches that its norm does not (its product,
+    and any memset it shares with other ops). Returns (the normed hidden
+    states, the head, those kernels)."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers.norm import apply_norm
+
+    seen = []
+    real = lm.logits_from_hidden
+
+    def catch(c, p, x):
+        seen.append(x)
+        return real(c, p, x)
+
+    lm.logits_from_hidden = catch
+    try:
+        model.forward(params, batch)
+    finally:
+        lm.logits_from_hidden = real
+    x = seen[-1]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    xn = apply_norm(cfg.norm, params["final_norm"], x)
+    if xn.dtype != torch.bfloat16 or head.dtype != torch.bfloat16:
+        fail(f"{cfg.name} bf16 head: hidden {xn.dtype}, head {head.dtype}")
+    alone = trace_names(torch, lambda: real(cfg, params, x))
+    norm = trace_names(torch, lambda: apply_norm(
+        cfg.norm, params["final_norm"], x))
+    return xn, head, {k: n for k, n in alone.items() if k not in norm}
+
+
+def head_entry(torch, xn, head, kernels: dict, matched: dict) -> dict:
+    """The head's device ms and launches in a profiled forward (``matched``:
+    that trace's entries named in ``kernels``, by name), counting only the
+    kernels no other op of the forward launches; beside them, on the same
+    inputs, the device ms of the head's product alone and of the up-cast
+    f32 product it replaced (an f32 copy of both operands, then an f32
+    GEMM)."""
+    own = [k for k, n in kernels.items()
+           if k in matched and matched[k][1] == n]
+    return {"device_ms_in_forward": (sum(matched[k][0] for k in own)
+                                     if own else None),
+            "launches_in_forward": sum(matched[k][1] for k in own),
+            "kernels": sorted(own),
+            "device_ms_alone": device_ms_per_call(
+                torch, lambda: torch.mm(xn.reshape(-1, xn.shape[-1]), head,
+                                        out_dtype=torch.float32), n=5),
+            "device_ms_up_cast": device_ms_per_call(
+                torch, lambda: torch.matmul(xn.float(), head.float()), n=5)}
+
+
 def lm_paths(np, torch, dev, libs, flash_lib):
     """7. the LM scoring path and 8. the serving path, qwen2.5-3b at full
     width; each driven with every launch count set to 0 just before it and
@@ -429,6 +522,8 @@ def lm_paths(np, torch, dev, libs, flash_lib):
         torch.cuda.empty_cache()
         lfl = float(flash_run(lambda: flash_m["bfloat16"].loss(
             params16, batch), "bfloat16")[0])
+        hx, hw, hk = head_kernels(torch, cfg, flash_m["bfloat16"], params16,
+                                  batch)
         lpl = float(plain_m["bfloat16"].loss(params16, batch)[0])
         if not (np.isfinite(lfl) and np.isfinite(lpl)):
             fail(f"bf16 losses not finite: {lfl}, {lpl}")
@@ -441,12 +536,16 @@ def lm_paths(np, torch, dev, libs, flash_lib):
                 torch, lambda: plain_m["bfloat16"].forward(params16, batch)),
             "profile_flash_forward": device_profile(torch, lambda: flash_run(
                 lambda: flash_m["bfloat16"].forward(params16, batch),
-                "bfloat16"), match="flash_fwd_tc")}
+                "bfloat16"), match="flash_fwd_tc", names=set(hk))}
         prof = score["bf16"]["profile_flash_forward"]["match"]
         score["bf16"]["flash_device_ms"] = prof["device_ms"]
         if prof["launches"] != cfg.n_layers:
             fail(f"profiled bf16 forward: {prof['launches']} tensor-core "
                  f"flash kernels in the trace, expected {cfg.n_layers}")
+        score["bf16"]["head"] = head_entry(
+            torch, hx, hw, hk,
+            score["bf16"]["profile_flash_forward"].pop("matched", {}))
+        del hx
     torch.cuda.synchronize()
     lm_launches = dict(flash_lib.launches)
     score["launches"] = {lib.name: dict(lib.launches) for lib in libs}
@@ -501,9 +600,11 @@ def ssd_inputs(torch, dev, dtype, b, s, h, p, g, n, gen):
 
 
 def ssd_cases(np, torch, dev, gen) -> dict:
-    """9. the SSD kernel against its plain version; returns max |d| per
-    dtype (y_diag, states, decay together)."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_full, ssd_intra_chunk
+    """9. the SSD kernels against their plain versions; returns max |d|
+    per dtype (y_diag, states, decay together) and of the state pass."""
+    from repro_torch.kernels.ssd_scan.kernel import SSD
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_full, ssd_intra_chunk, ssd_state_pass)
     from repro_torch.models.layers.ssm import ssd_chunked
 
     rows, bad, errs = [], [], {}
@@ -529,9 +630,27 @@ def ssd_cases(np, torch, dev, gen) -> dict:
                 errs[dt_name] = max(errs.get(dt_name, 0.0), err)
             rows.append(row)
             del got, ref, args
+    # the state pass against its loop, bitwise, on the bf16 kernel's own
+    # outputs at mamba2-780m's shape, from zeros and from a random state
+    b, s, h, p, g, n, q = SSD_CASES[0]
+    args = ssd_inputs(torch, dev, torch.bfloat16, b, s, h, p, g, n, gen)
+    _, st, dec = ssd_intra_chunk(*args, chunk=q)
+    init = torch.randn((b, h, p, n), generator=gen).to(dev)
+    passes = {}
+    for name, i0 in (("zeros", None), ("initial_state", init)):
+        got = launched(torch, SSD, "ssd_state_pass", 1,
+                       lambda: ssd_state_pass(st, dec, i0),
+                       f"state pass from {name}")
+        ref = ssd_state_pass(st, dec, i0, use_kernel=False)
+        same = all(torch.equal(gt, rt) for gt, rt in zip(got, ref))
+        err = max(float((gt - rt).abs().max()) for gt, rt in zip(got, ref))
+        passes[name] = {"bitwise_equal": same, "max_abs_err": err}
+        errs["state_pass"] = max(errs.get("state_pass", 0.0), err)
+        if not same:
+            bad.append(("float32", SSD_CASES[0], f"state pass from {name}"))
+    del args, st, dec, init, got, ref
     # the full SSD through the kernel against the plain ssd_chunked, f32,
     # at mamba2-780m's shape and from a nonzero state
-    b, s, h, p, g, n, q = SSD_CASES[0]
     args = ssd_inputs(torch, dev, torch.float32, b, s, h, p, g, n, gen)
     init = torch.randn((b, h, p, n), generator=gen).to(dev)
     y1, f1 = ssd_full(*args, chunk=q, initial_state=init)
@@ -544,6 +663,7 @@ def ssd_cases(np, torch, dev, gen) -> dict:
         if not ok:
             bad.append(("float32", SSD_CASES[0], f"ssd_full {name}"))
     print("ssd_cases " + json.dumps({"cases": rows,
+                                     "state_pass_vs_loop": passes,
                                      "ssd_full_vs_ssd_chunked": full}))
     if bad:
         fail(f"ssd kernel disagrees with its plain version in {bad} (tol "
@@ -556,7 +676,7 @@ def prefill_vs_recurrence(np, torch, model, params, dev, ssd_lib) -> dict:
     against as many decode steps from the zero state (the recurrence; no
     kernel launch): last logits, SSM states, conv tails and, for the
     hybrid, the shared block's K/V."""
-    sym = "ssd_intra_chunk"
+    sym = SSD_SYMS
     cfg = model.cfg
     rng = np.random.default_rng(1)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, SSM_PREFILL))).to(dev)
@@ -609,16 +729,17 @@ def prefill_vs_recurrence(np, torch, model, params, dev, ssd_lib) -> dict:
     return out
 
 
-def ssm_paths(np, torch, dev, libs, ssd_lib) -> int:
+def ssm_paths(np, torch, dev, libs, ssd_lib):
     """10.-12. mamba2-780m scoring and serving, zamba2-1.2b, at full
     width; each path driven with every launch count set to 0 just before
-    it and read just after. Returns the mamba2 scoring path's SSD
-    launches."""
+    it and read just after. Returns the mamba2 scoring path's launches of
+    each SSD symbol, and each SSD kernel's mean device ms a launch in its
+    profiled bf16 forward (None where the trace held none)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import ServeConfig
 
-    sym = "ssd_intra_chunk"
+    sym = SSD_SYMS  # each launched once a mamba layer a forward
 
     def zero():
         for lib in libs:
@@ -628,7 +749,8 @@ def ssm_paths(np, torch, dev, libs, ssd_lib) -> int:
         return {lib.name: dict(lib.launches) for lib in libs}
 
     def one_forward(cfg, fn):
-        """One forward through the SSD kernel: one launch a mamba layer."""
+        """One forward through the SSD kernels: one launch of each a mamba
+        layer."""
         return launched(torch, ssd_lib, sym, cfg.n_layers, fn,
                         f"one {cfg.name} forward")
 
@@ -673,13 +795,18 @@ def ssm_paths(np, torch, dev, libs, ssd_lib) -> int:
             "forward_ms": wall_ms(torch, lambda: one_forward(
                 cfg, lambda: m16.forward(params16, batch))),
             "profile_forward": device_profile(torch, lambda: one_forward(
-                cfg, lambda: m16.forward(params16, batch)))}
+                cfg, lambda: m16.forward(params16, batch)),
+                match=SSD_KERNEL_NAMES)}
     torch.cuda.synchronize()
-    ssd_launches = ssd_lib.launches[sym]
+    ssd_launches = dict(ssd_lib.launches)
     score["launches"] = launches()
-    score["forwards_through_ssd"] = ssd_launches // cfg.n_layers
-    if ssd_launches == 0:
+    score["forwards_through_ssd"] = {
+        s: n // cfg.n_layers for s, n in ssd_launches.items()}
+    if min(ssd_launches.values()) == 0:
         fail("the SSM scoring path never launched the SSD kernel")
+    ssd_dev = {m["name"]: m["device_ms"] / m["launches"] if m["launches"]
+               else None
+               for m in score["bf16"]["profile_forward"]["match"]}
     print("ssm_score " + json.dumps(score))
 
     # 11. mamba2-780m serving, bf16: prefill runs the SSD kernel, decode
@@ -727,7 +854,11 @@ def ssm_paths(np, torch, dev, libs, ssd_lib) -> int:
             fail(f"{cfg.name} bf16 loss {l16}")
         hyb["bf16"] = {"loss": l16, "batch": LM_BATCH, "seq": LM_SEQ,
                        "forward_ms": wall_ms(torch, lambda: one_forward(
-                           cfg, lambda: m16.forward(params16, hbatch)))}
+                           cfg, lambda: m16.forward(params16, hbatch))),
+                       "profile_forward": device_profile(
+                           torch, lambda: one_forward(
+                               cfg, lambda: m16.forward(params16, hbatch)),
+                           match=SSD_KERNEL_NAMES)}
     prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SSM_SERVE_PROMPT),
                            dtype=np.int32)
     rows, first = serve_runs(np, m16, params16, scfg, prompts, SERVE_NEW,
@@ -739,7 +870,7 @@ def ssm_paths(np, torch, dev, libs, ssd_lib) -> int:
     print("hybrid " + json.dumps(hyb))
     del params16
     torch.cuda.empty_cache()
-    return ssd_launches
+    return ssd_launches, ssd_dev
 
 
 def main() -> None:
@@ -774,8 +905,9 @@ def main() -> None:
     from repro_torch.kernels.flash_attention.kernel import FLASH, SYMBOL
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
-    from repro_torch.kernels.ssd_scan.kernel import SSD
-    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.kernel import SSD, ssd_slice
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_intra_chunk, ssd_state_pass)
 
     libs = (CONV2D, MATMUL, FLASH, SSD)
     t0 = time.perf_counter()
@@ -1058,7 +1190,7 @@ def main() -> None:
 
     # 9. the SSD kernel against its plain version; 10.-12. the SSM paths
     ssd_errs = ssd_cases(np, torch, dev, gen)
-    ssm_launches = ssm_paths(np, torch, dev, libs, SSD)
+    ssm_launches, ssd_dev = ssm_paths(np, torch, dev, libs, SSD)
 
     # 13. timing at the paths' shapes (B = 1 frame for conv and matmul)
     conv_in = []
@@ -1269,13 +1401,40 @@ def main() -> None:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
-        "launches": ssm_launches,
+        "launches": ssm_launches["ssd_intra_chunk"],
         "max_abs_err": ssd_errs["float32"],
         "max_abs_err_bf16": ssd_errs["bfloat16"],
         "ms": sd_ms, "ms_f32": sd_ms32, "plain_ms": sd_plain,
+        # the kernel's mean device time at this shape in mamba2's profiled
+        # bf16 forward, times its one launch a call
+        "device_ms": ssd_dev["ssd_chunk_tc_kernel"],
         "bound_ms": sd_bound, "bound_by": sd_by, "library_ms": None,
         "library_note": "no single PyTorch call computes the SSD "
                         "intra-chunk function",
+        "heads_a_block": ssd_slice(b, s_ // q, h, g, q, sms),
+    })
+    # the state pass at the same shape, on the bf16 kernel's outputs,
+    # against its plain version (the loop of nc chunks it replaced)
+    _, sst, sdec = ssd_intra_chunk(*sargs, chunk=q)
+    sp_ms = time_ms(torch, lambda: ssd_state_pass(sst, sdec), iters=50)
+    sp_plain = time_ms(torch, lambda: ssd_state_pass(
+        sst, sdec, use_kernel=False), iters=20)
+    # states and decays read once, prev states and the final state written
+    # once; a multiply and an add an element a chunk (f32, CUDA cores)
+    sp_bytes = (2 * sst.numel() + sdec.numel() + sst.numel() // nc) * 4
+    sp_bound, sp_by = bound_ms(sp_bytes, 2 * sst.numel())
+    kernels.append({
+        "name": "ssd_state_pass", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ops.py:43",
+        "replaces_note": "the lax.scan of the reference's ssd_full (no "
+                         "pallas_call): a loop of 3 launches a chunk",
+        "launches": ssm_launches["ssd_state_pass"],
+        "max_abs_err": ssd_errs["state_pass"],
+        "ms": sp_ms, "plain_ms": sp_plain,
+        "device_ms": ssd_dev["ssd_state_pass_kernel"],
+        "bound_ms": sp_bound, "bound_by": sp_by, "library_ms": None,
+        "library_note": "no single PyTorch call computes the recurrence",
     })
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))

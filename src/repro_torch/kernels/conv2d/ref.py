@@ -21,10 +21,14 @@ def conv2d_relu_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     kh, kw, _, _ = w.shape
     xp = F.pad(x.float(), (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
     wf = w.float()
-    acc = b.float().expand(*x.shape[:3], w.shape[3]).clone()
+    # the dots first, from zero, and the bias after them, as the reference
+    # kernel sums (a bias added first can swallow small dots)
+    acc = torch.zeros((*x.shape[:3], w.shape[3]), dtype=torch.float32,
+                      device=x.device)
     for dy in range(kh):
         for dx in range(kw):
             acc += xp[:, dy:dy + h, dx:dx + wd, :] @ wf[dy, dx]
+    acc = acc + b.float()
     if relu:
         acc = torch.clamp_min(acc, 0.0)
     return acc.to(x.dtype)

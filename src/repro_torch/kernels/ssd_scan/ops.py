@@ -1,5 +1,6 @@
-"""Public wrapper: the full SSD, the intra-chunk kernel plus the
-inter-chunk recurrence in torch ops. Semantics match
+"""Public wrapper: the full SSD, the intra-chunk kernel, the inter-chunk
+recurrence (the state-pass kernel) and the off-diagonal term in torch ops,
+as the reference leaves it in jnp. Semantics match
 ``repro_torch.models.layers.ssm.ssd_chunked`` (which rounds at other
 points in bf16).
 
@@ -12,14 +13,25 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_call
-from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd_scan.kernel import (
+    ssd_intra_chunk_call, ssd_state_pass_call)
+from repro_torch.kernels.ssd_scan.ref import (
+    ssd_intra_chunk_ref, ssd_state_pass_ref)
 
 
 def ssd_intra_chunk(x, dt, a, b, c, *, chunk: int, use_kernel: bool = True):
     if use_kernel and x.device.type != "cpu":
         return ssd_intra_chunk_call(x, dt, a, b, c, chunk=chunk)
     return ssd_intra_chunk_ref(x, dt, a, b, c, chunk=chunk)
+
+
+def ssd_state_pass(states, chunk_decay, initial_state=None, *,
+                   use_kernel: bool = True):
+    """(prev [B,nc,H,P,N], final [B,H,P,N]): the state entering each chunk
+    and the last one, f32."""
+    if use_kernel and states.device.type != "cpu":
+        return ssd_state_pass_call(states, chunk_decay, initial_state)
+    return ssd_state_pass_ref(states, chunk_decay, initial_state)
 
 
 def ssd_full(x, dt, a, b, c, *, chunk: int, use_kernel: bool = True,
@@ -36,12 +48,8 @@ def ssd_full(x, dt, a, b, c, *, chunk: int, use_kernel: bool = True,
 
     # the recurrence across chunks (the reference's lax.scan): prev holds
     # the state entering each chunk
-    state = (torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
-             if initial_state is None else initial_state.float())
-    prev = torch.empty_like(states)
-    for z in range(nc):
-        prev[:, z] = state
-        state = state * chunk_decay[:, z, :, None, None] + states[:, z]
+    prev, state = ssd_state_pass(states, chunk_decay, initial_state,
+                                 use_kernel=use_kernel)
 
     # off-diagonal: y_off[q] = C_q . prev_state * exp(da_cs[q]), per group
     # (the heads of a group share C: no repeat over heads)

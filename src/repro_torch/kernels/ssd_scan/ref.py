@@ -1,7 +1,8 @@
-"""Plain PyTorch version of the SSD intra-chunk kernel: the same function
-as ``csrc/ssd_scan.cu``, with the reference's rounding points, and the
-wrapper's path for CPU tensors. On the card it is held against the kernel
-with ``torch.backends.cuda.matmul.allow_tf32 = False``."""
+"""Plain PyTorch versions of the SSD kernels of ``csrc/ssd_scan.cu``: the
+intra-chunk function with the reference's rounding points, and the
+recurrence across chunks; the wrappers' path for CPU tensors. On the card
+they are held against the kernels with
+``torch.backends.cuda.matmul.allow_tf32 = False``."""
 
 from __future__ import annotations
 
@@ -48,3 +49,21 @@ def ssd_intra_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       (bc * decay_states[..., None]).float(), xdt.float())
     dec = torch.exp(da_cs[:, :, -1, :])
     return y.reshape(bs, s, h, p), st, dec
+
+
+def ssd_state_pass_ref(states: torch.Tensor, chunk_decay: torch.Tensor,
+                       initial_state: torch.Tensor | None = None):
+    """The recurrence across chunks (the reference's ``lax.scan`` in
+    ``ssd_full``): prev[z] = state; state = state * decay[z] + states[z],
+    each product and sum rounded to f32 on its own. states [B,nc,H,P,N],
+    chunk_decay [B,nc,H]; initial_state [B,H,P,N] or None (zeros). Returns
+    (prev [B,nc,H,P,N], final [B,H,P,N]), f32."""
+    bs, nc, h, p, n = states.shape
+    state = (torch.zeros((bs, h, p, n), dtype=torch.float32,
+                         device=states.device)
+             if initial_state is None else initial_state.float())
+    prev = torch.empty_like(states)
+    for z in range(nc):
+        prev[:, z] = state
+        state = state * chunk_decay[:, z, :, None, None] + states[:, z]
+    return prev, state

@@ -217,12 +217,21 @@ def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def logits_from_hidden(cfg: ModelConfig, params: dict,
                        x: torch.Tensor) -> torch.Tensor:
     """f32 logits, as the reference's ``preferred_element_type=float32``:
-    the operands are cast up, so a bf16 head's products are exact. That
-    costs an f32 copy of the head per call (qwen2.5-3b: 2048 x 152064 x 4 B
-    = 1.25 GB), which a bf16 matmul would not; a bf16 result would round the
-    logits and move the greedy argmax."""
+    bf16 products are exact in f32 and summed in f32. On the card a bf16
+    head is one bf16-in, f32-out product (``torch.mm`` with ``out_dtype``),
+    with no f32 copy of the head (qwen2.5-3b's would be 2048 x 152064 x 4 B
+    = 1.25 GB a call); its f32 output is summed in f32 whatever
+    ``allow_bf16_reduced_precision_reduction`` says, which governs bf16
+    outputs only. On the CPU, which has no such product, the operands are
+    cast up, which is exact for bf16. A bf16 result would round the logits
+    and move the greedy argmax."""
     x = apply_norm(cfg.norm, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and head.dtype == torch.bfloat16):
+        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], head.shape[-1])
     return torch.matmul(x.float(), head.float())
 
 

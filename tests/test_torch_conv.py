@@ -90,6 +90,43 @@ def test_conv2d_split_ref_matches_pallas(hw, cin, cout, relu):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
 
 
+def _pallas_conv(x, w, b, relu):
+    return np.asarray(jax_conv2d_relu(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(b), tile_h=8, relu=relu,
+                                      interpret=True))
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv2d_relu_ref_adds_the_bias_after_the_dots(relu):
+    """The CPU path sums as the reference kernel does: the K x K dots from
+    zero, then the bias. With a bias of 2**24 every 0.5 would be lost
+    against a bias added first (each sum is 2**24 + 0.5, a tie rounded to
+    even); after the dots an interior pixel's 4.5 rounds to 2**24 + 4 and
+    a corner's 2.0 is exact."""
+    x = np.ones((1, 8, 8, 1), np.float32)
+    w = np.full((3, 3, 1, 2), 0.5, np.float32)
+    b = np.full(2, 2.0 ** 24, np.float32)
+    want = _pallas_conv(x, w, b, relu)
+    got = conv2d_relu_ref(*(torch.from_numpy(a) for a in (x, w, b)),
+                          relu=relu).numpy()
+    assert want[0, 3, 3, 0] == 2.0 ** 24 + 4 and want[0, 0, 0, 0] == 2.0 ** 24 + 2
+    np.testing.assert_allclose(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("hw,cin,cout", ROSHAMBO)
+def test_conv2d_relu_ref_matches_pallas(hw, cin, cout, relu):
+    """Each RoShamBo layer's Cin / Cout at 8 x 8 on random inputs, the CPU
+    path against the Pallas conv in interpret mode, at the split-order
+    version's tolerance."""
+    x, w, b = _inputs(2, 8, 8, cin, cout, seed=hw + 1)
+    got = conv2d_relu_ref(*(torch.from_numpy(a) for a in (x, w, b)),
+                          relu=relu)
+    assert got.shape == (2, 8, 8, cout) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas_conv(x, w, b, relu),
+                               rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("bsz,h,w,cin,cout,kh,kw", [
     (2, 7, 9, 3, 5, 3, 3),
     (1, 5, 6, 4, 7, 5, 3),

@@ -8,6 +8,7 @@ jax nor the reference package, so it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import itertools
 import math
 import threading
 
@@ -47,14 +48,22 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_plain,
 )
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.kernel import SSD
-from repro_torch.kernels.ssd_scan.ops import ssd_full, ssd_intra_chunk
+from repro_torch.kernels.ssd_scan.ops import (
+    ssd_full,
+    ssd_intra_chunk,
+    ssd_state_pass,
+)
+from repro_torch.kernels.ssd_scan.ref import ssd_state_pass_ref
 from repro_torch.kernels.streamed_matmul.ref import (
     matmul_blocks_split_ref,
     matmul_ref,
     matmul_unique_order_ref,
 )
+from repro_torch.models import lm
 from repro_torch.models.api import build_model
+from repro_torch.models.layers.norm import apply_norm
 from repro_torch.models.layers.ssm import ssd_chunked
 from repro_torch.serve.engine import ServeConfig, ServingEngine
 
@@ -489,6 +498,120 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, strided,
     torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("chunk,p,n", list(itertools.product(
+    ssd_kernel.CHUNKS, ssd_kernel.HEAD_DIMS, ssd_kernel.STATE_DIMS)))
+def test_ssd_kernel_build_set_matches_plain(dev, monkeypatch, chunk, p, n,
+                                            strided, dtype):
+    """Every (Q, P, N) the kernel is built for, contiguous and strided, two
+    groups of 4 heads; with no blocks-an-SM target the bf16 kernel takes
+    the largest slice (4 heads a block), so C.B is shared across heads."""
+    monkeypatch.setattr(ssd_kernel, "BLOCKS_PER_SM", 0)
+    b, s, h, g = 2, 2 * chunk, 8, 2
+    assert ssd_kernel.ssd_slice(b, s // chunk, h, g, chunk, 132) == 4
+    args = _ssd_inputs(dev, dtype, b, s, h, p, g, n, seed=chunk + p + n,
+                       strided=strided)
+    before = dict(SSD.launches)
+    got = ssd_intra_chunk(*args, chunk=chunk)
+    assert {k: SSD.launches[k] - before[k] for k in before} == {
+        "ssd_intra_chunk": 1, "ssd_state_pass": 0}
+    ref = ssd_intra_chunk(*args, chunk=chunk, use_kernel=False)
+    for gt, rt in zip(got, ref):
+        assert gt.dtype == torch.float32 and gt.shape == rt.shape
+    _ssd_close(got[0], ref[0], dtype)
+    _ssd_close(got[1], ref[1], dtype)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("chunk", [32, 256])
+def test_ssd_kernel_odd_head_slice_matches_plain(dev, monkeypatch, chunk):
+    """Three heads a block (two groups of 3): the block's halves take 2 and
+    1 heads of the slice."""
+    monkeypatch.setattr(ssd_kernel, "BLOCKS_PER_SM", 0)
+    b, s, h, p, g, n = 2, 2 * chunk, 6, 64, 2, 128
+    assert ssd_kernel.ssd_slice(b, s // chunk, h, g, chunk, 132) == 3
+    args = _ssd_inputs(dev, torch.bfloat16, b, s, h, p, g, n, seed=chunk,
+                       strided=True)
+    got = ssd_intra_chunk(*args, chunk=chunk)
+    ref = ssd_intra_chunk(*args, chunk=chunk, use_kernel=False)
+    _ssd_close(got[0], ref[0], torch.bfloat16)
+    _ssd_close(got[1], ref[1], torch.bfloat16)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_state_pass_is_bitwise_the_loop(dev, with_state):
+    """The state pass against its plain version (the torch loop) on the
+    card: bitwise equal, one launch a call; through ssd_full, one launch of
+    each SSD kernel a call."""
+    gen = torch.Generator().manual_seed(5)
+    bs, nc, h, p, n = 2, 8, 48, 64, 128
+    states = torch.randn((bs, nc, h, p, n), generator=gen).to(dev)
+    decay = torch.rand((bs, nc, h), generator=gen).to(dev)
+    init = (torch.randn((bs, h, p, n), generator=gen).to(dev)
+            if with_state else None)
+    before = dict(SSD.launches)
+    prev, final = ssd_state_pass(states, decay, init)
+    assert {k: SSD.launches[k] - before[k] for k in before} == {
+        "ssd_intra_chunk": 0, "ssd_state_pass": 1}
+    wprev, wfinal = ssd_state_pass_ref(states, decay, init)
+    assert torch.equal(prev, wprev) and torch.equal(final, wfinal)
+    x, dt, a, bb, cc = _ssd_inputs(dev, torch.bfloat16, 2, 512, 8, 64, 1,
+                                   128, seed=6, strided=True)
+    init = (torch.randn((2, 8, 64, 128), generator=gen).to(dev)
+            if with_state else None)
+    before = dict(SSD.launches)
+    y1, f1 = ssd_full(x, dt, a, bb, cc, chunk=256, initial_state=init)
+    assert {k: SSD.launches[k] - before[k] for k in before} == {
+        "ssd_intra_chunk": 1, "ssd_state_pass": 1}
+    # the plain state pass on the kernel's own intra-chunk outputs
+    _, st, dec = ssd_intra_chunk(x, dt, a, bb, cc, chunk=256)
+    wfinal = ssd_state_pass_ref(st, dec, init)[1]
+    assert torch.equal(f1, wfinal)
+
+
+def test_logits_head_bf16_on_card_matches_the_up_cast_product(dev):
+    """qwen2.5-3b's smoke config in bf16: the head's bf16-in, f32-out
+    product within 1e-4 (rtol and atol: exact products, f32 sums in
+    another order) of the up-cast f32 product on the same hidden states,
+    under either setting of allow_bf16_reduced_precision_reduction (which
+    must not reach an f32 output), with the same greedy argmax."""
+    cfg = smoke_config("qwen2.5-3b").replace(dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 48))).to(dev)
+    seen = []
+    real = lm.logits_from_hidden
+
+    def record(c, p, x):
+        seen.append(x)
+        return real(c, p, x)
+
+    try:
+        lm.logits_from_hidden = record
+        logits, _ = model.forward(params, {"tokens": toks})
+    finally:
+        lm.logits_from_hidden = real
+    (x,) = seen
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    assert x.dtype == head.dtype == torch.bfloat16
+    up = torch.matmul(apply_norm(cfg.norm, params["final_norm"], x).float(),
+                      head.float())
+    assert logits.dtype == torch.float32
+    torch.testing.assert_close(logits, up, rtol=1e-4, atol=1e-4)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = on
+            torch.testing.assert_close(lm.logits_from_hidden(cfg, params, x),
+                                       up, rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    assert torch.equal(logits.argmax(-1), up.argmax(-1))
+
+
 def test_ssd_kernel_refuses_what_it_is_not_built_for(dev):
     x, dt, a, bb, cc = _ssd_inputs(dev, torch.float32, 1, 48, 2, 16, 1, 16, 0)
     with pytest.raises(ValueError, match="divisible"):
@@ -497,6 +620,11 @@ def test_ssd_kernel_refuses_what_it_is_not_built_for(dev):
         ssd_intra_chunk(x, dt, a, bb, cc, chunk=24)
     with pytest.raises(ValueError, match="float32"):
         ssd_intra_chunk(x, dt.bfloat16(), a, bb, cc, chunk=16)
+    # the bf16 kernel copies 16-byte pieces: an x 2 bytes off is refused
+    xb = torch.empty(x.numel() + 1, dtype=torch.bfloat16,
+                     device=dev)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_intra_chunk(xb, dt, a, bb.bfloat16(), cc.bfloat16(), chunk=16)
 
 
 def test_ssd_full_kernel_matches_ssd_chunked(dev):

@@ -425,6 +425,29 @@ def test_params_from_jax_carries_bf16():
         np.asarray(jp["blocks"]["mlp"]["wi"], np.float32))
 
 
+@pytest.mark.parametrize("tie", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_logits_from_hidden_matches_reference(dtype, tie):
+    """The logits head on the CPU for bf16 and f32 params, tied or not:
+    f32 logits from the reference's params, held against its
+    ``preferred_element_type=float32`` einsum (bf16 products are exact in
+    f32 on both sides; only the order of the f32 sums may differ)."""
+    jcfg = jregistry.smoke_config("qwen2.5-3b").replace(
+        dtype=dtype, tie_embeddings=tie)
+    cfg = registry.smoke_config("qwen2.5-3b").replace(
+        dtype=dtype, tie_embeddings=tie)
+    jp = jlm.init_params(jax.random.PRNGKey(3), jcfg)
+    tp = lm.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    x = np.random.default_rng(4).standard_normal(
+        (2, 5, cfg.d_model)).astype(np.float32)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = np.asarray(jlm.logits_from_hidden(jcfg, jp, jx))
+    got = lm.logits_from_hidden(cfg, tp, tx)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("with_cache", [False, True])
 def test_cross_attention_matches_reference(with_cache):
     """attn_apply with encoder states (xk): no RoPE, not causal; with a

@@ -3,6 +3,7 @@
 Pallas kernel in interpret mode and its jnp functions on the same
 numpy-seeded inputs; the CUDA binding's refusals."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,8 +13,10 @@ from repro.kernels.ssd_scan.kernel import ssd_intra_chunk_call as jssd_call
 from repro.kernels.ssd_scan.ops import ssd_full as jssd_full
 from repro.models.layers import ssm as jssm
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-from repro_torch.kernels.ssd_scan.ops import ssd_full, ssd_intra_chunk
-from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd_scan.ops import (
+    ssd_full, ssd_intra_chunk, ssd_state_pass)
+from repro_torch.kernels.ssd_scan.ref import (
+    ssd_intra_chunk_ref, ssd_state_pass_ref)
 from repro_torch.models.layers import ssm
 
 # the suite runs in several worker processes on one host: one intra-op
@@ -176,10 +179,94 @@ def test_cuda_binding_refuses_cpu_tensors():
         ssd_kernel.ssd_intra_chunk_call(*args, chunk=16)
 
 
+def _ssm_configs():
+    """Every registered config (full and smoke) that runs the SSD: the
+    families with Mamba2 layers."""
+    from repro_torch.configs.registry import ARCHS, get_config, smoke_config
+    out = []
+    for arch in ARCHS:
+        for get in (get_config, smoke_config):
+            try:
+                cfg = get(arch)
+            except NotImplementedError:  # a family the port has not reached
+                continue
+            if cfg.family in ("ssm", "hybrid"):
+                out.append(cfg)
+    return out
+
+
 def test_kernel_shape_table_covers_the_configs():
-    from repro_torch.configs.registry import get_config, smoke_config
-    for arch in ("mamba2-780m", "zamba2-1.2b"):
-        for cfg in (get_config(arch), smoke_config(arch)):
-            assert cfg.ssm_chunk in ssd_kernel.CHUNKS
-            assert cfg.ssm_head_dim in ssd_kernel.HEAD_DIMS
-            assert cfg.ssm_state in ssd_kernel.STATE_DIMS
+    cfgs = _ssm_configs()
+    assert {c.name for c in cfgs} >= {"mamba2-780m", "zamba2-1.2b"}
+    for cfg in cfgs:
+        assert cfg.ssm_chunk in ssd_kernel.CHUNKS, cfg.name
+        assert cfg.ssm_head_dim in ssd_kernel.HEAD_DIMS, cfg.name
+        assert cfg.ssm_state in ssd_kernel.STATE_DIMS, cfg.name
+        # the bf16 kernel's head slices divide each group's heads
+        rep = cfg.n_ssm_heads // cfg.ssm_groups
+        for sms in (132, 8):
+            hs = ssd_kernel.ssd_slice(2, 8, cfg.n_ssm_heads, cfg.ssm_groups,
+                                      cfg.ssm_chunk, sms)
+            assert 1 <= hs <= ssd_kernel.MAX_SLICE and rep % hs == 0
+
+
+def test_ssd_slice_at_the_scoring_shapes():
+    """B 2 x S 2048 (8 chunks of 256, 4 q tiles each) on 132 SMs: mamba2's
+    48 heads in 8 slices of 6 (640 blocks, C.B formed 8 times a (batch,
+    chunk, tile) instead of 48), zamba2's 64 in 8 of 8; a card of 8 SMs
+    keeps the largest slice; a grid too small for any slice takes one head
+    a block."""
+    assert ssd_kernel.ssd_slice(2, 8, 48, 1, 256, 132) == 6
+    assert ssd_kernel.ssd_slice(2, 8, 64, 1, 256, 132) == 8
+    assert ssd_kernel.ssd_slice(2, 8, 48, 1, 256, 8) == 8
+    assert ssd_kernel.ssd_slice(2, 8, 48, 2, 256, 132) == 6
+    assert ssd_kernel.ssd_slice(1, 2, 4, 2, 16, 132) == 1
+
+
+def _reference_scan(states, decay, init):
+    """The reference ``ssd_full``'s lax.scan (its body is local to that
+    function), on the [B,nc,...] layout: (prev states, final state)."""
+    def body(prev, inp):
+        st_z, dec_z = inp
+        return prev * dec_z[..., None, None] + st_z, prev
+
+    final, prev = jax.lax.scan(body, init, (jnp.swapaxes(states, 0, 1),
+                                            jnp.swapaxes(decay, 0, 1)))
+    return np.asarray(jnp.swapaxes(prev, 0, 1)), np.asarray(final)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_state_pass_ref_matches_reference_scan(with_state):
+    rng = np.random.default_rng(13)
+    bs, nc, h, p, n = 2, 5, 3, 16, 8
+    states = rng.standard_normal((bs, nc, h, p, n)).astype(np.float32)
+    decay = np.exp(-rng.random((bs, nc, h)) * 4).astype(np.float32)
+    init = (rng.standard_normal((bs, h, p, n)).astype(np.float32)
+            if with_state else None)
+    wprev, wfinal = _reference_scan(
+        jnp.asarray(states), jnp.asarray(decay),
+        jnp.zeros((bs, h, p, n), jnp.float32) if init is None
+        else jnp.asarray(init))
+    prev, final = ssd_state_pass_ref(
+        torch.from_numpy(states), torch.from_numpy(decay),
+        None if init is None else torch.from_numpy(init))
+    assert prev.dtype == final.dtype == torch.float32
+    np.testing.assert_allclose(prev.numpy(), wprev, rtol=F32_TOL,
+                               atol=F32_TOL)
+    np.testing.assert_allclose(final.numpy(), wfinal, rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_state_pass_takes_the_plain_version_on_the_cpu():
+    rng = np.random.default_rng(14)
+    states = torch.from_numpy(
+        rng.standard_normal((1, 3, 2, 16, 8)).astype(np.float32))
+    decay = torch.from_numpy(rng.random((1, 3, 2)).astype(np.float32))
+    launches = dict(ssd_kernel.SSD.launches)
+    got = ssd_state_pass(states, decay)
+    want = ssd_state_pass_ref(states, decay)
+    for gt, wt in zip(got, want):
+        assert torch.equal(gt, wt)
+    assert ssd_kernel.SSD.launches == launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_state_pass_call(states, decay)
