@@ -33,6 +33,28 @@ Phases, in order; any failure exits non-zero before a result is printed:
    warm-up step of small kernels), the device time a frame holds; the conv
    kernel's launch count must rise by 10 per frame (5 layers + the 5-layer
    sparsity pass);
+5b. the ``channels`` line: ``calibrate_transfer()`` on the card (t0 and
+   GB/s from the host-felt time of pinned H2D copies, the CUDA-event time
+   of the same copies beside it), ``plan_channels`` for 48 MiB and for the
+   largest RoShamBo layer, and a 48 MiB f32 payload TX (from the group's
+   pinned pool staging) then RX through one engine, groups of 2 and 4
+   under the same ring policy and the planned group, in interleaved
+   rounds: bitwise round trips, best / median ms, GB/s, bytes a channel;
+5c. the ``channels_stream`` line: 8 gated-MLP layers (d 1024, f 4096,
+   f32, 48 MiB a layer), batch 4, through ``HostStreamingExecutor`` over
+   one engine, a two-channel group and an adaptive group, each layer's two
+   products through ``streamed_matmul`` under the transport's policy (the
+   ``matmul_blocks`` kernel): within the f32 limits of plain products,
+   bitwise equal across the transports, per-layer TX / compute / RX ms;
+5d. the ``channels_frame`` line: the same RoShamBo frames over a
+   two-channel group and an adaptive group, 10 conv launches a frame,
+   logits bitwise the single engine's and within ``LOGIT_TOL`` of the
+   plain forward, each channel's descriptors;
+5e. the ``faults`` line: a seeded ``FaultInjector`` over three card
+   channels with crc32 on: a dropped TX stripe and a corrupted RX stripe
+   retried on a sibling, channel 1 stalled until the drift check
+   quarantines it and back after the stall lifts and a probe passes, the
+   48 MiB payload exact throughout, the fault ledger;
 6. the streamed-matmul path: the RoShamBo classifier head of the same
    frames through ``streamed_matmul`` under each policy's partitioning;
 7. the LM scoring path: qwen2.5-3b at full width (36 layers, weights from a
@@ -69,6 +91,12 @@ Phases, in order; any failure exits non-zero before a result is printed:
 11. the SSM serving path: mamba2-780m in bf16, 4 prompts x 600 tokens, 32
    new tokens, greedy, under the kernel-level and the user-level polling
    policies, twice each: identical tokens (an ``ssm_serve`` line);
+11b. the same serving over ``ServeConfig(n_channels=2)``,
+   ``(adaptive_transfer=True)`` and ``(online_adaptation=True,
+   transfer_state_path=...)``, then a second online engine that must
+   warm-start from the first one's state: 48 launches of each SSD kernel a
+   prefill, greedy tokens identical to the ``ssm_serve`` line's (an
+   ``ssm_serve_channels`` line);
 12. the hybrid path: zamba2-1.2b at full width (38 mamba layers, the shared
    attention block every 6): the same f32 prefill-vs-recurrence check at
    272 tokens (with the shared block's KV caches), the bf16 forward over
@@ -161,6 +189,18 @@ SSD_KERNEL_NAMES = ("ssd_chunk_tc_kernel", "ssd_state_pass_kernel")
 F32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "d_skip", "dt_bias",
               "norm_scale")
 FRAMES_PER_POLICY = 4  # one warm-up frame + 3 timed (+1 profiled)
+# the transfer stack's lines: the reference's 48 MiB per-layer payload
+# (benchmarks/multichannel_sweep.py) and its weight-streaming scenario
+# (benchmarks/streaming_layers.py): 8 gated-MLP layers, d 1024, f 4096, f32
+CH_PAYLOAD = 48 << 20
+CH_ROUNDS = 5  # interleaved rounds over the four transports
+STREAM_LAYERS, STREAM_D, STREAM_F, STREAM_BATCH = 8, 1024, 4096, 4
+STREAM_LAYER_BYTES = (STREAM_D * 2 * STREAM_F + STREAM_F * STREAM_D) * 4
+STREAM_RUNS = 3  # a transport's first run checks every product
+# a streamed product's or output's RMS must be this far above atol (2e-3)
+# for its check to fail a kernel that is wrong
+STREAM_MIN_RMS = 100 * MATMUL_TOL["float32"][1]
+FAULT_STALL_S = 0.02  # per descriptor on the stalled channel
 ROUNDS = 7  # alternating timing rounds of a kernel and its library call
 
 
@@ -211,6 +251,12 @@ def max_err(torch, got, ref, tol) -> float:
         fail(f"kernel disagrees with its plain version: max err "
              f"{float(diff.max())} (rtol {rtol}, atol {atol})")
     return float(diff.max())
+
+
+def _zero(libs) -> None:
+    """Sets every launch count of ``libs`` to 0."""
+    for lib in libs:
+        lib.launches = dict.fromkeys(lib.launches, 0)
 
 
 def launched(torch, lib, sym, expect: int, fn, what: str):
@@ -396,6 +442,61 @@ def serve_runs(np, model, params, scfg, prompts, new_tokens: int,
     return rows, first
 
 
+SERVE_CHANNEL_SETTINGS = (
+    ("n_channels=2", {"n_channels": 2}),
+    ("adaptive_transfer", {"adaptive_transfer": True}),
+    ("online_adaptation", {"online_adaptation": True}),
+    ("online_adaptation (warm start)", {"online_adaptation": True}))
+
+
+def serve_channel_runs(np, model, params, prompts, want, vocab):
+    """One ``ServingEngine.generate`` under each ``SERVE_CHANNEL_SETTINGS``
+    entry (the online ones sharing a state file under ``build/``, which
+    the first writes on close and the second must warm-start from): greedy
+    tokens identical to ``want``. Returns a row per engine: its plan,
+    prefill and decode ms, tokens/s and fault ledger."""
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    state = ROOT / "build" / "ssm_transfer_state.json"
+    state.parent.mkdir(parents=True, exist_ok=True)
+    state.unlink(missing_ok=True)
+    b = prompts.shape[0]
+    rows = []
+    for name, kw in SERVE_CHANNEL_SETTINGS:
+        if kw.get("online_adaptation"):
+            kw = dict(kw, transfer_state_path=str(state))
+        scfg = ServeConfig(max_batch=b,
+                           max_seq=prompts.shape[1] + SERVE_NEW + 8, **kw)
+        eng = ServingEngine(model, params, scfg)
+        try:
+            if eng.engine.device.type != "cuda":
+                fail(f"serving over {name} is on {eng.engine.device}")
+            res = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+            toks = np.stack([r.tokens for r in res])
+            if not ((toks >= 0) & (toks < vocab)).all() or not np.array_equal(
+                    toks, want):
+                fail(f"serving over {name}: greedy tokens differ from the "
+                     f"single engine's")
+            plan = getattr(eng.engine, "plan", None)
+            r0 = res[0]
+            rows.append({
+                "setting": name, "engine": type(eng.engine).__name__,
+                "tag": eng.engine.policy.tag,
+                "n_channels": len(eng.engine.engines),
+                "plan": plan.row() if plan is not None else None,
+                "warm_started": getattr(eng.engine, "warm_started", None),
+                "prefill_ms": r0.prefill_s * 1e3,
+                "decode_ms": r0.decode_s * 1e3,
+                "tokens_per_s": b * SERVE_NEW / r0.decode_s,
+                "faults": eng.fault_summary()})
+        finally:
+            eng.close()
+    if not rows[-1]["warm_started"]:
+        fail("the second online engine did not warm-start from the first "
+             "one's state file")
+    return rows
+
+
 def trace_names(torch, fn) -> dict:
     """{device entry name: launches} of one ``fn()`` under the profiler,
     after a warm-up call."""
@@ -461,6 +562,401 @@ def head_entry(torch, xn, head, kernels: dict, matched: dict) -> dict:
                 torch, lambda: torch.matmul(xn.float(), head.float()), n=5)}
 
 
+def _channel_bytes(eng) -> list[dict]:
+    """Per member engine of a transport: the bytes it carried each way and
+    the descriptors it ran (one engine is a one-channel transport)."""
+    return [{"tx_bytes": e.tx_bytes_total, "rx_bytes": e.rx_bytes_total,
+             "descriptors": e.chunk_seq}
+            for e in getattr(eng, "engines", [eng])]
+
+
+def largest_layer_bytes(cnn) -> int:
+    """The largest RoShamBo layer's f32 params (3x3 w and b): the biggest
+    TX payload of a frame."""
+    return max((9 * spec.c_in + 1) * spec.c_out * 4
+               for spec in cnn.cfg.layers)
+
+
+def channels_phase(np, torch, cnn):
+    """5b. the ``channels`` line: the calibration fit on the card beside
+    the CUDA-event DMA time of the same copies, the plans it gives, and a
+    48 MiB f32 payload TX then RX through one engine, groups of 2 and 4
+    under the same policy and the planned group, in interleaved rounds:
+    bitwise round trips, pinned pool staging, best / median ms, GB/s and
+    the bytes each channel carried. Returns the calibrated model."""
+    from repro_torch.core.channels import (
+        ChannelGroup, calibrate_transfer, calibration_samples,
+        plan_channels)
+    from repro_torch.core.transfer import (
+        TransferEngine, TransferPolicy, carve_flat_out)
+
+    model = calibrate_transfer()
+    cal = [{"bytes": n, "host_us": t * 1e6, "event_us": ev * 1e6,
+            "host_gbps": n / t / 1e9, "event_gbps": n / ev / 1e9}
+           for n, t, ev in calibration_samples()]
+    plans = {"payload_48MiB": plan_channels(CH_PAYLOAD, model=model).row(),
+             "roshambo_largest_layer": plan_channels(
+                 largest_layer_bytes(cnn), model=model).row()}
+    x = np.random.default_rng(0).standard_normal(CH_PAYLOAD // 4).astype(
+        np.float32)
+    policy = TransferPolicy.kernel_level_ring(4, block_bytes=1 << 20)
+    transports = [("engine", TransferEngine(policy)),
+                  ("group2", ChannelGroup(policy, n_channels=2)),
+                  ("group4", ChannelGroup(policy, n_channels=4)),
+                  ("planned", ChannelGroup.auto(CH_PAYLOAD, model=model))]
+    out = torch.empty(CH_PAYLOAD, dtype=torch.uint8, pin_memory=True).numpy()
+    times = {name: {"tx": [], "rx": []} for name, _ in transports}
+    rows = []
+    try:
+        layouts = {name: eng.layouts.get("x", [x]) for name, eng in transports}
+        pinned = {name: bool(torch.from_numpy(lay.staging).is_pinned())
+                  for name, lay in layouts.items()}
+        if not all(pinned.values()):
+            fail(f"channels: staging not page-locked: {pinned}")
+        for _ in range(CH_ROUNDS):
+            for name, eng in transports:
+                lay = layouts[name]
+                t0 = time.perf_counter()
+                chunks = eng.tx_async(lay.pack([x]), layout=lay).wait(60.0)
+                t1 = time.perf_counter()
+                out[:] = 0
+                t2 = time.perf_counter()
+                eng.rx(chunks, out=carve_flat_out(out, chunks))
+                t3 = time.perf_counter()
+                if not np.array_equal(out.view(np.float32), x):
+                    fail(f"channels {name}: the 48 MiB round trip is not "
+                         f"bitwise the payload")
+                times[name]["tx"].append(t1 - t0)
+                times[name]["rx"].append(t3 - t2)
+        for name, eng in transports:
+            row = {"transport": name, "tag": eng.policy.tag,
+                   "n_channels": len(getattr(eng, "engines", [eng])),
+                   "staging_pinned": pinned[name],
+                   "channels": _channel_bytes(eng)}
+            for d in ("tx", "rx"):
+                ts = sorted(times[name][d])
+                row[d] = {"best_ms": ts[0] * 1e3,
+                          "median_ms": ts[len(ts) // 2] * 1e3,
+                          "gbps_best": CH_PAYLOAD / ts[0] / 1e9,
+                          "gbps_median": CH_PAYLOAD / ts[len(ts) // 2] / 1e9}
+            rows.append(row)
+    finally:
+        for _, eng in transports:
+            eng.close()
+    print("channels " + json.dumps({
+        "payload_bytes": CH_PAYLOAD, "rounds": CH_ROUNDS,
+        "fit": {"t0_us": model.t0_s * 1e6, "gbps": model.bw_Bps / 1e9},
+        "calibration": cal, "plans": plans, "transports": rows}))
+    return model
+
+
+def _mlp_block(torch, product, h, wi, wo):
+    """One layer of the streamed MLP: a pre-norm gated MLP with a residual,
+    its two products through ``product``."""
+    import torch.nn.functional as F
+
+    z = h * torch.rsqrt(h.pow(2).mean(-1, keepdim=True))
+    gate, up = product(z, wi).chunk(2, dim=-1)
+    return h + product((F.silu(gate) * up).contiguous(), wo)
+
+
+def channels_stream_phase(np, torch, dev, libs, matmul_lib, model) -> int:
+    """5c. the ``channels_stream`` line: the reference's weight-streaming
+    scenario at its own size, 8 gated-MLP layers (d 1024, f 4096, f32: 48
+    MiB of params a layer), a batch of 4 through ``HostStreamingExecutor``
+    over one engine, a two-channel group and an adaptive group; each
+    layer's two products through ``streamed_matmul``. In each transport's
+    first run every product is held against the plain product of the same
+    inputs; the output against the plain chain, bitwise equal across the
+    transports. ``model``: the calibrated fit (plans the products' policy,
+    seeds the adaptive group). Returns the matmul_blocks launches."""
+    from repro_torch.core.adaptive import AdaptiveChannelGroup
+    from repro_torch.core.channels import ChannelGroup, plan_channels
+    from repro_torch.core.streaming import HostStreamingExecutor
+    from repro_torch.core.transfer import TransferEngine, TransferPolicy
+    from repro_torch.kernels.streamed_matmul.ops import streamed_matmul
+    from repro_torch.kernels.streamed_matmul.ref import matmul_ref
+
+    tol = MATMUL_TOL["float32"]
+    rng = np.random.default_rng(0)
+    d, f = STREAM_D, STREAM_F
+    # N(0, 1/fan_in) weights behind an RMS norm, with a residual: every
+    # product stays at unit scale (the reference benchmark's N(0, 0.02)
+    # without either squares the scale each layer and reaches 0 in f32 by
+    # layer 7), so a product that drops a K slice fails its check
+    params = [[rng.standard_normal((d, 2 * f), dtype=np.float32)
+               / np.float32(np.sqrt(d)),
+               rng.standard_normal((f, d), dtype=np.float32)
+               / np.float32(np.sqrt(f))]
+              for _ in range(STREAM_LAYERS)]
+    x = rng.standard_normal((STREAM_BATCH, d), dtype=np.float32)
+    with torch.no_grad():
+        y = torch.from_numpy(x).to(dev)
+        for wi, wo in params:
+            y = _mlp_block(torch, matmul_ref, y, torch.from_numpy(wi).to(dev),
+                           torch.from_numpy(wo).to(dev))
+        want = y.cpu()
+        del y
+    torch.cuda.empty_cache()
+
+    # the products run under the policy the fit plans for a layer's 48
+    # MiB (BLOCKS), on every transport alike: the transport moves bytes and
+    # must not change a result, and an adaptive group may replan its own
+    # policy mid-run
+    mm_policy = plan_channels(STREAM_LAYER_BYTES, model=model).policy
+    check = {"on": False, "products": 0, "max_abs_err": 0.0,
+             "min_rms": float("inf")}
+
+    def product(h, w):
+        out = streamed_matmul(h, w, policy=mm_policy)
+        if check["on"]:
+            ref = matmul_ref(h, w)
+            check["max_abs_err"] = max(check["max_abs_err"],
+                                       max_err(torch, out, ref, tol))
+            check["min_rms"] = min(check["min_rms"],
+                                   float(ref.pow(2).mean().sqrt()))
+            check["products"] += 1
+        return out
+
+    def apply_fn(dev_params, h):
+        return _mlp_block(torch, product, h, *dev_params)
+
+    layers = [(f"mlp{i}", p, apply_fn) for i, p in enumerate(params)]
+    policy = TransferPolicy.kernel_level_ring(4, block_bytes=1 << 20)
+    _zero(libs)
+    rows, outs = [], {}
+    for name, make in (
+            ("engine", lambda: TransferEngine(policy)),
+            ("group2", lambda: ChannelGroup(policy, n_channels=2)),
+            ("adaptive", lambda: AdaptiveChannelGroup(STREAM_LAYER_BYTES,
+                                                      model=model))):
+        eng = make()
+        try:
+            ex = HostStreamingExecutor(eng)
+            best = None
+            for run in range(STREAM_RUNS):
+                # the first run checks every product; the others are timed
+                check["on"] = run == 0
+                with torch.no_grad():
+                    out, timing = ex.run(layers, x)
+                if name in outs and not np.array_equal(out, outs[name]):
+                    fail(f"channels_stream {name}: two runs differ")
+                outs[name] = out
+                if run and (best is None or timing.frame_s < best.frame_s):
+                    best = timing
+            check["on"] = False
+            rows.append({
+                "transport": name, "tag": eng.policy.tag,
+                "plan": (eng.plan.row() if getattr(eng, "plan", None)
+                         else None),
+                "adapt": (eng.adapt_summary()
+                          if hasattr(eng, "adapt_summary") else None),
+                "frame_ms": best.frame_s * 1e3,
+                "tx_ms": sum(l.tx_s for l in best.layers) * 1e3,
+                "compute_ms": sum(l.compute_s for l in best.layers) * 1e3,
+                "rx_ms": sum(l.rx_s for l in best.layers) * 1e3,
+                "tx_gbps": (sum(l.tx_bytes for l in best.layers)
+                            / sum(l.tx_s for l in best.layers) / 1e9),
+                "layers_ms": [[l.name, l.tx_s * 1e3, l.compute_s * 1e3,
+                               l.rx_s * 1e3] for l in best.layers],
+                "channels": _channel_bytes(eng)})
+        finally:
+            eng.close()
+    torch.cuda.synchronize()
+    launches = dict(matmul_lib.launches)
+    expect = 2 * STREAM_LAYERS * STREAM_RUNS * len(rows)
+    if launches != {"matmul_blocks": expect, "matmul_unique": 0}:
+        fail(f"channels_stream: matmul launches {launches}, expected "
+             f"{expect} of matmul_blocks (compute policy {mm_policy.tag})")
+    if check["products"] != 2 * STREAM_LAYERS * len(rows):
+        fail(f"channels_stream: {check['products']} products checked")
+    # a product at the scale of atol would pass any kernel
+    if check["min_rms"] < STREAM_MIN_RMS:
+        fail(f"channels_stream: a product's RMS {check['min_rms']} < "
+             f"{STREAM_MIN_RMS}: the check cannot fail a wrong kernel")
+    got = torch.from_numpy(outs["engine"])
+    err = max_err(torch, got, want, tol)
+    out_rms = float(got.pow(2).mean().sqrt())
+    if out_rms < STREAM_MIN_RMS:
+        fail(f"channels_stream: output RMS {out_rms} < {STREAM_MIN_RMS}")
+    for name, out in outs.items():
+        if not np.array_equal(out, outs["engine"]):
+            fail(f"channels_stream: the {name} transport changed the "
+                 f"output (not bitwise the single engine's)")
+    print("channels_stream " + json.dumps({
+        "layers": STREAM_LAYERS, "d": d, "f": f, "batch": STREAM_BATCH,
+        "layer_bytes": STREAM_LAYER_BYTES, "runs": STREAM_RUNS,
+        "compute_policy": mm_policy.tag,
+        "compute_block_bytes": mm_policy.block_bytes,
+        "products_checked": check["products"],
+        "max_abs_err_products": check["max_abs_err"],
+        "min_product_rms": check["min_rms"],
+        "max_abs_err_vs_plain": err, "output_rms": out_rms, "tol": tol,
+        "bitwise_across_transports": True, "transports": rows,
+        "launches": {lib.name: dict(lib.launches) for lib in libs}}))
+    return launches["matmul_blocks"]
+
+
+def channels_frame_phase(np, torch, libs, conv_lib, cnn, params, frames,
+                         oracle) -> int:
+    """5d. the ``channels_frame`` line: RoShamBo frames through
+    ``HostStreamingExecutor`` over a two-channel group and an adaptive
+    group, built as ``NullHopExecutor.run_frame`` builds them: 10 conv
+    launches a frame, logits bitwise the single engine's frame and within
+    ``LOGIT_TOL`` of ``RoShamBoCNN.apply``; the payloads are sub-stripe,
+    so each channel's descriptor count shows both carried traffic.
+    Returns the conv launches."""
+    from repro_torch.accel.nullhop import NullHopExecutor, _run_frame
+    from repro_torch.core.adaptive import AdaptiveChannelGroup
+    from repro_torch.core.channels import ChannelGroup
+    from repro_torch.core.streaming import HostStreamingExecutor
+    from repro_torch.core.transfer import TransferPolicy
+
+    sym = "conv2d_bias_act"
+    largest = largest_layer_bytes(cnn)
+    _zero(libs)
+    single = NullHopExecutor(cnn, TransferPolicy.kernel_level_ring())
+    try:
+        ref = [single.run_frame(params, f).logits for f in frames]
+    finally:
+        single.close()
+    rows = []
+    for name, make in (
+            ("group2", lambda: ChannelGroup(TransferPolicy.kernel_level_ring(),
+                                            n_channels=2)),
+            ("adaptive", lambda: AdaptiveChannelGroup(largest))):
+        eng = make()
+        host = {}
+
+        def host_array(key, t):
+            if key not in host:
+                host[key] = t.detach().cpu().numpy()
+            return host[key]
+
+        try:
+            streamer = HostStreamingExecutor(eng)
+            best = None
+            for i, frame in enumerate(frames):
+                before = conv_lib.launches[sym]
+                res = _run_frame(cnn, streamer, params, frame, host_array,
+                                 eng.policy.tag)
+                step = conv_lib.launches[sym] - before
+                if step != 10:
+                    fail(f"channels_frame {name}: {step} conv launches in "
+                         f"a frame, expected 10")
+                if not np.array_equal(res.logits, ref[i]):
+                    fail(f"channels_frame {name}: logits not bitwise the "
+                         f"single engine's frame")
+                np.testing.assert_allclose(res.logits, oracle[i],
+                                           rtol=LOGIT_TOL[0],
+                                           atol=LOGIT_TOL[1])
+                if i and (best is None or res.timing.frame_s < best.frame_s):
+                    best = res.timing
+            chans = _channel_bytes(eng)
+            if name == "group2" and min(c["descriptors"] for c in chans) == 0:
+                fail(f"channels_frame: a channel carried nothing: {chans}")
+            rows.append({"transport": name, "tag": eng.policy.tag,
+                         "plan": (eng.plan.row()
+                                  if getattr(eng, "plan", None) else None),
+                         "frame_ms": best.frame_s * 1e3,
+                         "tx_us_per_B": best.tx_us_per_byte,
+                         "rx_us_per_B": best.rx_us_per_byte,
+                         "channels": chans})
+        finally:
+            eng.close()
+    torch.cuda.synchronize()
+    launches = dict(conv_lib.launches)
+    if launches[sym] != 10 * len(frames) * 3:
+        fail(f"channels_frame: conv launches {launches}")
+    print("channels_frame " + json.dumps({
+        "frames": len(frames), "largest_layer_bytes": largest,
+        "transports": rows,
+        "launches": {lib.name: dict(lib.launches) for lib in libs}}))
+    return launches[sym]
+
+
+def faults_phase(np) -> None:
+    """5e. the ``faults`` line: a seeded ``FaultInjector`` over card
+    engines, three channels, crc32 on every RX; the 48 MiB payload TX and
+    RX under a dropped TX stripe, a corrupted RX stripe and a manual stall
+    of channel 1: exact bytes throughout, each fault retried on a sibling,
+    the stalled channel quarantined by the drift check and back after the
+    stall lifts and a probe runs at a healthy rate."""
+    import dataclasses
+
+    from repro_torch.core.channels import ChannelGroup
+    from repro_torch.core.faults import (
+        FaultInjector, FaultPlan, FaultSpec, RecoveryConfig)
+    from repro_torch.core.transfer import TransferPolicy
+
+    inj = FaultInjector(FaultPlan(seed=0, specs=(
+        FaultSpec(kind="drop", p=1.0, channel=0, direction="tx",
+                  hold_s=0.0, max_injections=1),
+        FaultSpec(kind="corrupt", p=1.0, channel=0, max_injections=1))))
+    policy = dataclasses.replace(
+        TransferPolicy.kernel_level_ring(4, block_bytes=1 << 20),
+        checksum=True)
+    recovery = RecoveryConfig(stripe_timeout_s=30.0, probe_interval_s=0.0)
+    g = ChannelGroup(policy, n_channels=3, engine_factory=inj.engine_factory(),
+                     recovery=recovery)
+    x = np.random.default_rng(1).integers(0, 256, CH_PAYLOAD, dtype=np.uint8)
+    steps = []
+
+    def round_trip(what):
+        t0 = time.perf_counter()
+        chunks = g.tx(x)
+        t1 = time.perf_counter()
+        back = np.concatenate([np.asarray(h).reshape(-1)
+                               for h in g.rx(chunks)])
+        t2 = time.perf_counter()
+        if not np.array_equal(back, x):
+            fail(f"faults: {what}: the round trip is not bitwise the payload")
+        steps.append({"step": what, "tx_ms": (t1 - t0) * 1e3,
+                      "rx_ms": (t2 - t1) * 1e3,
+                      "quarantined": sorted(g.quarantined)})
+
+    try:
+        round_trip("drop (tx) + corrupt (rx) on channel 0")
+        inj.stall(1, on=True, stall_s=FAULT_STALL_S)
+        stalled_tx = 0
+        # the pass that quarantines a channel also probes it: one 64 KiB
+        # descriptor stalled FAULT_STALL_S against a sibling's, kept out
+        while (not g.fault_state.summary()["quarantines"]
+               and stalled_tx < 10):
+            g.tx(x)
+            stalled_tx += 1
+            g.check_channel_health()
+        if g.quarantined != {1}:
+            fail(f"faults: the stalled channel 1 was not quarantined after "
+                 f"{stalled_tx} transfers: {sorted(g.quarantined)}")
+        steps.append({"step": "stall channel 1", "stalled_tx": stalled_tx,
+                      "quarantined": sorted(g.quarantined)})
+        round_trip("channel 1 quarantined")
+        inj.stall(1, on=False)
+        probes = 0
+        while g.quarantined and probes < 10:
+            g.check_channel_health()
+            probes += 1
+        if g.quarantined:
+            fail(f"faults: channel 1 stayed quarantined after {probes} "
+                 f"probes with the stall lifted")
+        steps.append({"step": "stall lifted", "probes": probes,
+                      "quarantined": sorted(g.quarantined)})
+        round_trip("all channels back")
+        summary = g.fault_summary()
+    finally:
+        g.close()
+    s = summary["faults"]
+    if not (s["retries"] > 0 and s["retry_successes"] == s["retries"]
+            and s["checksum_failures"] >= 1 and s["quarantines"] == 1
+            and s["unquarantines"] == 1):
+        fail(f"faults: counters {s}")
+    print("faults " + json.dumps({
+        "payload_bytes": CH_PAYLOAD, "n_channels": 3, "tag": policy.tag,
+        "stall_s": FAULT_STALL_S, "steps": steps, "summary": summary,
+        "events": [list(e) for e in inj.events]}))
+
+
 def lm_paths(np, torch, dev, libs, flash_lib):
     """7. the LM scoring path and 8. the serving path, qwen2.5-3b at full
     width; each driven with every launch count set to 0 just before it and
@@ -496,8 +992,7 @@ def lm_paths(np, torch, dev, libs, flash_lib):
 
     score = {"model": cfg.name, "params": cfg.param_count(),
              "batch": LM_BATCH, "seq": LM_SEQ, "init_s": init_s}
-    for lib in libs:
-        lib.launches = dict.fromkeys(lib.launches, 0)
+    _zero(libs)
     with torch.no_grad():
         lf, _ = flash_run(lambda: flash_m["float32"].forward(params, batch),
                           "float32")
@@ -562,8 +1057,7 @@ def lm_paths(np, torch, dev, libs, flash_lib):
                            dtype=np.int32)
     scfg = ServeConfig(max_batch=SERVE_BATCH,
                        max_seq=SERVE_PROMPT + SERVE_NEW + 8)
-    for lib in libs:
-        lib.launches = dict.fromkeys(lib.launches, 0)
+    _zero(libs)
     rows, first = serve_runs(np, model, params16, scfg, prompts, SERVE_NEW,
                              SERVE_POLICIES, cfg.vocab)
     # where a decode step's time goes: one step after a prefill of the
@@ -730,20 +1224,17 @@ def prefill_vs_recurrence(np, torch, model, params, dev, ssd_lib) -> dict:
 
 
 def ssm_paths(np, torch, dev, libs, ssd_lib):
-    """10.-12. mamba2-780m scoring and serving, zamba2-1.2b, at full
-    width; each path driven with every launch count set to 0 just before
-    it and read just after. Returns the mamba2 scoring path's launches of
-    each SSD symbol, and each SSD kernel's mean device ms a launch in its
-    profiled bf16 forward (None where the trace held none)."""
+    """10.-12. mamba2-780m scoring and serving (11b: over channel groups),
+    zamba2-1.2b, at full width; each path driven with every launch count
+    set to 0 just before it and read just after. Returns the mamba2
+    scoring path's launches of each SSD symbol, each SSD kernel's mean
+    device ms a launch in its profiled bf16 forward (None where the trace
+    held none), and the launches of the channel-group serving path."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import ServeConfig
 
     sym = SSD_SYMS  # each launched once a mamba layer a forward
-
-    def zero():
-        for lib in libs:
-            lib.launches = dict.fromkeys(lib.launches, 0)
 
     def launches():
         return {lib.name: dict(lib.launches) for lib in libs}
@@ -770,7 +1261,7 @@ def ssm_paths(np, torch, dev, libs, ssd_lib):
     score = {"model": cfg.name, "params": cfg.param_count(),
              "batch": LM_BATCH, "seq": LM_SEQ,
              "init_s": time.perf_counter() - t0}
-    zero()
+    _zero(libs)
     m32 = build_model(cfg)
     score["f32_prefill_vs_recurrence"] = prefill_vs_recurrence(
         np, torch, m32, params, dev, ssd_lib)
@@ -815,7 +1306,7 @@ def ssm_paths(np, torch, dev, libs, ssd_lib):
                            dtype=np.int32)
     scfg = ServeConfig(max_batch=SERVE_BATCH,
                        max_seq=SSM_SERVE_PROMPT + SERVE_NEW + 8)
-    zero()
+    _zero(libs)
     rows, first = launched(
         torch, ssd_lib, sym, cfg.n_layers * 2 * len(SERVE_POLICIES),
         lambda: serve_runs(np, m16, params16, scfg, prompts, SERVE_NEW,
@@ -832,14 +1323,31 @@ def ssm_paths(np, torch, dev, libs, ssd_lib):
         "prompt": SSM_SERVE_PROMPT, "new_tokens": SERVE_NEW, "runs": rows,
         "tokens_head": first[:, :8].tolist(), "profile_decode_step": step,
         "launches": serve_launches}))
-    del params16, cache
+    del cache
+
+    # 11b. the same serving over channel groups: striped, calibrated and
+    # online-adapted token transfer, then a second online engine that
+    # warm-starts from the first one's state file
+    _zero(libs)
+    rows = launched(
+        torch, ssd_lib, sym, cfg.n_layers * len(SERVE_CHANNEL_SETTINGS),
+        lambda: serve_channel_runs(np, m16, params16, prompts, first,
+                                   cfg.vocab),
+        f"{cfg.name} serving over channel groups")
+    print("ssm_serve_channels " + json.dumps({
+        "model": cfg.name, "dtype": "bfloat16", "batch": SERVE_BATCH,
+        "prompt": SSM_SERVE_PROMPT, "new_tokens": SERVE_NEW,
+        "tokens_identical_to_ssm_serve": True, "engines": rows,
+        "launches": launches()}))
+    serve_channel_launches = dict(ssd_lib.launches)
+    del params16
     torch.cuda.empty_cache()
 
     # 12. zamba2-1.2b
     cfg = get_config("zamba2-1.2b", dtype="float32")
     params = build_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
     hyb = {"model": cfg.name, "params": cfg.param_count()}
-    zero()
+    _zero(libs)
     m32 = build_model(cfg)
     hyb["f32_prefill_vs_recurrence"] = prefill_vs_recurrence(
         np, torch, m32, params, dev, ssd_lib)
@@ -870,7 +1378,7 @@ def ssm_paths(np, torch, dev, libs, ssd_lib):
     print("hybrid " + json.dumps(hyb))
     del params16
     torch.cuda.empty_cache()
-    return ssd_launches, ssd_dev
+    return ssd_launches, ssd_dev, serve_channel_launches
 
 
 def main() -> None:
@@ -1072,8 +1580,7 @@ def main() -> None:
     rows, logits_seen = [], []
     n_frames = 0
     warm = torch.zeros(1, device=dev)  # the profiler's warm-up kernels
-    for lib in libs:
-        lib.launches = dict.fromkeys(lib.launches, 0)
+    _zero(libs)
     for name, policy in policies:
         ex = NullHopExecutor(cnn, policy)
         if ex.engine.device.type != "cuda":
@@ -1166,6 +1673,15 @@ def main() -> None:
               f"{r['device_ms'] or float('nan'):10.4f}")
     print("table_i " + json.dumps(rows))
 
+    # 5b.-5e. the transfer stack: channels, weight streaming and frames over
+    # channel groups, injected faults and their recovery
+    model = channels_phase(np, torch, cnn)
+    stream_launches = channels_stream_phase(np, torch, dev, libs, MATMUL,
+                                            model)
+    frame_launches = channels_frame_phase(np, torch, libs, CONV2D, cnn,
+                                          params, frames, oracle)
+    faults_phase(np)
+
     # 6. the streamed-matmul path: the classifier head on the card
     feats = []
     for policy, f, _ in logits_seen:
@@ -1174,8 +1690,7 @@ def main() -> None:
             x = cnn.layer_apply(spec, params[spec.name], x,
                                 conv=conv2d_relu_ref)
         feats.append(x.reshape(1, -1).contiguous())
-    for lib in libs:
-        lib.launches = dict.fromkeys(lib.launches, 0)
+    _zero(libs)
     for (policy, _f, logits), feat in zip(logits_seen, feats):
         head = streamed_matmul(feat, params["fc"]["w"], policy) + params["fc"]["b"]
         np.testing.assert_allclose(head.cpu().numpy(), logits,
@@ -1190,7 +1705,8 @@ def main() -> None:
 
     # 9. the SSD kernel against its plain version; 10.-12. the SSM paths
     ssd_errs = ssd_cases(np, torch, dev, gen)
-    ssm_launches, ssd_dev = ssm_paths(np, torch, dev, libs, SSD)
+    ssm_launches, ssd_dev, ssm_channel_launches = ssm_paths(
+        np, torch, dev, libs, SSD)
 
     # 13. timing at the paths' shapes (B = 1 frame for conv and matmul)
     conv_in = []
@@ -1307,6 +1823,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/conv2d/csrc/conv2d.cu",
         "replaces": "src/repro/kernels/conv2d/kernel.py:63",
         "launches": main_launches["conv2d_bias_act"],
+        "launches_channels_frame": frame_launches,
         "max_abs_err": errs["conv2d", "float32"],
         "max_abs_err_bf16": errs["conv2d", "bfloat16"],
         "max_abs_err_split_order": errs["conv2d_split_order", "float32"],
@@ -1335,6 +1852,7 @@ def main() -> None:
             "rounds_won": mm_won[sym],
         })
     kernels[-2].update({
+        "launches_channels_stream": stream_launches,
         "tile": [bm, bn, bk], "splits": mm_splits, "steps_per_split": mm_per,
         "skinny": mm_skinny, "ms_one_split": mm_one_split,
         "device_ms_one_split": mm_one_split_dev})
@@ -1402,6 +1920,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
         "launches": ssm_launches["ssd_intra_chunk"],
+        "launches_ssm_serve_channels": ssm_channel_launches["ssd_intra_chunk"],
         "max_abs_err": ssd_errs["float32"],
         "max_abs_err_bf16": ssd_errs["bfloat16"],
         "ms": sd_ms, "ms_f32": sd_ms32, "plain_ms": sd_plain,
@@ -1430,6 +1949,7 @@ def main() -> None:
         "replaces_note": "the lax.scan of the reference's ssd_full (no "
                          "pallas_call): a loop of 3 launches a chunk",
         "launches": ssm_launches["ssd_state_pass"],
+        "launches_ssm_serve_channels": ssm_channel_launches["ssd_state_pass"],
         "max_abs_err": ssd_errs["state_pass"],
         "ms": sp_ms, "plain_ms": sp_plain,
         "device_ms": ssd_dev["ssd_state_pass_kernel"],

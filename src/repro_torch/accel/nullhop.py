@@ -72,34 +72,44 @@ class NullHopExecutor:
 
     def run_frame(self, params: dict, frame: np.ndarray) -> NullHopResult:
         """frame: [B, H, W, C]. Per-layer streamed execution + final FC."""
-        cnn = self.cnn
+        return _run_frame(self.cnn, self._streamer, params, frame,
+                          self._host_array, self.policy.tag)
 
-        def make_apply(spec):
-            def apply_fn(dev_params, x):
-                w, b = dev_params
-                return cnn.layer_apply(spec, {"w": w, "b": b}, x)
-            return apply_fn
 
-        layers = []
-        for spec in cnn.cfg.layers:
-            p = params[spec.name]
-            layers.append((spec.name,
-                           [self._host_array((spec.name, "w"), p["w"]),
-                            self._host_array((spec.name, "b"), p["b"])],
-                           make_apply(spec)))
+def _run_frame(cnn: RoShamBoCNN, streamer: HostStreamingExecutor,
+               params: dict, frame: np.ndarray, host_array,
+               policy_tag: str) -> NullHopResult:
+    """One frame through ``streamer`` (over a single engine or a channel
+    group): the layers streamed, the sparsity pass on the engine's device,
+    the classifier head on the host. ``host_array(key, tensor)`` gives the
+    host array a layer's param is staged from."""
 
-        out_host, timing = self._streamer.run(layers, np.asarray(frame))
+    def make_apply(spec):
+        def apply_fn(dev_params, x):
+            w, b = dev_params
+            return cnn.layer_apply(spec, {"w": w, "b": b}, x)
+        return apply_fn
 
-        sparsity = []  # recompute per-layer zero fractions (oracle pass)
-        device = self.engine.device
-        x = torch.as_tensor(np.asarray(frame)).to(device)
-        for spec in cnn.cfg.layers:
-            p = {k: v.to(device) for k, v in params[spec.name].items()}
-            x = cnn.layer_apply(spec, p, x)
-            sparsity.append(float((x == 0).float().mean()))
+    layers = []
+    for spec in cnn.cfg.layers:
+        p = params[spec.name]
+        layers.append((spec.name,
+                       [host_array((spec.name, "w"), p["w"]),
+                        host_array((spec.name, "b"), p["b"])],
+                       make_apply(spec)))
 
-        # classifier head runs on the PS in the paper (host-side)
-        feats = out_host.reshape(out_host.shape[0], -1)
-        logits = (feats @ self._host_array(("fc", "w"), params["fc"]["w"])
-                  + self._host_array(("fc", "b"), params["fc"]["b"]))
-        return NullHopResult(logits, timing, sparsity, self.policy.tag)
+    out_host, timing = streamer.run(layers, np.asarray(frame))
+
+    sparsity = []  # recompute per-layer zero fractions (oracle pass)
+    device = streamer.engine.device
+    x = torch.as_tensor(np.asarray(frame)).to(device)
+    for spec in cnn.cfg.layers:
+        p = {k: v.to(device) for k, v in params[spec.name].items()}
+        x = cnn.layer_apply(spec, p, x)
+        sparsity.append(float((x == 0).float().mean()))
+
+    # classifier head runs on the PS in the paper (host-side)
+    feats = out_host.reshape(out_host.shape[0], -1)
+    logits = (feats @ host_array(("fc", "w"), params["fc"]["w"])
+              + host_array(("fc", "b"), params["fc"]["b"]))
+    return NullHopResult(logits, timing, sparsity, policy_tag)

@@ -97,6 +97,12 @@ class HostStreamingExecutor:
     TX *and* layer k-1's RX with layer k's compute; with POLLING everything
     serialises.
 
+    ``engine`` is a :class:`TransferEngine` or anything that duck-types one
+    (:class:`~repro_torch.core.channels.ChannelGroup`,
+    :class:`~repro_torch.core.adaptive.AdaptiveChannelGroup`). Besides the
+    transfer calls it must carry ``device``: the one device its transfers
+    land on, read once here to give the executor its compute stream there.
+
     ``apply_fn`` runs on the executor's compute stream; the layer's compute
     time ends when an event recorded after it on that stream has completed,
     so ``compute_s`` means "until the layer's output exists".

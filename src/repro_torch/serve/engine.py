@@ -1,5 +1,5 @@
-"""Batched serving engine: prefill + decode, token traffic through one
-:class:`~repro_torch.core.transfer.TransferEngine`.
+"""Batched serving engine: prefill + decode, token traffic through a
+:class:`~repro_torch.core.transfer.TransferEngine` or a group of them.
 
 Request flow (the paper's accelerator serves frames streamed by the PS; here
 the card serves prompts streamed by the host):
@@ -16,10 +16,13 @@ the card serves prompts streamed by the host):
 The port runs prefill and decode eagerly (no ``jit``) and updates the
 decode cache in place (the reference donates it to the jitted decode
 step); the engine never looks inside the cache the model returns.
-Striped channels and adaptive transfer (``n_channels > 1``,
-``adaptive_transfer``, ``online_adaptation``) need ``core/channels.py`` and
-``core/adaptive.py``, ROADMAP Queue 1 items 7-8; until they are ported
-those settings raise rather than fall back to one channel.
+
+``ServeConfig(n_channels > 1)`` stripes the token traffic over a
+:class:`~repro_torch.core.channels.ChannelGroup`; ``adaptive_transfer``
+calibrates the link and builds the group the fitted cost model plans;
+``online_adaptation`` keeps refitting that plan from live traffic through an
+:class:`~repro_torch.core.adaptive.AdaptiveChannelGroup`, warm-started from
+``transfer_state_path``. Every channel is on the serving device.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.adaptive import AdaptiveChannelGroup, AdaptiveConfig
+from repro_torch.core.channels import ChannelGroup
 from repro_torch.core.qos import (
     AdmissionController,
     AdmissionError,
@@ -55,11 +60,16 @@ class ServeConfig:
     temperature: float = 0.0  # 0 => greedy
     eos_token: int = -1  # -1 => run to max_new_tokens
     seed: int = 0
-    # striped prompt TX over a ChannelGroup / calibrated + refitted policy:
-    # ROADMAP Queue 1 items 7-8; anything but the defaults raises for now
+    # >1: stripe prompt TX across a ChannelGroup (with adaptive_transfer it
+    # is the planner's channel CEILING; 1 there means "planner's choice")
     n_channels: int = 1
-    adaptive_transfer: bool = False
+    adaptive_transfer: bool = False  # calibrate + fit policy at construction
+    # keep refitting the fitted policy from live traffic and swap plans at
+    # safe points (implies adaptive_transfer's construction-time calibration)
     online_adaptation: bool = False
+    # warm-start persistence: with online_adaptation, load the first plan
+    # from this file when it exists and save the fitted state on close()
+    # — a restarted server skips the calibration sweep.
     transfer_state_path: str | None = None
     # DEPRECATED: class_caps / rx_timeout_s / rx_group now live on ``qos``
     # (QosSpec.class_caps / .timeout_s / .rx_group). Setting them away from
@@ -111,11 +121,6 @@ class ServingEngine:
     def __init__(self, model: Model, params: Any, cfg: ServeConfig,
                  policy: TransferPolicy | None = None,
                  device: "torch.device | str | None" = None):
-        if cfg.n_channels > 1 or cfg.adaptive_transfer or cfg.online_adaptation:
-            raise NotImplementedError(
-                "n_channels > 1, adaptive_transfer and online_adaptation "
-                "need core/channels.py and core/adaptive.py, which are not "
-                "ported yet: ROADMAP Queue 1 items 7-8")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -129,8 +134,40 @@ class ServingEngine:
             rx_group=cfg.rx_group,
             class_caps=cfg.class_caps,
         ).merged(cfg.qos)
-        self.policy = policy or TransferPolicy.kernel_level()
-        self.engine = TransferEngine(self.policy, device=self.device)
+        if cfg.adaptive_transfer or cfg.online_adaptation:
+            if policy is not None:
+                raise ValueError(
+                    "adaptive_transfer fits the policy from calibration; "
+                    "passing an explicit policy alongside it would be "
+                    "silently ignored — choose one")
+            # fit the policy to THIS host and card: calibrate, then size
+            # block / ring depth / channel count for the prompt-batch
+            # payload. The default n_channels=1 leaves the count to the
+            # planner (up to 4).
+            prompt_bytes = cfg.max_batch * cfg.max_seq * 4  # int32 tokens
+            max_ch = cfg.n_channels if cfg.n_channels > 1 else 4
+            if cfg.online_adaptation:
+                # construction-time calibration PLUS rolling refit from live
+                # token/prompt traffic, plans swapped between requests (safe
+                # points); a state_path warm-starts the first plan from the
+                # last session's fit.
+                self.engine = AdaptiveChannelGroup(
+                    prompt_bytes, cfg=AdaptiveConfig(max_channels=max_ch),
+                    devices=[self.device], priority=PriorityClass.TOKEN,
+                    state_path=cfg.transfer_state_path)
+            else:
+                self.engine = ChannelGroup.auto(prompt_bytes,
+                                                max_channels=max_ch,
+                                                devices=[self.device])
+            self.policy = self.engine.policy
+        elif cfg.n_channels > 1:
+            self.policy = policy or TransferPolicy.kernel_level_ring()
+            self.engine = ChannelGroup(
+                self.policy, n_channels=cfg.n_channels,
+                devices=[self.device] * cfg.n_channels)
+        else:
+            self.policy = policy or TransferPolicy.kernel_level()
+            self.engine = TransferEngine(self.policy, device=self.device)
         if self.qos.class_caps:
             for name, bps in self.qos.class_caps.items():
                 self.engine.set_class_cap(PriorityClass(name), bps)
@@ -153,8 +190,14 @@ class ServingEngine:
 
     def fault_summary(self) -> dict[str, Any]:
         """Fault / recovery rates of the transfer surface behind this
-        engine. A bare engine reports its own checksum failures with the
-        recovery columns zeroed (no sibling channel to retry on)."""
+        engine: deadline misses (timeouts), stripe retries + successes,
+        checksum failures, quarantine transitions. Channel groups and
+        adaptive facades report their shared ledger; a bare engine reports
+        its own checksum failures with the recovery columns zeroed (no
+        sibling channel to retry on)."""
+        f = getattr(self.engine, "fault_summary", None)
+        if f is not None:
+            return f()
         s = self.engine.summary()
         csf = int(s.get("checksum_failures", 0))
         return {"faults": {"faults": csf, "timeouts": 0,

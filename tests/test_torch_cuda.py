@@ -1,5 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
-transfer engine's copy streams, one NullHop frame, a small dense LM
+transfer engine's copy streams, channel groups (striped round trips, the
+caller's stream before a striped RX, pinned pool staging, calibration,
+injected faults and their recovery), one NullHop frame, a small dense LM
 through the flash kernel and the serving engine, and the smoke mamba2 /
 zamba2 models through the SSD kernel. Every test here is
 marked ``cuda`` and skips where there is no GPU. The file imports neither
@@ -8,6 +10,7 @@ jax nor the reference package, so it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import itertools
 import math
 import threading
@@ -19,12 +22,20 @@ import torch.nn.functional as F
 
 from repro_torch.accel.nullhop import NullHopExecutor
 from repro_torch.accel.roshambo import RoShamBoCNN
+from repro_torch.core.channels import ChannelGroup, calibrate_transfer
+from repro_torch.core.faults import (
+    FaultInjector,
+    FaultPlan,
+    FaultSpec,
+    RecoveryConfig,
+)
 from repro_torch.core.transfer import (
     Buffering,
     Management,
     Partitioning,
     TransferEngine,
     TransferPolicy,
+    reassemble_chunks,
 )
 from repro_torch.configs.registry import smoke_config
 from repro_torch.kernels._split import SPLIT_WORKSPACE
@@ -695,6 +706,156 @@ def test_ssm_serving_on_card_is_policy_independent(dev):
                             policy=policy)
         try:
             got.append(np.stack([r.tokens for r in eng.generate(prompts, 12)]))
+        finally:
+            eng.close()
+    np.testing.assert_array_equal(got[0], got[1])
+
+
+# ---- channel groups ---------------------------------------------------------
+
+def _ring(**kw):
+    return TransferPolicy.kernel_level_ring(4, block_bytes=1 << 20, **kw)
+
+
+@pytest.mark.parametrize("form", ["rx", "rx_sg"])
+def test_channels_striped_rx_waits_for_the_callers_stream(dev, form):
+    """The tensors are written by a long kernel on a side stream the caller
+    made current; the stripes are issued from joiner threads. Each member's
+    copy stream must wait for the caller's stream, or a stripe is read
+    before the kernel has written it."""
+    g = ChannelGroup(_ring(), n_channels=2)
+    want = [torch.full((1 << 18,), float(i + 1), device=dev)
+            for i in range(8)]  # 8 x 1 MiB: striped over both channels
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    try:
+        with torch.cuda.stream(side):
+            ys = [torch.zeros_like(w) for w in want]
+            torch.cuda._sleep(200_000_000)  # ~0.1 s on the side stream
+            for y, w in zip(ys, want):
+                y.copy_(w)
+            if form == "rx":
+                back = g.rx(ys)
+            else:
+                back = g.rx_sg(ys).wait(30.0)
+        for b, w in zip(back, want):
+            np.testing.assert_array_equal(np.asarray(b), w.cpu().numpy())
+        assert all(e.rx_bytes_total > 0 for e in g.engines)
+    finally:
+        g.close()
+
+
+def test_channels_pool_stages_from_pinned_memory(dev):
+    g = ChannelGroup(_ring(), n_channels=2)
+    try:
+        assert g.device.type == "cuda" and g.staging_pool.pin_memory
+        a = [np.arange(1 << 20, dtype=np.float32)]
+        lay = g.layouts.get("k", a)
+        assert torch.from_numpy(lay.staging).is_pinned()
+        (got,) = lay.unpack(g.tx_async(lay.pack(a), layout=lay).wait())
+        np.testing.assert_array_equal(got.cpu().numpy(), a[0])
+        # a shape change recycles the pinned buffer through the pool
+        lay2 = g.layouts.get("k", [np.zeros((1 << 20) - 5, np.float32)])
+        assert lay2 is not lay and torch.from_numpy(lay2.staging).is_pinned()
+        assert (g.staging_pool.allocations, g.staging_pool.reuses) == (1, 1)
+    finally:
+        g.close()
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_channels_48mib_round_trip(dev, n):
+    """The reference's per-layer payload, 48 MiB of f32, TX from pinned
+    staging then RX into one pinned flat buffer: bitwise, every channel
+    carrying a share."""
+    x = np.random.default_rng(n).standard_normal(12 << 20).astype(
+        np.float32)
+    g = ChannelGroup(_ring(), n_channels=n)
+    try:
+        lay = g.layouts.get("x", [x])
+        chunks = g.tx_async(lay.pack([x]), layout=lay).wait(60.0)
+        assert all(c.is_cuda for c in chunks)
+        assert torch.equal(reassemble_chunks(chunks).cpu(),  # the bytes
+                           torch.from_numpy(x.view(np.uint8)))
+        out = torch.empty(x.nbytes, dtype=torch.uint8,
+                          pin_memory=True).numpy()
+        g.rx(chunks, out=out)
+        np.testing.assert_array_equal(out.view(np.float32), x)
+        for direction in ("tx", "rx"):
+            carried = [getattr(e, f"{direction}_bytes_total")
+                       for e in g.engines]
+            assert sum(carried) == x.nbytes and all(c > 0 for c in carried)
+    finally:
+        g.close()
+
+
+def test_channels_calibration_on_card(dev):
+    m = calibrate_transfer()
+    assert math.isfinite(m.t0_s) and m.t0_s > 0
+    assert 1e9 <= m.bw_Bps <= 100e9
+
+
+def test_faults_corrupt_drop_and_stall_recover_on_card(dev):
+    """A dropped TX stripe and a corrupted RX stripe retry on a sibling; a
+    stalled channel is pulled from the rotation and rejoins once the stall
+    lifts and a probe runs at a healthy rate. The bytes stay exact."""
+    inj = FaultInjector(FaultPlan(seed=0, specs=(
+        FaultSpec(kind="drop", p=1.0, channel=0, direction="tx",
+                  hold_s=0.0, max_injections=1),
+        FaultSpec(kind="corrupt", p=1.0, channel=0, max_injections=1))))
+    g = ChannelGroup(dataclasses.replace(_ring(), checksum=True),
+                     n_channels=3, engine_factory=inj.engine_factory(),
+                     recovery=RecoveryConfig(stripe_timeout_s=30.0,
+                                             probe_interval_s=0.0))
+    x = (np.arange(12 << 20) % 251).astype(np.uint8)
+
+    def round_trip():
+        chunks = g.tx(x)
+        flat = np.concatenate([np.asarray(h).reshape(-1)
+                               for h in g.rx(chunks)])
+        np.testing.assert_array_equal(flat, x)
+
+    try:
+        round_trip()
+        s = g.fault_state.summary()
+        assert s["retries"] == s["retry_successes"] == 2
+        assert s["checksum_failures"] == 1
+        # a probe runs in the same pass that quarantines: one 64 KiB
+        # descriptor, stalled 20 ms against a sibling's ~1 ms, stays out
+        inj.stall(1, on=True, stall_s=0.02)
+        for _ in range(8):
+            g.tx(x)
+            g.check_channel_health()
+            if g.fault_state.summary()["quarantines"]:
+                break
+        assert g.quarantined == {1}
+        round_trip()
+        inj.stall(1, on=False)
+        for _ in range(10):
+            if g.check_channel_health():
+                break
+        assert g.quarantined == set()
+        round_trip()
+        s = g.fault_state.summary()
+        assert (s["quarantines"], s["unquarantines"]) == (1, 1)
+    finally:
+        g.close()
+
+
+@pytest.mark.parametrize("kw", [{"n_channels": 2},
+                                {"adaptive_transfer": True},
+                                {"online_adaptation": True}])
+def test_channels_serving_settings_on_card(dev, kw):
+    cfg, model = _small_lm()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 16),
+                                                dtype=np.int32)
+    got = []
+    for scfg in (ServeConfig(max_seq=48), ServeConfig(max_seq=48, **kw)):
+        eng = ServingEngine(model, params, scfg)
+        try:
+            assert eng.engine.device.type == "cuda"
+            got.append(np.stack([r.tokens for r in eng.generate(prompts, 8)]))
+            assert eng.fault_summary()["faults"]["faults"] == 0
         finally:
             eng.close()
     np.testing.assert_array_equal(got[0], got[1])

@@ -42,7 +42,10 @@ SLICE_MODULES = [
     "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.kernel",
     "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.layers.ssm",
     "repro_torch.models.hybrid", "repro_torch.configs.mamba2_780m",
-    "repro_torch.configs.zamba2_1_2b",
+    "repro_torch.configs.zamba2_1_2b", "repro_torch.utils",
+    "repro_torch.utils.timing", "repro_torch.dist", "repro_torch.dist.fault",
+    "repro_torch.core.faults", "repro_torch.core.channels",
+    "repro_torch.core.adaptive",
 ]
 
 

@@ -1,6 +1,7 @@
 """Serving on the CPU: the port's ServingEngine on the same params and
 prompts as the reference's gives the same greedy tokens under polling and
-interrupt management; settings that need unported modules raise."""
+interrupt management, over a channel group, a calibrated one and an
+online-adapted one."""
 
 import warnings
 
@@ -133,10 +134,23 @@ def test_side_inputs_ride_one_scatter_gather_slot(lm_pair, ref_tokens):
 @pytest.mark.parametrize("kw", [{"n_channels": 2},
                                 {"adaptive_transfer": True},
                                 {"online_adaptation": True}])
-def test_unported_transfer_settings_raise(lm_pair, kw):
-    _, _, m, tp, _ = lm_pair
-    with pytest.raises(NotImplementedError, match="items 7-8"):
-        ServingEngine(m, tp, ServeConfig(**kw))
+def test_transfer_settings_match_reference(lm_pair, kw):
+    """Striped, calibrated and online-adapted token transfer: the
+    reference's greedy tokens under the same ServeConfig, and the same
+    fault ledger."""
+    jm, jp, m, tp, prompts = lm_pair
+    jeng = JServingEngine(jm, jp, JServeConfig(max_seq=64, **kw))
+    eng = ServingEngine(m, tp, ServeConfig(max_seq=64, **kw))
+    try:
+        assert eng.engine.device.type == "cpu"
+        assert type(eng.engine).__name__ == type(jeng.engine).__name__
+        ref = np.stack([r.tokens for r in jeng.generate(prompts, 6)])
+        got = np.stack([r.tokens for r in eng.generate(prompts, 6)])
+        assert eng.fault_summary() == jeng.fault_summary()
+    finally:
+        jeng.close()
+        eng.close()
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_summaries_match_reference_shape(lm_pair):
