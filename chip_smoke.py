@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
    attention at qwen2.5-3b's heads (16/2, D 128, causal, S 128 and 2048,
    B 2), h2o-danube's (32/8, D 80, S 4096, window 0 / 1024 / 4096), one
    non-causal case with Sq != Skv and ragged causal S = 1000 (D 160 and a
-   D 64 window), f32 through the CUDA-core kernel and bf16 through the
+   D 64 window), granite-moe's (16/8, D 64, S 2048, B 2), deepseek-moe's
+   (MHA 16/16, D 128, S 2048) and pixtral's (32/8, D 128, S 2304 = 256
+   patches + 2048 text), f32 through the CUDA-core kernel and bf16 through the
    tensor-core kernel, one launch of that route's symbol per case (the bf16
    limit scales with each output row's RMS; a ``flash_cases`` line gives
    each case's error); BLOCKS split-K at the classifier head's shape, two
@@ -103,6 +105,47 @@ Phases, in order; any failure exits non-zero before a result is printed:
    B 2 x S 2048 tokens (38 launches of each SSD kernel), its wall time and
    a profiled forward, and one serving run, twice, identical tokens (a
    ``hybrid`` line);
+12b. the moe path (a ``moe`` line): granite-moe-1b-a400m at full width
+   (24 layers, 32 experts top-8; weights from a CUDA generator seeded
+   with 0), ``Model.forward`` over B 2 x S 2048 with
+   ``use_pallas_attention``: in f32 (TF32 off) exactly 24 launches of the
+   CUDA-core flash symbol, logits within ``LM_LOGIT_ATOL`` of the
+   plain-attention forward (the tokens each run routes elsewhere, with
+   their router margins, on the line); layer 0's MoE on its input in that
+   forward, on the card against the CPU (the same dropped fraction,
+   within ``MOE_LAYER_ATOL``); in bf16 (router and norms f32) the loss,
+   aux loss, each layer's dropped fraction, the forward's wall time and a
+   profiled forward (flash's device ms; the device ms and share of the
+   MoE's dispatch, expert products and combine); then deepseek-moe-16b
+   in bf16 (28 layers, 64 experts top-6 + 2 shared; ~34 GB), one scoring
+   forward over B 1 x S 2048 (28 tensor-core flash launches), its loss
+   and a profiled forward;
+12c. continuous batching (a ``continuous`` line): ``ContinuousBatchingEngine``
+   serving granite-moe in bf16, 4 slots, max_seq 256, 10 requests
+   (prompts 32-160 tokens, 8-48 new, from ``default_rng(0)``), under the
+   kernel-level and the user-level polling policies twice each: every
+   request done, identical tokens; per run the steps, tokens/s, each
+   request's time to first token, TX / RX counts and a profiled decode
+   step; then 2 slots at max_seq 64 where an idle slot passes max_seq
+   (its writes dropped, tokens identical across the four runs); then
+   qwen2.5-3b in f32, 3 requests over 2 slots, each request's greedy
+   tokens against ``ServingEngine`` serving it alone (a differing token
+   fails the phase unless the top-2 logit margin there is under
+   ``LM_LOGIT_ATOL``; the line says where and by how much);
+12d. the encoder-decoder path (an ``encdec`` line): seamless-m4t-medium at
+   full width (12 + 12 layers), f32 prefill of 31 tokens + one decode
+   step against the teacher-forced forward over frames [2, 128, 1024]
+   (``LM_LOGIT_ATOL``), then bf16 serving with the frames as side inputs
+   (4 x 128 frames, 16-token prompts, 32 new tokens), two policies twice
+   each: identical tokens;
+12e. the vlm path (a ``vlm`` line): pixtral-12b, f32 flash against plain
+   attention on its first 4 layers over 256 patch + 2048 text positions
+   (``LM_LOGIT_ATOL``), the bf16 model at full depth (40 layers): exactly
+   40 tensor-core flash launches a forward, its loss over the text, wall
+   time and a profiled forward; serving 4 x 128 + 32 tokens with the
+   patch embeddings (f32 [4, 256, 5120]) riding the prompt's
+   scatter-gather TX under the kernel-level policy, two policies twice
+   each: identical tokens, TX bytes on the line;
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
    never calls it); conv2d per RoShamBo layer at batch 1 (events and
@@ -113,7 +156,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
    and BLOCKS's one-split schedule beside them; the SSD kernel in bf16
    and f32 and the state pass at mamba2's shape, with the device ms of a
    launch of each in mamba2's profiled forward;
-14. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+14. a ``kernels`` JSON line (flash's launches summed over the qwen, moe
+   and vlm scoring paths), the card line, and the ``ok`` line last.
 
 Every time printed comes from this run on the card named by the ``card``
 line printed after the build (``nvidia-smi`` name and power limit).
@@ -156,7 +200,13 @@ FLASH_CASES = [(2, 128, 128, 16, 2, 128, True, 0),
                (1, 4096, 4096, 32, 8, 80, True, 4096),
                (2, 200, 333, 8, 2, 64, False, 0),
                (2, 1000, 1000, 8, 4, 160, True, 0),
-               (1, 1000, 1000, 4, 4, 64, True, 96)]
+               (1, 1000, 1000, 4, 4, 64, True, 96),
+               # the moe and vlm scoring shapes: granite-moe (D 64, GQA
+               # 2), deepseek-moe (MHA at D 128), pixtral (256 prefix +
+               # 2048 text, GQA 4)
+               (2, 2048, 2048, 16, 8, 64, True, 0),
+               (1, 2048, 2048, 16, 16, 128, True, 0),
+               (1, 2304, 2304, 32, 8, 128, True, 0)]
 # full-width LM logits, flash kernel vs plain attention_unique, both f32 on
 # the card (tests/test_pallas_wiring.py holds the smoke model at atol 1e-3)
 LM_LOGIT_ATOL = 1e-3
@@ -185,9 +235,10 @@ SSM_SERVE_PROMPT = 600
 SSD_SYMS = ("ssd_intra_chunk", "ssd_state_pass")
 # their kernels' names in a profiler trace (bf16 intra-chunk, state pass)
 SSD_KERNEL_NAMES = ("ssd_chunk_tc_kernel", "ssd_state_pass_kernel")
-# params the reference keeps f32 in every dtype
+# params the reference keeps f32 in every dtype (a bf16 router would
+# change the top-k)
 F32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "d_skip", "dt_bias",
-              "norm_scale")
+              "norm_scale", "router", "ln_x", "enc_norm")
 FRAMES_PER_POLICY = 4  # one warm-up frame + 3 timed (+1 profiled)
 # the transfer stack's lines: the reference's 48 MiB per-layer payload
 # (benchmarks/multichannel_sweep.py) and its weight-streaming scenario
@@ -202,6 +253,38 @@ STREAM_RUNS = 3  # a transport's first run checks every product
 STREAM_MIN_RMS = 100 * MATMUL_TOL["float32"][1]
 FAULT_STALL_S = 0.02  # per descriptor on the stalled channel
 ROUNDS = 7  # alternating timing rounds of a kernel and its library call
+# the moe, continuous-batching, encoder-decoder and vlm lines
+MOE_BATCH, MOE_SEQ, DEEPSEEK_BATCH = 2, 2048, 1
+# one granite MoE layer on the card against the CPU, f32
+MOE_LAYER_ATOL = 1e-4
+# the f32 flash-vs-plain gate runs at a capacity where no token is
+# dropped: with drops, a near-tie between two experts' router
+# probabilities that the two forwards break differently changes the seat
+# order and so which token is dropped (the reference's
+# tests/test_models.py holds its moe configs at 64 for the same reason)
+MOE_CHECK_CAPACITY = 64.0
+# Even without drops, a token whose k-th and (k+1)-th router
+# probabilities are this close may be routed to another expert by the
+# two forwards (f32 attention through the kernel and the plain path
+# differ by ~1e-6): that token's logits move by O(0.1). The gate lets such
+# a token exceed LM_LOGIT_ATOL, and only such a token: rerouted, with the
+# gap under MOE_TIE_GAP in both forwards' router probabilities, and at most
+# MOE_TIE_MAX_TOKENS of them (of 4,096). The line lists each with its layer
+# and both gaps.
+MOE_TIE_GAP = 1e-6
+MOE_TIE_MAX_TOKENS = 4
+MOE_SPANS = ("moe.dispatch", "moe.experts", "moe.combine", "moe.shared")
+CB_SLOTS, CB_MAX_SEQ, CB_REQUESTS = 4, 256, 10
+CB_PROMPT, CB_NEW = (32, 160), (8, 48)  # inclusive ranges
+CB_SUBMIT_TRIES = 8  # a shed request's backoffs before the phase fails
+# F6's path: slot 0 retires at length 57 and idles while slot 1 decodes 32
+# more steps, past max_seq 64 (the 10 requests above never reach it: the
+# longest device length they give is 190 of 256)
+CB_F6_SLOTS, CB_F6_MAX_SEQ, CB_F6_REQUESTS = 2, 64, ((50, 8), (16, 40))
+CB_QWEN_SLOTS, CB_QWEN_REQUESTS, CB_QWEN_NEW, CB_QWEN_MAX_SEQ = 2, 3, 16, 128
+ENC_FRAMES, ENC_CHECK_BATCH, ENC_CHECK_SEQ = 128, 2, 32
+ENC_SERVE_BATCH, ENC_SERVE_PROMPT = 4, 16
+VLM_TEXT, VLM_F32_LAYERS = 2048, 4
 
 
 def fail(msg: str) -> None:
@@ -280,19 +363,25 @@ def device_events(torch, prof) -> list[tuple[str, float, int]]:
     ``self_device_time_total`` repeats the time of the kernels it launched,
     so summing every entry would count that time twice."""
     cuda = torch.autograd.DeviceType.CUDA
-    # a schedule's step marker is listed as a device entry holding the
-    # step's wall time; it is no device work
-    return [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
+    avgs = prof.key_averages()
+    # a schedule's step marker and a ``record_function`` range are listed
+    # as device entries too, holding the wall time they span on the
+    # device; they are no device work (a range also has its host entry)
+    host = {e.key for e in avgs if e.device_type != cuda}
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in avgs
+            if e.device_type == cuda and e.key not in host
+            and not e.key.startswith("ProfilerStep")]
 
 
-def device_profile(torch, fn, top: int = 6, match=None, names=()) -> dict:
+def device_profile(torch, fn, top: int = 6, match=None, names=(),
+                   spans=()) -> dict:
     """One ``fn()`` under ``torch.profiler``: its wall time, the device
     time the trace holds and the costliest device entries; with ``match``
     (a string, or a tuple of them), the device ms and launches of the
     entries whose name holds it; with ``names``, {name: (device ms,
-    launches)} of the entries named so (``matched``)."""
+    launches)} of the entries named so (``matched``); with ``spans``, the
+    device ms of the kernels launched inside each ``record_function``
+    range so named, summed over its calls."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -319,6 +408,12 @@ def device_profile(torch, fn, top: int = 6, match=None, names=()) -> dict:
         out["match"] = [entry(m) for m in match]
     if names:
         out["matched"] = {k: (t, n) for k, t, n in ev if k in names}
+    if spans:  # the host entry's: its kernels' device time
+        cuda = torch.autograd.DeviceType.CUDA
+        avg = {e.key: e.device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.key in spans and e.device_type != cuda}
+        out["spans"] = {k: avg.get(k, 0.0) for k in spans}
     return out
 
 
@@ -401,10 +496,10 @@ SERVE_POLICIES = ("kernel-level", "user-level polling")
 
 
 def serve_runs(np, model, params, scfg, prompts, new_tokens: int,
-               policies, vocab: int, reps: int = 2):
+               policies, vocab: int, reps: int = 2, extra=None):
     """``ServingEngine.generate`` under each named policy, ``reps`` times
-    each, greedy: fails unless every run gives the first run's tokens.
-    Returns (per-run rows, the tokens)."""
+    each, greedy, with ``extra`` as side inputs: fails unless every run
+    gives the first run's tokens. Returns (per-run rows, the tokens)."""
     from repro_torch.core.transfer import TransferPolicy
     from repro_torch.serve.engine import ServingEngine
 
@@ -419,7 +514,8 @@ def serve_runs(np, model, params, scfg, prompts, new_tokens: int,
             fail(f"serving engine for {policy.tag} is on {eng.engine.device}")
         try:
             for rep in range(reps):
-                res = eng.generate(prompts, max_new_tokens=new_tokens)
+                res = eng.generate(prompts, max_new_tokens=new_tokens,
+                                   extra_inputs=extra)
                 toks = np.stack([r.tokens for r in res])
                 if toks.shape != (b, new_tokens) or not (
                         (toks >= 0) & (toks < vocab)).all():
@@ -1381,6 +1477,632 @@ def ssm_paths(np, torch, dev, libs, ssd_lib):
     return ssd_launches, ssd_dev, serve_channel_launches
 
 
+class MoERecorder:
+    """Wraps the moe layer that ``models/lm.py`` calls, while entered, and
+    keeps each call's dropped fraction (a device tensor, read after the
+    run); with ``routing``, each token's top-(k+1) router probabilities
+    and experts in rank order (an extra router product a layer, outside
+    the layer); with ``keep_input``, the first call's input."""
+
+    def __init__(self, torch, routing: bool = False,
+                 keep_input: bool = False):
+        self.torch, self.routing, self.keep_input = torch, routing, keep_input
+        self.dropped, self.ranked, self.probs = [], [], []
+        self.first_input = None
+
+    def __enter__(self):
+        from repro_torch.models import lm
+
+        torch, orig = self.torch, lm.moe_apply
+        self._lm, self._orig = lm, orig
+
+        def recording(p, x, *, top_k, **kw):
+            if self.keep_input and self.first_input is None:
+                self.first_input = x.detach().clone()
+            out, metrics = orig(p, x, top_k=top_k, **kw)
+            self.dropped.append(metrics.dropped_frac)
+            if self.routing:
+                probs = torch.softmax(
+                    x.reshape(-1, x.shape[-1]).float() @ p["router"], -1)
+                top = torch.topk(probs, top_k + 1, dim=-1)
+                self.ranked.append(top.indices)
+                self.probs.append(top.values)
+            return out, metrics
+
+        lm.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._lm.moe_apply = self._orig
+
+    def dropped_fracs(self) -> list[float]:
+        return [float(d) for d in self.dropped]
+
+    def routing_against(self, other) -> dict:
+        """Layer by layer, the tokens whose top-k expert set differs from
+        ``other``'s, those whose experts are ranked in another order (the
+        seat order, which decides who is dropped at capacity), and the
+        layers whose dropped fraction differs; for the first layer where a
+        token moved, the least gap, in this recording, between two
+        adjacent router probabilities of the tokens that moved (the
+        near-tie the other run broke the other way)."""
+        k = self.ranked[0].shape[-1] - 1
+        sets = [int((a[:, :k].sort(-1).values != b[:, :k].sort(-1).values)
+                    .any(-1).sum()) for a, b in zip(self.ranked, other.ranked)]
+        order = [int((a[:, :k] != b[:, :k]).any(-1).sum())
+                 for a, b in zip(self.ranked, other.ranked)]
+        mine, theirs = self.dropped_fracs(), other.dropped_fracs()
+        out = {"set_changed_by_layer": sets, "order_changed_by_layer": order,
+               "dropped_frac_differs_in_layers": [
+                   i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b]}
+        first = next((i for i, n in enumerate(order) if n), None)
+        if first is not None:
+            a, b = self.ranked[first], other.ranked[first]
+            moved = (a[:, :k] != b[:, :k]).any(-1)
+            gaps = self.probs[first][moved, :-1] - self.probs[first][moved, 1:]
+            out["first_layer_moved"] = first
+            out["least_adjacent_gap_of_moved"] = float(gaps.min())
+        # each token whose expert set changed: the first layer where it
+        # did, and there the gap between its k-th and (k+1)-th router
+        # probability in this recording and in ``other``'s
+        rerouted = {}
+        for i, (a, b) in enumerate(zip(self.ranked, other.ranked)):
+            changed = (a[:, :k].sort(-1).values
+                       != b[:, :k].sort(-1).values).any(-1)
+            for t in changed.nonzero().flatten().tolist():
+                if t not in rerouted:
+                    p, q = self.probs[i][t], other.probs[i][t]
+                    rerouted[t] = [i, float(p[k - 1] - p[k]),
+                                   float(q[k - 1] - q[k])]
+        out["rerouted_tokens"] = rerouted
+        return out
+
+
+def moe_paths(np, torch, dev, libs, flash_lib):
+    """12b. the moe scoring path: granite-moe-1b-a400m at full width (f32
+    flash against plain attention, one layer on the card against the CPU,
+    bf16 loss / aux / dropped fraction / wall time / a profiled forward),
+    then deepseek-moe-16b in bf16; driven with every launch count set to 0
+    just before and read just after (a ``moe`` line). Returns the path's
+    flash launches by symbol."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention.kernel import SYMBOL
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers.moe import moe_apply
+
+    t_phase = time.perf_counter()
+    cfg = get_config("granite-moe-1b-a400m", dtype="float32")
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+
+    def tokens(vocab, b):
+        seq = rng.integers(0, vocab, (b, MOE_SEQ + 1), dtype=np.int64)
+        return {"tokens": torch.from_numpy(seq[:, :-1]).to(dev),
+                "labels": torch.from_numpy(seq[:, 1:]).to(dev)}
+
+    def through_flash(c, fn, dtype):
+        return launched(torch, flash_lib, SYMBOL[getattr(torch, dtype)],
+                        c.n_layers, fn, f"one {c.name} {dtype} forward")
+
+    batch = tokens(cfg.vocab, MOE_BATCH)
+    m16 = build_model(cfg.replace(dtype="bfloat16",
+                                  use_pallas_attention=True))
+    line = {"model": cfg.name, "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(), "batch": MOE_BATCH,
+            "seq": MOE_SEQ, "init_s": time.perf_counter() - t0}
+    _zero(libs)
+    with torch.no_grad():
+        # the gate: flash against plain attention at capacity factor 64,
+        # where nothing is dropped (as the reference's decode-vs-forward
+        # test holds its moe configs); at the model's own capacity the two
+        # forwards are compared too and their routing set side by side
+        for cf in (MOE_CHECK_CAPACITY, cfg.capacity_factor):
+            c = cfg.replace(capacity_factor=cf)
+            with MoERecorder(torch, routing=True,
+                             keep_input=cf == cfg.capacity_factor) as rec_f:
+                lf, _ = through_flash(c, lambda: build_model(c.replace(
+                    use_pallas_attention=True)).forward(params, batch),
+                    "float32")
+            with MoERecorder(torch, routing=True) as rec_p:
+                lp, _ = build_model(c).forward(params, batch)
+            torch.cuda.synchronize()
+            want = (MOE_BATCH, MOE_SEQ, cfg.vocab_padded)
+            if tuple(lf.shape) != want or not bool(torch.isfinite(lf).all()):
+                fail(f"{cfg.name} logits {tuple(lf.shape)} (want {want}) "
+                     f"or not finite")
+            d = (lf - lp).abs().amax(-1).flatten()  # a token's max |d|
+            over = (d > LM_LOGIT_ATOL).nonzero().flatten().tolist()
+            routing = rec_f.routing_against(rec_p)
+            rerouted = routing["rerouted_tokens"]
+            row = {"capacity_factor": cf, "max_abs_err": float(d.max()),
+                   "logit_absmax": float(lp.abs().max()),
+                   "tokens_over_atol": {t: float(d[t]) for t in over},
+                   "max_abs_err_elsewhere": float(d.index_fill(
+                       0, torch.tensor(list(rerouted), dtype=torch.long,
+                                       device=d.device), 0).max()),
+                   "dropped_frac_layers": rec_f.dropped_fracs(),
+                   "routing_flash_vs_plain": routing}
+            del lf, lp
+            if cf == MOE_CHECK_CAPACITY:
+                line["f32"] = dict(row, atol=LM_LOGIT_ATOL,
+                                   tie_gap=MOE_TIE_GAP,
+                                   tie_max_tokens=MOE_TIE_MAX_TOKENS)
+                # a token over the limit passes only where the two
+                # forwards routed it to different experts at a near-tie
+                # that both recordings show, and only a few such tokens
+                tied = [t for t in over if t in rerouted
+                        and max(rerouted[t][1:]) < MOE_TIE_GAP]
+                bad = [t for t in over if t not in tied]
+                if bad or len(tied) > MOE_TIE_MAX_TOKENS:
+                    fail(f"{cfg.name} f32 logits, flash vs plain attention "
+                         f"at capacity factor {cf}: tokens {bad} over atol "
+                         f"{LM_LOGIT_ATOL} not explained by a routing tie "
+                         f"(gap < {MOE_TIE_GAP} in both forwards), or "
+                         f"{len(tied)} tied tokens over it (at most "
+                         f"{MOE_TIE_MAX_TOKENS}): {row}")
+            else:
+                line["f32_model_capacity"] = row
+        # layer 0's MoE on its input in the flash forward, card against CPU
+        x0 = rec_f.first_input
+        p0 = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+        kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        got, gm = moe_apply(p0, x0, **kw)
+        want_y, wm = moe_apply({k: v.cpu() for k, v in p0.items()},
+                               x0.cpu(), **kw)
+        layer_err = float((got.cpu() - want_y).abs().max())
+        # the experts in rank order on each side (the seat order)
+        ranks = [torch.topk(torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                          @ r, -1), cfg.top_k, dim=-1)
+                 for x, r in ((x0, p0["router"]),
+                              (x0.cpu(), p0["router"].cpu()))]
+        moved = (ranks[0].indices.cpu() != ranks[1].indices).any(-1)
+        seats = x0.shape[0] * x0.shape[1] * cfg.top_k
+        line["layer0_card_vs_cpu"] = {
+            "tokens": x0.shape[0] * x0.shape[1],
+            "dropped_frac_card": float(gm.dropped_frac),
+            "dropped_frac_cpu": float(wm.dropped_frac),
+            # the dropped seats (the f32 mean giving the fraction may
+            # round apart by an ulp between the two devices)
+            "dropped_seats_card": round(float(gm.dropped_frac) * seats),
+            "dropped_seats_cpu": round(float(wm.dropped_frac) * seats),
+            "max_abs_err": layer_err, "atol": MOE_LAYER_ATOL,
+            "aux_card": float(gm.aux_loss), "aux_cpu": float(wm.aux_loss),
+            "tokens_ranked_differently": int(moved.sum()),
+            "max_router_prob_diff": float(
+                (ranks[0].values.cpu() - ranks[1].values).abs().max())}
+        row = line["layer0_card_vs_cpu"]
+        if (row["dropped_seats_card"] != row["dropped_seats_cpu"]
+                or layer_err > MOE_LAYER_ATOL):
+            fail(f"{cfg.name} layer 0 MoE, card against CPU: "
+                 f"{line['layer0_card_vs_cpu']}")
+        del x0, rec_f, rec_p, got, want_y
+        params16 = _cast_weights(params, torch.bfloat16)
+        del params
+        torch.cuda.empty_cache()
+        with MoERecorder(torch) as rec16:
+            total, met = through_flash(
+                cfg, lambda: m16.loss(params16, batch), "bfloat16")
+        drops = rec16.dropped_fracs()
+        if not (np.isfinite(float(total)) and np.isfinite(float(met["aux"]))):
+            fail(f"{cfg.name} bf16 loss {float(total)} / aux "
+                 f"{float(met['aux'])} not finite")
+        line["bf16"] = {
+            "loss": float(met["loss"]), "aux": float(met["aux"]),
+            "total_loss": float(total), "dropped_frac_layers": drops,
+            "dropped_frac_mean": sum(drops) / len(drops),
+            "router_dtype": str(params16["blocks"]["moe"]["router"].dtype),
+            "forward_ms": wall_ms(torch, lambda: through_flash(
+                cfg, lambda: m16.forward(params16, batch), "bfloat16")),
+            "profile_forward": moe_profile(torch, lambda: through_flash(
+                cfg, lambda: m16.forward(params16, batch), "bfloat16"))}
+    del params16
+    torch.cuda.empty_cache()
+
+    # deepseek-moe-16b, bf16 only (its router and norms f32 as drawn)
+    dcfg = get_config("deepseek-moe-16b")
+    t0 = time.perf_counter()
+    dparams = build_model(dcfg).init(torch.Generator(dev).manual_seed(0),
+                                     dev)
+    torch.cuda.synchronize()
+    dm = build_model(dcfg.replace(use_pallas_attention=True))
+    dbatch = tokens(dcfg.vocab, DEEPSEEK_BATCH)
+    with torch.no_grad():
+        with MoERecorder(torch) as rec_d:
+            total, met = through_flash(
+                dcfg, lambda: dm.loss(dparams, dbatch), "bfloat16")
+        if not np.isfinite(float(total)):
+            fail(f"{dcfg.name} loss {float(total)} not finite")
+        drops = rec_d.dropped_fracs()
+        line["deepseek"] = {
+            "model": dcfg.name, "params": dcfg.param_count(),
+            "active_params": dcfg.active_param_count(),
+            "batch": DEEPSEEK_BATCH, "seq": MOE_SEQ,
+            "init_s": time.perf_counter() - t0,
+            "memory_gb": torch.cuda.memory_allocated(dev) / 1e9,
+            "loss": float(met["loss"]), "aux": float(met["aux"]),
+            "dropped_frac_mean": sum(drops) / len(drops),
+            "forward_ms": wall_ms(torch, lambda: through_flash(
+                dcfg, lambda: dm.forward(dparams, dbatch), "bfloat16")),
+            "profile_forward": moe_profile(torch, lambda: through_flash(
+                dcfg, lambda: dm.forward(dparams, dbatch), "bfloat16"))}
+    del dparams
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(flash_lib.launches)
+    line["launches"] = {lib.name: dict(lib.launches) for lib in libs}
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("moe " + json.dumps(line))
+    return launches
+
+
+def moe_profile(torch, fn) -> dict:
+    """A profiled forward: flash's device ms, and the device ms and share
+    of the forward's device time of each MoE range (dispatch, expert
+    products, combine, shared experts), summed over the layers."""
+    prof = device_profile(torch, fn, match="flash_fwd_tc", spans=MOE_SPANS)
+    dev_ms = prof["device_ms"]
+    prof["moe_share"] = {k: v / dev_ms if dev_ms else None
+                         for k, v in prof["spans"].items()}
+    return prof
+
+
+class _TimedTokens(list):
+    """A request's token list that notes when its first token landed."""
+
+    first_at = None
+
+    def append(self, tok):
+        if not self:
+            self.first_at = time.perf_counter()
+        super().append(tok)
+
+
+def continuous_runs(np, torch, dev, model, params, reqs, n_slots: int,
+                    max_seq: int, reps: int = 2):
+    """``ContinuousBatchingEngine.run_to_completion`` over ``reqs`` ((prompt,
+    max_new_tokens) pairs) under each serving policy, ``reps`` times each:
+    fails unless every request is done and every run gives the first
+    run's tokens. Returns (per-run rows, {rid: tokens})."""
+    from repro_torch.core.runtime import PriorityClass
+    from repro_torch.core.transfer import TransferEngine, TransferPolicy
+    from repro_torch.serve.continuous import ContinuousBatchingEngine, Request
+
+    make = {"kernel-level": TransferPolicy.kernel_level,
+            "user-level polling": TransferPolicy.user_level_polling}
+    rows, first = [], None
+    for name in SERVE_POLICIES:
+        for rep in range(reps):
+            transfer = TransferEngine(make[name](), device=dev)
+            eng = ContinuousBatchingEngine(model, params, n_slots=n_slots,
+                                           max_seq=max_seq,
+                                           transfer=transfer)
+            try:
+                if eng.transfer.device.type != dev.type:
+                    fail(f"continuous engine on {eng.transfer.device}")
+                # the client's side of admission: a shed request backs off
+                # its retry_after_s and is submitted again (it is shed when
+                # the runtime's TOKEN class missed half its deadlines in
+                # the last 5 s, as a slow host's earlier runs can leave it)
+                sheds = []
+                for i, (p, n) in enumerate(reqs):
+                    req = Request(rid=i, prompt=p, max_new_tokens=n,
+                                  tokens=_TimedTokens())
+                    for _ in range(CB_SUBMIT_TRIES):
+                        d = eng.submit(req)
+                        if d.admitted:
+                            break
+                        sheds.append([i, d.reason])
+                        time.sleep(d.retry_after_s)
+                    else:
+                        fail(f"request {i} shed {CB_SUBMIT_TRIES} times: "
+                             f"{sheds}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                done = eng.run_to_completion()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                toks = {r.rid: list(r.tokens) for r in done}
+                if (sorted(toks) != list(range(len(reqs)))
+                        or not all(r.done for r in done)
+                        or any(not 0 < len(toks[i]) <= n
+                               for i, (_, n) in enumerate(reqs))):
+                    fail(f"{model.cfg.name} {name} run {rep}: requests "
+                         f"not all done: {sorted(toks)}")
+                if first is None:
+                    first = toks
+                elif toks != first:
+                    fail(f"{model.cfg.name} continuous {name} run {rep}: "
+                         f"tokens differ from the first run's")
+                lengths = eng.cache.length.cpu().tolist()
+                n_tok = sum(len(t) for t in toks.values())
+                with torch.no_grad():
+                    step = device_profile(torch, lambda: model.decode(
+                        params, eng.tokens, eng.cache), spans=MOE_SPANS)
+                rows.append({
+                    "policy": transfer.policy.tag, "run": rep,
+                    "steps": eng.steps, "wall_ms": wall * 1e3,
+                    "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                    "ttft_ms": [(r.tokens.first_at - t0) * 1e3
+                                for r in sorted(done, key=lambda r: r.rid)],
+                    "completion_order": [r.rid for r in done],
+                    "sheds": sheds,
+                    # what the admission valve reads: the TOKEN class's
+                    # share of dispatches past their 1 ms deadline in the
+                    # last 5 s (no runtime under polling)
+                    "token_deadline_miss_rate":
+                        transfer.runtime.deadline_miss_rate(
+                            PriorityClass.TOKEN) if transfer.runtime
+                        else None,
+                    "tx_count": transfer.tx_count,
+                    "rx_count": transfer.rx_count,
+                    "tx_bytes": transfer.tx_bytes_total,
+                    "rx_bytes": transfer.rx_bytes_total,
+                    "final_lengths": lengths,
+                    # an idle slot's writes at or past max_seq, dropped
+                    "writes_dropped": [max(0, n - max_seq) for n in lengths],
+                    "profile_decode_step": step})
+            finally:
+                eng.close()
+                transfer.close()
+    return rows, first
+
+
+def continuous_paths(np, torch, dev, libs):
+    """12c. continuous batching: granite-moe in bf16 over 4 slots (10
+    requests), the same engine driven past max_seq by an idle slot (F6's
+    path), and qwen2.5-3b in f32 against ``ServingEngine`` serving each
+    request alone (a ``continuous`` line)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("granite-moe-1b-a400m", dtype="float32")
+    params16 = _cast_weights(build_model(cfg).init(
+        torch.Generator(dev).manual_seed(0), dev), torch.bfloat16)
+    model = build_model(cfg.replace(dtype="bfloat16"))
+    rng = np.random.default_rng(0)
+    reqs = []
+    for _ in range(CB_REQUESTS):
+        n = rng.integers(CB_PROMPT[0], CB_PROMPT[1] + 1)
+        reqs.append((rng.integers(0, cfg.vocab, n).astype(np.int32),
+                     int(rng.integers(CB_NEW[0], CB_NEW[1] + 1))))
+    _zero(libs)
+    rows, toks = continuous_runs(np, torch, dev, model, params16, reqs,
+                                 CB_SLOTS, CB_MAX_SEQ)
+    line = {"model": cfg.name, "dtype": "bfloat16", "slots": CB_SLOTS,
+            "max_seq": CB_MAX_SEQ,
+            "requests": [[len(p), n] for p, n in reqs], "runs": rows,
+            "tokens_identical": True,
+            "tokens_head": {r: t[:6] for r, t in toks.items()}}
+    # F6's path on the card: slot 0 retires while slot 1 decodes on, and
+    # its length passes max_seq
+    f6_reqs = [(rng.integers(0, cfg.vocab, n).astype(np.int32), new)
+               for n, new in CB_F6_REQUESTS]
+    f6_rows, f6_toks = continuous_runs(np, torch, dev, model, params16,
+                                       f6_reqs, CB_F6_SLOTS, CB_F6_MAX_SEQ)
+    dropped = f6_rows[0]["writes_dropped"]
+    if not any(dropped):
+        fail(f"no idle slot passed max_seq {CB_F6_MAX_SEQ}: final lengths "
+             f"{f6_rows[0]['final_lengths']}")
+    line["idle_past_max_seq"] = {
+        "slots": CB_F6_SLOTS, "max_seq": CB_F6_MAX_SEQ,
+        "requests": [list(r) for r in CB_F6_REQUESTS],
+        "writes_dropped": dropped, "tokens_identical": True,
+        "runs": [{k: r[k] for k in ("policy", "run", "steps", "wall_ms",
+                                    "final_lengths")} for r in f6_rows]}
+    del params16
+    torch.cuda.empty_cache()
+
+    # qwen2.5-3b, f32: each request's tokens against ServingEngine alone
+    qcfg = get_config("qwen2.5-3b", dtype="float32")
+    qparams = build_model(qcfg).init(torch.Generator(dev).manual_seed(0),
+                                     dev)
+    qmodel = build_model(qcfg)
+    qreqs = [(rng.integers(0, qcfg.vocab, rng.integers(32, 97)).astype(
+        np.int32), CB_QWEN_NEW) for _ in range(CB_QWEN_REQUESTS)]
+    qrows, qtoks = continuous_runs(np, torch, dev, qmodel, qparams, qreqs,
+                                   CB_QWEN_SLOTS, CB_QWEN_MAX_SEQ, reps=1)
+    near_ties = []
+    for rid, (p, n) in enumerate(qreqs):
+        solo = ServingEngine(qmodel, qparams,
+                             ServeConfig(max_batch=1, max_seq=CB_QWEN_MAX_SEQ))
+        try:
+            want = solo.generate(p[None], max_new_tokens=n)[0].tokens.tolist()
+        finally:
+            solo.close()
+        got = qtoks[rid]
+        at = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                  None)
+        if at is None:
+            continue
+        # the solo run's top-2 logit margin at the first differing step
+        with torch.no_grad():
+            seq = torch.from_numpy(np.concatenate([p, want[:at]])).to(dev)
+            last = qmodel.forward(qparams, {"tokens": seq[None]})[0][
+                0, -1, :qcfg.vocab]
+        top2 = torch.topk(last, 2).values
+        margin = float(top2[0] - top2[1])
+        near_ties.append({"rid": rid, "step": at, "continuous": got[at],
+                          "alone": want[at], "top2_margin": margin})
+        if margin >= LM_LOGIT_ATOL:
+            fail(f"{qcfg.name} request {rid}: continuous batching differs "
+                 f"from serving it alone at step {at} with a top-2 logit "
+                 f"margin {margin} >= {LM_LOGIT_ATOL}")
+    line["qwen_f32_vs_alone"] = {
+        "model": qcfg.name, "slots": CB_QWEN_SLOTS,
+        "requests": [[len(p), n] for p, n in qreqs], "runs": qrows,
+        "differing_steps": near_ties}
+    del qparams
+    torch.cuda.empty_cache()
+    line["launches"] = {lib.name: dict(lib.launches) for lib in libs}
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("continuous " + json.dumps(line))
+
+
+def encdec_paths(np, torch, dev, libs):
+    """12d. seamless-m4t-medium at full width: f32 prefill(S-1) + one
+    decode step against the teacher-forced forward, then bf16 serving with
+    the frames as side inputs (an ``encdec`` line)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config("seamless-m4t-medium", dtype="float32")
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+    model = build_model(cfg)
+    rng = np.random.default_rng(0)
+    b, s = ENC_CHECK_BATCH, ENC_CHECK_SEQ
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, ENC_FRAMES, cfg.d_model)).astype(np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    _zero(libs)
+    with torch.no_grad():
+        full, _ = model.forward(params, {"frames": frames, "tokens": toks})
+        pl, cache = model.prefill(
+            params, {"frames": frames, "tokens": toks[:, :s - 1]}, s + 8)
+        dl, _ = model.decode(params, toks[:, s - 1:], cache)
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(full).all()):
+        fail(f"{cfg.name} forward logits not finite")
+    errs = {"prefill": float((pl[:, -1] - full[:, s - 2]).abs().max()),
+            "decode": float((dl[:, -1] - full[:, s - 1]).abs().max())}
+    line = {"model": cfg.name, "params": cfg.param_count(),
+            "f32": {"batch": b, "frames": ENC_FRAMES, "seq": s,
+                    "max_abs_err": errs, "atol": LM_LOGIT_ATOL,
+                    "logit_absmax": float(full.abs().max())}}
+    if max(errs.values()) > LM_LOGIT_ATOL:
+        fail(f"{cfg.name} f32 prefill / decode against the forward: {errs}")
+    del full, pl, dl, cache
+    params16 = _cast_weights(params, torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+    m16 = build_model(cfg.replace(dtype="bfloat16"))
+    prompts = rng.integers(0, cfg.vocab, (ENC_SERVE_BATCH, ENC_SERVE_PROMPT),
+                           dtype=np.int32)
+    extra = {"frames": rng.standard_normal(
+        (ENC_SERVE_BATCH, ENC_FRAMES, cfg.d_model)).astype(np.float32)}
+    scfg = ServeConfig(max_batch=ENC_SERVE_BATCH,
+                       max_seq=ENC_SERVE_PROMPT + SERVE_NEW + 8)
+    rows, first = serve_runs(np, m16, params16, scfg, prompts, SERVE_NEW,
+                             SERVE_POLICIES, cfg.vocab, extra=extra)
+    with torch.no_grad():
+        batch = {"tokens": torch.from_numpy(prompts).to(dev),
+                 "frames": torch.from_numpy(extra["frames"]).to(dev)}
+        _, cache = m16.prefill(params16, batch, scfg.max_seq)
+        step = device_profile(torch, lambda: m16.decode(
+            params16, batch["tokens"][:, -1:], cache))
+    line["bf16_serve"] = {
+        "batch": ENC_SERVE_BATCH, "frames": ENC_FRAMES,
+        "prompt": ENC_SERVE_PROMPT, "new_tokens": SERVE_NEW, "runs": rows,
+        "tokens_head": first[:, :8].tolist(), "profile_decode_step": step}
+    del params16, cache
+    torch.cuda.empty_cache()
+    line["launches"] = {lib.name: dict(lib.launches) for lib in libs}
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("encdec " + json.dumps(line))
+
+
+def vlm_paths(np, torch, dev, libs, flash_lib):
+    """12e. pixtral-12b at full width: f32 flash against plain attention on
+    its first 4 layers, the bf16 scoring forward over 256 patch + 2048 text
+    positions (40 flash launches) with its loss over the text, and serving
+    with the patch embeddings riding the prompt's transfer (a ``vlm``
+    line). Returns the path's flash launches by symbol."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention.kernel import SYMBOL
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config("pixtral-12b")
+    rng = np.random.default_rng(0)
+    seq = rng.integers(0, cfg.vocab, (1, VLM_TEXT + 1), dtype=np.int64)
+    batch = {"tokens": torch.from_numpy(seq[:, :-1]).to(dev),
+             "labels": torch.from_numpy(seq[:, 1:]).to(dev),
+             "patch_embeds": torch.from_numpy(rng.standard_normal(
+                 (1, cfg.n_prefix_tokens, cfg.d_model)).astype(
+                     np.float32)).to(dev)}
+    s_all = cfg.n_prefix_tokens + VLM_TEXT
+
+    def through_flash(c, fn):
+        return launched(torch, flash_lib, SYMBOL[getattr(torch, c.dtype)],
+                        c.n_layers, fn, f"one {c.name} {c.dtype} forward "
+                        f"({c.n_layers} layers)")
+
+    _zero(libs)
+    # f32, the first 4 layers (the same draws as the full model's)
+    c4 = cfg.replace(n_layers=VLM_F32_LAYERS, dtype="float32")
+    p4 = build_model(c4).init(torch.Generator(dev).manual_seed(0), dev)
+    with torch.no_grad():
+        lf, _ = through_flash(c4, lambda: build_model(c4.replace(
+            use_pallas_attention=True)).forward(p4, batch))
+        lp, _ = build_model(c4).forward(p4, batch)
+        torch.cuda.synchronize()
+    err = float((lf - lp).abs().max())
+    line = {"model": cfg.name, "params": cfg.param_count(),
+            "f32_first_layers": {"layers": VLM_F32_LAYERS, "seq": s_all,
+                                 "max_abs_err": err, "atol": LM_LOGIT_ATOL,
+                                 "logit_absmax": float(lp.abs().max())}}
+    if err > LM_LOGIT_ATOL:
+        fail(f"{cfg.name} f32 ({VLM_F32_LAYERS} layers) flash vs plain "
+             f"attention: max abs err {err} > atol {LM_LOGIT_ATOL}")
+    del lf, lp, p4
+    torch.cuda.empty_cache()
+    # bf16 at full depth, its norms f32 as drawn
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    fm = build_model(cfg.replace(use_pallas_attention=True))
+    with torch.no_grad():
+        logits, _ = through_flash(cfg, lambda: fm.forward(params, batch))
+        want = (1, s_all, cfg.vocab_padded)
+        if tuple(logits.shape) != want or not bool(
+                torch.isfinite(logits).all()):
+            fail(f"{cfg.name} logits {tuple(logits.shape)} (want {want}) "
+                 f"or not finite")
+        del logits
+        total, met = through_flash(cfg, lambda: fm.loss(params, batch))
+        line["bf16"] = {
+            "batch": 1, "prefix": cfg.n_prefix_tokens, "text": VLM_TEXT,
+            "init_s": time.perf_counter() - t0,
+            "memory_gb": torch.cuda.memory_allocated(dev) / 1e9,
+            "loss_text": float(met["loss"]),
+            "forward_ms": wall_ms(torch, lambda: through_flash(
+                cfg, lambda: fm.forward(params, batch))),
+            "profile_forward": device_profile(torch, lambda: through_flash(
+                cfg, lambda: fm.forward(params, batch)),
+                match="flash_fwd_tc")}
+        if not np.isfinite(float(total)):
+            fail(f"{cfg.name} loss {float(total)} not finite")
+    launches = dict(flash_lib.launches)
+    # serving: the patch embeddings ride the prompt's scatter-gather TX
+    # under the kernel-level policy
+    model = build_model(cfg)
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           dtype=np.int32)
+    extra = {"patch_embeds": rng.standard_normal(
+        (SERVE_BATCH, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)}
+    scfg = ServeConfig(max_batch=SERVE_BATCH,
+                       max_seq=SERVE_PROMPT + SERVE_NEW + 8
+                       + cfg.n_prefix_tokens)
+    rows, first = serve_runs(np, model, params, scfg, prompts, SERVE_NEW,
+                             SERVE_POLICIES, cfg.vocab, extra=extra)
+    line["serve"] = {"batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+                     "new_tokens": SERVE_NEW, "max_seq": scfg.max_seq,
+                     "patch_embeds_bytes": extra["patch_embeds"].nbytes,
+                     "runs": rows, "tokens_head": first[:, :8].tolist()}
+    del params
+    torch.cuda.empty_cache()
+    line["launches"] = {lib.name: dict(lib.launches) for lib in libs}
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("vlm " + json.dumps(line))
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -1708,6 +2430,12 @@ def main() -> None:
     ssm_launches, ssd_dev, ssm_channel_launches = ssm_paths(
         np, torch, dev, libs, SSD)
 
+    # 12b.-12e. the moe, continuous-batching, encoder-decoder and vlm paths
+    moe_launches = moe_paths(np, torch, dev, libs, FLASH)
+    continuous_paths(np, torch, dev, libs)
+    encdec_paths(np, torch, dev, libs)
+    vlm_launches = vlm_paths(np, torch, dev, libs, FLASH)
+
     # 13. timing at the paths' shapes (B = 1 frame for conv and matmul)
     conv_in = []
     for h, w, cin, cout in layer_shapes:
@@ -1883,8 +2611,12 @@ def main() -> None:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:115",
-        "launches": sum(lm_launches.values()),
-        "launches_by_symbol": lm_launches,
+        "launches": sum(sum(d.values()) for d in (
+            lm_launches, moe_launches, vlm_launches)),
+        "launches_by_symbol": {s: lm_launches[s] + moe_launches[s]
+                               + vlm_launches[s] for s in lm_launches},
+        "launches_by_path": {"lm_score": lm_launches, "moe": moe_launches,
+                             "vlm": vlm_launches},
         "max_abs_err": errs["flash_attention", "float32"],
         "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
         "ms": fl_ms, "ms_f32": fl_ms32, "plain_ms": fl_plain,

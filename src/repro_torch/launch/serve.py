@@ -4,8 +4,14 @@
       --batch 4 --prompt-len 128 --new-tokens 32
 
 Runs on the card unless ``--device cpu`` is given. Weights are random,
-drawn from a generator seeded with 0 on the run's device; prompts come
-from ``np.random.default_rng(0)``.
+drawn from a generator seeded with 0 on the run's device; prompts, and the
+vlm family's patch embeddings or the audio family's frames (side inputs
+that ride the prompt's transfer), come from ``np.random.default_rng(0)``.
+
+One divergence from the reference's launcher: for the vlm family the
+cache also holds the ``n_prefix_tokens`` patch positions, so ``max_seq``
+is prompt + new + 8 + n_prefix_tokens (the reference's prompt + new + 8
+cannot hold pixtral-12b's 256 prefix tokens at full width).
 """
 
 from __future__ import annotations
@@ -39,14 +45,24 @@ def main(argv: list[str] | None = None) -> list:
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0), device)
     max_seq = args.prompt_len + args.new_tokens + 8
+    if cfg.family == "vlm":
+        max_seq += cfg.n_prefix_tokens
     eng = ServingEngine(model, params,
                         ServeConfig(max_batch=args.batch, max_seq=max_seq,
                                     temperature=args.temperature))
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = rng.standard_normal(
+            (args.batch, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        extra["frames"] = rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
     try:
-        res = eng.generate(prompts, max_new_tokens=args.new_tokens)
+        res = eng.generate(prompts, max_new_tokens=args.new_tokens,
+                           extra_inputs=extra or None)
     finally:
         eng.close()
     for i, r in enumerate(res):

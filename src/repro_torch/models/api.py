@@ -9,11 +9,17 @@ functions, as the reference's does:
 - ``decode(params, token, cache) -> (logits, cache)``
 - ``init_cache(batch, s_max, s_enc=None, device=None) -> cache``
 
-Batches are dicts of tensors: ``tokens`` [B,S] and ``labels`` [B,S]. The
-dense and ssm families run through ``models/lm.py``, the hybrid family
-through ``models/hybrid.py``; every other family raises
-``NotImplementedError`` naming its ROADMAP item. The reference's dry-run
-helpers (``input_specs``, ``cache_specs``) are ROADMAP slice 7.
+Batches are dicts of tensors. Keys by family, as the reference's:
+
+- dense / moe / ssm / hybrid: ``tokens`` [B,S], ``labels`` [B,S]
+- vlm: ``tokens`` [B,S_text], ``patch_embeds`` [B,n_prefix,D],
+  ``labels`` [B,S_text] (the loss is taken over the text positions only)
+- audio: ``frames`` [B,S_enc,D], ``tokens`` [B,S_dec], ``labels`` [B,S_dec]
+
+The dense, vlm, moe and ssm families run through ``models/lm.py``, the
+hybrid family through ``models/hybrid.py`` and the audio family through
+``models/encdec.py``. The reference's dry-run helpers (``input_specs``,
+``cache_specs``) are ROADMAP slice 7.
 """
 
 from __future__ import annotations
@@ -23,15 +29,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import hybrid, lm
+from repro_torch.models import encdec, hybrid, lm
 from repro_torch.models.config import ModelConfig
-
-# family -> the ROADMAP (Queue 1) item that ports it
-_NOT_PORTED = {
-    "vlm": "slice 4, item 15 (the vlm prefix-token config)",
-    "audio": "slice 4, item 14 (models/encdec.py)",
-    "moe": "slice 4, item 13 (models/layers/moe.py)",
-}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -61,28 +60,32 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP Queue 1, "
-            f"{_NOT_PORTED[cfg.family]}")
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)
+    if cfg.family == "audio":
+        return _build_encdec(cfg)
+    vlm = cfg.family == "vlm"
 
     def init(generator: torch.Generator, device=None) -> dict:
         return lm.init_params(cfg, generator, device)
 
     def fwd(params, batch):
-        return lm.forward(cfg, params, batch["tokens"])
+        return lm.forward(cfg, params, batch["tokens"],
+                          prefix_embeds=batch["patch_embeds"] if vlm
+                          else None)
 
     def pre(params, batch, s_max):
+        pe = batch.get("patch_embeds") if vlm else None
         s_tok = batch["tokens"].shape[1]
-        if (cfg.prefill_chunk and s_tok % cfg.prefill_chunk == 0
+        if (cfg.prefill_chunk and pe is None
+                and s_tok % cfg.prefill_chunk == 0
                 and s_tok > cfg.prefill_chunk):
             return lm.prefill_chunked(cfg, params, batch["tokens"], s_max,
                                       chunk=cfg.prefill_chunk)
-        return lm.prefill(cfg, params, batch["tokens"], s_max)
+        return lm.prefill(cfg, params, batch["tokens"], s_max,
+                          prefix_embeds=pe)
 
     def dec(params, token, cache):
         return lm.decode_step(cfg, params, token, cache)
@@ -97,6 +100,8 @@ def build_model(cfg: ModelConfig) -> Model:
 def _loss(cfg: ModelConfig, fwd: Callable) -> Callable:
     def loss(params, batch):
         logits, aux = fwd(params, batch)
+        if cfg.family == "vlm":  # the text positions, after the prefix
+            logits = logits[:, cfg.n_prefix_tokens:]
         ce, acc = cross_entropy(logits, batch["labels"], cfg.vocab_padded)
         total = ce + cfg.router_aux_coef * aux
         return total, {"loss": ce, "aux": aux, "acc": acc}
@@ -118,6 +123,28 @@ def _build_hybrid(cfg: ModelConfig) -> Model:
 
     def icache(batch_size, s_max, s_enc=None, device=None):
         return hybrid.init_cache(cfg, batch_size, s_max, device)
+
+    return Model(cfg=cfg, init=init, forward=fwd, loss=_loss(cfg, fwd),
+                 prefill=pre, decode=dec, init_cache=icache)
+
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    def init(generator: torch.Generator, device=None) -> dict:
+        return encdec.init_params(cfg, generator, device)
+
+    def fwd(params, batch):
+        return encdec.forward(cfg, params, batch["frames"], batch["tokens"])
+
+    def pre(params, batch, s_max):
+        return encdec.prefill(cfg, params, batch["frames"], batch["tokens"],
+                              s_max)
+
+    def dec(params, token, cache):
+        return encdec.decode_step(cfg, params, token, cache)
+
+    def icache(batch_size, s_max, s_enc=None, device=None):
+        return encdec.init_dec_cache(cfg, batch_size, s_max, s_enc or s_max,
+                                     device)
 
     return Model(cfg=cfg, init=init, forward=fwd, loss=_loss(cfg, fwd),
                  prefill=pre, decode=dec, init_cache=icache)

@@ -73,17 +73,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         w = torch.randn(shape, generator=generator, device=g_dev) * scale
         return w.to(device, dt)
 
-    groups = []
-    for size in group_sizes(cfg):
-        stacked = None
-        for i in range(size):
-            one = {"ln1": norm_params(cfg.norm, cfg.d_model, device),
-                   "mixer": mamba2_params(generator, cfg, dt, device)}
-            if stacked is None:
-                stacked = lm.tree_map(lambda t: torch.empty(
-                    (size, *t.shape), dtype=t.dtype, device=device), one)
-            lm._copy_into(stacked, one, i)
-        groups.append(stacked)
+    groups = [lm.stack_blocks(
+        lambda: {"ln1": norm_params(cfg.norm, cfg.d_model, device),
+                 "mixer": mamba2_params(generator, cfg, dt, device)},
+        size, device) for size in group_sizes(cfg)]
 
     shared = {
         "ln1": norm_params(cfg.norm, d2, device),

@@ -49,7 +49,16 @@ def _cache_write(dst: torch.Tensor, new: torch.Tensor,
     """Write ``new`` [B, s, Hkv, Dh] into ``dst`` [B, S_max, Hkv, Dh] at
     position ``length`` (scalar, or [B] per-slot lengths), in place; returns
     ``dst``. A scalar start is clamped so the write fits, as
-    ``dynamic_update_slice`` clamps it."""
+    ``dynamic_update_slice`` clamps it. With [B] lengths, a row whose
+    column falls past S_max is dropped, as the reference's scatter drops
+    it (an idle continuous-batching slot keeps growing past S_max).
+
+    The drop takes no host sync (decode writes every layer): each column
+    is clamped to S_max - 1 and written with the value that position must
+    end with — this call's row for it where the call covers it, else what
+    ``dst`` holds there — so every write a clamp sends to the last
+    position carries the same value, and that position keeps its old
+    value unless this call covers it."""
     new = new.to(dst.dtype)
     s = new.shape[1]
     if isinstance(length, int):
@@ -62,9 +71,13 @@ def _cache_write(dst: torch.Tensor, new: torch.Tensor,
         start = length.clamp(0, dst.shape[1] - s)
         dst.index_copy_(1, start + steps, new)
         return dst
+    length = length.long()
     rows = torch.arange(new.shape[0], device=dst.device)[:, None]  # [B,1]
-    cols = length[:, None] + steps[None, :]  # [B,s]
-    dst[rows, cols] = new
+    cols = (length[:, None] + steps[None, :]).clamp_max(dst.shape[1] - 1)
+    src = cols - length[:, None]  # the row of ``new`` that covers cols
+    covered = (src >= 0)[..., None, None]
+    src = src.clamp_min(0)[..., None, None].expand(-1, -1, *new.shape[2:])
+    dst[rows, cols] = torch.where(covered, new.gather(1, src), dst[rows, cols])
     return dst
 
 

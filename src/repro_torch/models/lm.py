@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family.
+"""Decoder-only LM: the dense, vlm, moe and ssm families.
 
 Params keep the reference's pytree layout: a dict of tensors whose
 ``blocks`` subtree is stacked over layers (leading [L] axis), so the port's
@@ -10,11 +10,12 @@ copy) layer by layer. The skeleton is
     x -> [ block_0 ... block_{L-1} ] -> final_norm -> lm_head
 
 with block = (norm -> attention -> residual -> norm -> MLP -> residual)
-for the dense family, or (norm -> Mamba2 mixer -> residual) for the ssm
-family. The decode cache is a stacked ``KVCache`` or ``SSMState``; each
-layer's new entries are written into the stacked [L, ...] tensors in place
-(the reference scans a fresh cache out). The moe and vlm families are
-ROADMAP slice 4 and raise here.
+for the dense and vlm families, (norm -> attention -> residual -> norm ->
+MoE -> residual) for the moe family, or (norm -> Mamba2 mixer -> residual)
+for the ssm family; the vlm family puts its patch embeddings before the
+text (``prefix_embeds``). The decode cache is a stacked ``KVCache`` or
+``SSMState``; each layer's new entries are written into the stacked
+[L, ...] tensors in place (the reference scans a fresh cache out).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.device import default_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import KVCache, attn_apply, attn_params
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
+from repro_torch.models.layers.moe import moe_apply, moe_params
 from repro_torch.models.layers.norm import apply_norm, norm_params
 from repro_torch.models.layers.ssm import (
     SSMState,
@@ -40,14 +42,6 @@ from repro_torch.models.layers.ssm import (
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.family!r} blocks are not ported yet: ROADMAP Queue 1, "
-            f"slice 4 (items 13 and 15); the port runs the dense and ssm "
-            f"families")
 
 
 def make_remat(cfg: ModelConfig) -> Callable:
@@ -72,20 +66,25 @@ def tree_map(fn: Callable, tree: Any) -> Any:
 def init_block_params(generator: torch.Generator, cfg: ModelConfig,
                       device=None) -> dict:
     """Params for ONE block (``init_params`` stacks them)."""
-    _check_family(cfg)
     dt = _dtype(cfg)
     if cfg.family == "ssm":
         return {"ln1": norm_params(cfg.norm, cfg.d_model, device),
                 "mixer": mamba2_params(generator, cfg, dt, device)}
-    return {
+    p = {
         "ln1": norm_params(cfg.norm, cfg.d_model, device),
         "attn": attn_params(generator, cfg.d_model, cfg.n_heads,
                             cfg.n_kv_heads, cfg.head_dim_, bias=cfg.qkv_bias,
                             dtype=dt, device=device),
         "ln2": norm_params(cfg.norm, cfg.d_model, device),
-        "mlp": mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.mlp, dt,
-                          device),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_params(generator, cfg.d_model, cfg.n_experts,
+                              cfg.d_expert or cfg.d_ff, cfg.n_shared_experts,
+                              dt, device)
+    else:
+        p["mlp"] = mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.mlp, dt,
+                              device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -93,7 +92,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random params with the reference's shapes, dtypes and scales, drawn
     from ``generator`` on its own device (so the values do not depend on
     ``device``), one block at a time into the stacked [L, ...] tensors."""
-    _check_family(cfg)
     device = default_device(device)
     dt = _dtype(cfg)
     g_dev = generator.device
@@ -104,18 +102,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return w.to(device, dt)
 
     params: dict = {"embed": draw((cfg.vocab_padded, cfg.d_model))}
-    blocks = None
-    for i in range(cfg.n_layers):
-        bp = init_block_params(generator, cfg, device)
-        if blocks is None:
-            blocks = tree_map(lambda t: torch.empty(
-                (cfg.n_layers, *t.shape), dtype=t.dtype, device=device), bp)
-        _copy_into(blocks, bp, i)
-    params["blocks"] = blocks
+    params["blocks"] = stack_blocks(
+        lambda: init_block_params(generator, cfg, device), cfg.n_layers,
+        device)
     params["final_norm"] = norm_params(cfg.norm, cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = draw((cfg.d_model, cfg.vocab_padded))
     return params
+
+
+def stack_blocks(make_block: Callable[[], dict], n: int, device) -> dict:
+    """``n`` blocks from ``make_block()``, drawn one at a time into
+    stacked [n, ...] tensors (one block's draws in memory at a time)."""
+    stacked = None
+    for i in range(n):
+        one = make_block()
+        if stacked is None:
+            stacked = tree_map(lambda t: torch.empty(
+                (n, *t.shape), dtype=t.dtype, device=device), one)
+        _copy_into(stacked, one, i)
+    return stacked
 
 
 def _copy_into(stacked: dict, one: dict, i: int) -> None:
@@ -147,8 +153,9 @@ def params_from_jax(params_np: dict, device: "torch.device | str") -> dict:
 
 def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 cache: KVCache | None = None, positions=None):
-    """Returns (x, new_cache, aux_loss); a dense or ssm block has no
-    auxiliary loss, so the last is 0.0."""
+    """Returns (x, new_cache, aux_loss): the router's load-balance loss
+    (an f32 scalar tensor) for a moe block; 0.0 for any other, which has
+    none."""
     if cfg.family == "ssm":
         h, new_state = mamba2_apply(
             p["mixer"], apply_norm(cfg.norm, p["ln1"], x), cfg, state=cache)
@@ -162,7 +169,13 @@ def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         pallas_interpret=cfg.pallas_interpret,
         cache=cache, positions=positions)
     x = x + h
-    h2 = mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp)
+    h2 = apply_norm(cfg.norm, p["ln2"], x)
+    if cfg.family == "moe":
+        h2, metrics = moe_apply(p["moe"], h2, top_k=cfg.top_k,
+                                capacity_factor=cfg.capacity_factor,
+                                ep_sharding=cfg.moe_ep_sharding)
+        return x + h2, new_cache, metrics.aux_loss
+    h2 = mlp_apply(p["mlp"], h2, cfg.mlp)
     return x + h2, new_cache, 0.0
 
 
@@ -177,8 +190,8 @@ def _layer(blocks: dict, i: int) -> dict:
 def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
                 caches: "KVCache | SSMState | None", positions):
     """Run the blocks in order over the stacked [L, ...] params (and the
-    stacked cache, whose tensors each layer updates in place)."""
-    _check_family(cfg)
+    stacked cache, whose tensors each layer updates in place). The aux
+    loss is the sum of the layers' (an f32 scalar on ``x``'s device)."""
     blocks = params["blocks"]
     aux = 0.0
     if isinstance(caches, SSMState):
@@ -199,8 +212,9 @@ def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
         aux += a
         if nc is not None:
             length = nc.length
-    # a fill on the device, not a copy from pageable host memory
-    aux = torch.full((), aux, dtype=torch.float32, device=x.device)
+    if not isinstance(aux, torch.Tensor):
+        # a fill on the device, not a copy from pageable host memory
+        aux = torch.full((), aux, dtype=torch.float32, device=x.device)
     if caches is None:
         return x, None, aux
     return x, KVCache(caches.k, caches.v, length), aux
@@ -227,6 +241,11 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
     and move the greedy argmax."""
     x = apply_norm(cfg.norm, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return head_product(x, head)
+
+
+def head_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """f32 ``x @ head``, as :func:`logits_from_hidden` takes it."""
     if (x.device.type == "cuda" and x.dtype == torch.bfloat16
             and head.dtype == torch.bfloat16):
         out = torch.mm(x.reshape(-1, x.shape[-1]), head,
@@ -249,7 +268,6 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     """Stacked [L, ...] decode cache: for the dense family K/V with one
     length for every layer (they advance together), a Python int; for the
     ssm family the recurrent state (``s_max`` unused: it is O(1))."""
-    _check_family(cfg)
     device = default_device(device)
     if cfg.family == "ssm":
         st = ssm_state_zeros(cfg, batch, _dtype(cfg), device)

@@ -1,4 +1,2 @@
-"""Serving: the batched ServingEngine (``serve/continuous.py`` is not
-ported yet, ROADMAP Queue 1 item 11)."""
-
 from repro_torch.serve.engine import ServeConfig, ServingEngine  # noqa: F401
+from repro_torch.serve.continuous import ContinuousBatchingEngine, Request  # noqa: F401

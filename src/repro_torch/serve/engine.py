@@ -100,6 +100,23 @@ class ServeConfig:
                                   "ServeConfig(qos=QosSpec(rx_group=...))")
 
 
+def transfer_fault_summary(transfer) -> dict[str, Any]:
+    """The fault ledger of a transfer surface: a group's or adaptive
+    facade's own, or a bare engine's checksum failures with the recovery
+    columns zeroed (no sibling channel to retry on)."""
+    f = getattr(transfer, "fault_summary", None)
+    if f is not None:
+        return f()
+    s = transfer.summary()
+    csf = int(s.get("checksum_failures", 0))
+    return {"faults": {"faults": csf, "timeouts": 0,
+                       "checksum_failures": csf,
+                       "retries": 0, "retry_successes": 0,
+                       "quarantines": 0, "unquarantines": 0,
+                       "faults_by_channel": {}},
+            "quarantined": []}
+
+
 @dataclass
 class RequestResult:
     prompt: np.ndarray
@@ -195,17 +212,7 @@ class ServingEngine:
         adaptive facades report their shared ledger; a bare engine reports
         its own checksum failures with the recovery columns zeroed (no
         sibling channel to retry on)."""
-        f = getattr(self.engine, "fault_summary", None)
-        if f is not None:
-            return f()
-        s = self.engine.summary()
-        csf = int(s.get("checksum_failures", 0))
-        return {"faults": {"faults": csf, "timeouts": 0,
-                           "checksum_failures": csf,
-                           "retries": 0, "retry_successes": 0,
-                           "quarantines": 0, "unquarantines": 0,
-                           "faults_by_channel": {}},
-                "quarantined": []}
+        return transfer_fault_summary(self.engine)
 
     def admission_summary(self) -> dict[str, Any]:
         """Accept/queue/shed counts of this engine's admission valve,

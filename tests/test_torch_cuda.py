@@ -74,8 +74,11 @@ from repro_torch.kernels.streamed_matmul.ref import (
 )
 from repro_torch.models import lm
 from repro_torch.models.api import build_model
+from repro_torch.models.layers.attention import _cache_write
+from repro_torch.models.layers.moe import moe_apply, moe_params
 from repro_torch.models.layers.norm import apply_norm
 from repro_torch.models.layers.ssm import ssd_chunked
+from repro_torch.serve.continuous import ContinuousBatchingEngine, Request
 from repro_torch.serve.engine import ServeConfig, ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -369,6 +372,11 @@ FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, None)}
     (1, 1, 300, 2, 1, 64, False, 0),
     (1, 640, 640, 2, 1, 160, False, 200),
     (2, 257, 257, 8, 8, 128, True, 0),
+    # the moe and vlm scoring shapes: granite-moe (D 64, 16/8 heads),
+    # deepseek-moe (MHA, D 128), pixtral (256 prefix + 2048 text, 32/8)
+    (2, 2048, 2048, 16, 8, 64, True, 0),
+    (1, 2048, 2048, 16, 16, 128, True, 0),
+    (1, 2304, 2304, 32, 8, 128, True, 0),
 ])
 def test_flash_kernel_matches_plain(dev, b, sq, skv, h, hkv, d, causal,
                                     window, dtype):
@@ -859,3 +867,71 @@ def test_channels_serving_settings_on_card(dev, kw):
         finally:
             eng.close()
     np.testing.assert_array_equal(got[0], got[1])
+
+
+# ---- continuous batching and the moe family ---------------------------------
+
+def test_cache_write_drops_rows_past_the_end_on_card(dev):
+    """Per-slot lengths past S_max: those rows are dropped, on the card as
+    on the CPU, with no device-side assert (which would poison the
+    context)."""
+    g = torch.Generator().manual_seed(0)
+    dst = torch.randn((3, 16, 2, 8), generator=g)
+    new = torch.randn((3, 4, 2, 8), generator=g)
+    length = torch.tensor([14, 16, 40], dtype=torch.int32)
+    want = _cache_write(dst.clone(), new, length)
+    got = _cache_write(dst.to(dev), new.to(dev), length.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want[1:], dst[1:]) and not torch.equal(want, dst)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-moe-16b"])
+def test_moe_smoke_on_card_matches_cpu(dev, arch):
+    """One moe layer at the smoke shape, f32: the same number of dropped
+    seats (the f32 mean that gives the fraction may round apart by an
+    ulp) and outputs within 1e-5 of the CPU's."""
+    cfg = smoke_config(arch)
+    p = moe_params(torch.Generator().manual_seed(0), cfg.d_model,
+                   cfg.n_experts, cfg.d_expert or cfg.d_ff,
+                   cfg.n_shared_experts, torch.float32, "cpu")
+    x = torch.randn((2, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    for cf in (1.25, 0.5):
+        want, wm = moe_apply(p, x, top_k=cfg.top_k, capacity_factor=cf)
+        got, gm = moe_apply(_tree_to(p, dev), x.to(dev), top_k=cfg.top_k,
+                            capacity_factor=cf)
+        seats = x.shape[0] * x.shape[1] * cfg.top_k
+        assert (round(float(gm.dropped_frac) * seats)
+                == round(float(wm.dropped_frac) * seats))
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+        torch.testing.assert_close(gm.aux_loss.cpu(), wm.aux_loss, rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-moe-1b-a400m"])
+def test_continuous_engine_on_card_matches_cpu(dev, arch):
+    """The smoke model's engine on the card gives the CPU engine's tokens,
+    with slot 0 idle past max_seq while slot 1 decodes."""
+    cfg = smoke_config(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab, n).astype(np.int32), new)
+            for n, new in ((14, 2), (4, 14), (9, 3))]
+    got = {}
+    for where in ("cpu", dev):
+        eng = ContinuousBatchingEngine(model, _tree_to(params, where),
+                                       n_slots=2, max_seq=20)
+        try:
+            assert eng.transfer.device.type == torch.device(where).type
+            for i, (p, new) in enumerate(reqs):
+                eng.submit(Request(rid=i, prompt=p, max_new_tokens=new))
+            done = eng.run_to_completion()
+            got[str(where)] = ([(r.rid, r.tokens) for r in done],
+                               eng.cache.length.cpu().tolist())
+        finally:
+            eng.close()
+    (cpu_toks, cpu_len), (card_toks, card_len) = got.values()
+    assert card_toks == cpu_toks and card_len == cpu_len
+    assert max(card_len) > 20

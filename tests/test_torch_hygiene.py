@@ -45,7 +45,13 @@ SLICE_MODULES = [
     "repro_torch.configs.zamba2_1_2b", "repro_torch.utils",
     "repro_torch.utils.timing", "repro_torch.dist", "repro_torch.dist.fault",
     "repro_torch.core.faults", "repro_torch.core.channels",
-    "repro_torch.core.adaptive",
+    "repro_torch.core.adaptive", "repro_torch.models.layers.moe",
+    "repro_torch.models.encdec", "repro_torch.serve.continuous",
+    "repro_torch.examples", "repro_torch.examples.serve_lm",
+    "repro_torch.configs.granite_moe_1b_a400m",
+    "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.configs.seamless_m4t_medium",
+    "repro_torch.configs.pixtral_12b",
 ]
 
 
