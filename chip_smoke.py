@@ -146,6 +146,29 @@ Phases, in order; any failure exits non-zero before a result is printed:
    patch embeddings (f32 [4, 256, 5120]) riding the prompt's
    scatter-gather TX under the kernel-level policy, two policies twice
    each: identical tokens, TX bytes on the line;
+12f. the training path (a ``train`` line): qwen2.5-3b at full width in
+   bf16 with remat, ``Trainer.run`` for 4 AdamW steps of B 2 x S 1024
+   staged by ``StagedPipeline`` under INTERRUPT through a TransferEngine:
+   every loss finite, every step_ok 1, step 0's loss within
+   ``TRAIN_LOSS_ATOL`` of the no-grad forward's on the same batch, every
+   param leaf moved, no flash launch (training runs plain attention, as
+   the reference's must); each step's loss, gradient norm and wall time,
+   the median step ms and tokens/s, peak device memory, one more step
+   profiled (device ms, busy share, costliest entries, AdamW's
+   ``optim.adamw`` range and its share) beside the step's bound and
+   AdamW's;
+12g. the same for mamba2-780m (a ``train_ssm`` line), 96 launches of each
+   SSD kernel a step (48 forward + 48 remat recompute), after F8's gate:
+   at full width in f32, ``F8_LAYERS`` deep, one B 1 x S 512 batch's
+   gradients through the SSD kernels against the plain route, each leaf
+   within ``F8_REL`` relative L2 (the worst on the line; the same reading
+   at the full 48 layers beside it, not gated: see ``F8_LAYERS``);
+12h. the example's lm-100m in f32 (a ``train_lm`` line): 40 steps, 2
+   microbatches, async checkpoints every 20; a second Trainer on the same
+   directory (step 40's checkpoint removed, as if the job had died)
+   resumes at step 20 and reaches the first run's losses within
+   ``LM100M_LOSS_ATOL``; the checkpoint's bytes, the snapshot and write
+   ms, and the TX us a batch under each of the three managements;
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
    never calls it); conv2d per RoShamBo layer at batch 1 (events and
@@ -157,7 +180,7 @@ Phases, in order; any failure exits non-zero before a result is printed:
    and f32 and the state pass at mamba2's shape, with the device ms of a
    launch of each in mamba2's profiled forward;
 14. a ``kernels`` JSON line (flash's launches summed over the qwen, moe
-   and vlm scoring paths), the card line, and the ``ok`` line last.
+   and vlm scoring paths; the SSD rows' training launches beside theirs), the card line, and the ``ok`` line last.
 
 Every time printed comes from this run on the card named by the ``card``
 line printed after the build (``nvidia-smi`` name and power limit).
@@ -165,6 +188,7 @@ line printed after the build (``nvidia-smi`` name and power limit).
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -285,6 +309,28 @@ CB_QWEN_SLOTS, CB_QWEN_REQUESTS, CB_QWEN_NEW, CB_QWEN_MAX_SEQ = 2, 3, 16, 128
 ENC_FRAMES, ENC_CHECK_BATCH, ENC_CHECK_SEQ = 128, 2, 32
 ENC_SERVE_BATCH, ENC_SERVE_PROMPT = 4, 16
 VLM_TEXT, VLM_F32_LAYERS = 2048, 4
+# the training lines: full-width steps at B 2 x S 1024, bf16, remat on
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 4
+# step 0's bf16 loss against the no-grad bf16 forward's on the same batch
+# (the same ops; only atomics' order in the embedding backward differs)
+TRAIN_LOSS_ATOL = 2e-2
+# F8: mamba2-780m's gradients through the SSD kernels against the plain
+# route (``ssd_full(use_kernel=False)`` everywhere), f32, each leaf's
+# relative L2 error, at full width and F8_LAYERS deep. The two routes'
+# f32 forwards drift apart with depth (the kernel sums in another order;
+# ROADMAP F4), and the gradients follow the forward: on an H100 this
+# line read logits 3.3e-4 / 1.6e-2 apart and gradients 1.4e-4 / 2.8e-2
+# apart at 4 / 48 layers. A gradient that misses the SSD path (F8) is off
+# by O(1) at any depth. The full depth's reading is on the line beside
+# the gate, not gated.
+F8_BATCH, F8_SEQ, F8_REL, F8_LAYERS = 1, 512, 1e-3, 4
+# the example's lm-100m: 40 steps, async checkpoints every 20, a second
+# Trainer resumed from step 20 on its first run's losses within 1e-5
+LM100M_STEPS, LM100M_EVERY, LM100M_LOSS_ATOL = 40, 20, 1e-5
+STAGE_BATCHES = 10  # batches staged under each management for TX us
+# AdamW fused would move 28 B a param: grad (bf16) 2 + m, v, master 12
+# read; m, v, master 12 + param (bf16) 2 written
+ADAMW_BYTES_PER_PARAM = 28
 
 
 def fail(msg: str) -> None:
@@ -2103,6 +2149,343 @@ def vlm_paths(np, torch, dev, libs, flash_lib):
     return launches
 
 
+def _to_dev(torch, hb, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in hb.items()}
+
+
+def _samples(torch, params):
+    """The first 4,096 elements of every param leaf, copied (a full copy
+    of qwen2.5-3b's params would take 6.8 GB of the step's memory)."""
+    from repro_torch.utils.pytree import tree_leaves
+    return [p.reshape(-1)[:4096].clone() for p in tree_leaves(params)]
+
+
+class _PlainSSD:
+    """Within: the models' mixers call ``ssd_full(use_kernel=False)``, the
+    plain route, everywhere."""
+
+    def __enter__(self):
+        import functools
+
+        from repro_torch.models.layers import ssm
+        self._real = ssm.ssd_full
+        ssm.ssd_full = functools.partial(self._real, use_kernel=False)
+
+    def __exit__(self, *exc):
+        from repro_torch.models.layers import ssm
+        ssm.ssd_full = self._real
+
+
+def f8_reading(np, torch, dev, ssd_lib, cfg) -> dict:
+    """One f32 batch's gradients with the SSD through the kernels (the
+    autograd.Function) against the plain route: each leaf's relative L2
+    error, the worst, and the forward logits' gap."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMSource
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.utils.pytree import tree_leaves, tree_paths
+
+    cfg32 = cfg.replace(dtype="float32")
+    model = build_model(cfg32)
+    params = model.init(torch.Generator(dev).manual_seed(1), dev)
+    batch = _to_dev(torch, SyntheticLMSource(
+        DataConfig(F8_BATCH, F8_SEQ, seed=1), cfg32).next_host_batch(0), dev)
+    per_pass = cfg.n_layers * (2 if cfg.remat else 1)  # + the recompute
+    lk, _, gk = launched(torch, ssd_lib, SSD_SYMS, per_pass,
+                         lambda: value_and_grad(model, params, batch),
+                         "one f32 value_and_grad through the SSD kernels")
+    with _PlainSSD():
+        lp, _, gp = launched(torch, ssd_lib, SSD_SYMS, 0,
+                             lambda: value_and_grad(model, params, batch),
+                             "one f32 value_and_grad, plain SSD")
+    rel = {}
+    for (path, a), b in zip(tree_paths(gk), tree_leaves(gp)):
+        a, b = a.float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            fail(f"F8: gradient {path} through the kernels not finite")
+        rel["/".join(map(str, path))] = float(
+            (a - b).norm() / b.norm().clamp_min(1e-30))
+    worst = max(rel, key=rel.get)
+    with torch.no_grad():
+        lk_logits = model.forward(params, batch)[0]
+        with _PlainSSD():
+            lp_logits = model.forward(params, batch)[0]
+        logit_gap = float((lk_logits - lp_logits).abs().max())
+        del lk_logits, lp_logits
+    out = {"layers": cfg.n_layers, "dtype": "float32", "batch": F8_BATCH,
+           "seq": F8_SEQ, "logits_max_abs_diff": logit_gap,
+           "loss_kernel": float(lk), "loss_plain": float(lp),
+           "ssd_launches_a_pass": per_pass, "worst_leaf": worst,
+           "worst_rel_l2": rel[worst], "rel_l2": rel}
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def f8_gate(np, torch, dev, ssd_lib, cfg) -> dict:
+    """F8 at full width: the gradients through the kernels against the
+    plain route F8_LAYERS deep, each leaf within F8_REL relative L2; the
+    same reading at full depth beside it, not gated (see F8_LAYERS)."""
+    gate = f8_reading(np, torch, dev, ssd_lib,
+                      cfg.replace(n_layers=F8_LAYERS))
+    gate["rel_l2_limit"] = F8_REL
+    full = f8_reading(np, torch, dev, ssd_lib, cfg)
+    full.pop("rel_l2")
+    gate["full_depth"] = full
+    worst = gate["worst_leaf"]
+    if gate["worst_rel_l2"] > F8_REL:
+        fail(f"F8: gradient {worst} through the SSD kernels is "
+             f"{gate['worst_rel_l2']} (relative L2) from the plain route's "
+             f"> {F8_REL}; every leaf: {json.dumps(gate['rel_l2'])}; "
+             f"forward logits {gate['logits_max_abs_diff']} apart")
+    return gate
+
+
+def train_cell(np, torch, dev, libs, arch: str, name: str) -> dict:
+    """``TRAIN_STEPS`` bf16 AdamW steps of ``arch`` at full width (remat
+    on) through ``StagedPipeline`` under INTERRUPT with a TransferEngine,
+    every launch count set to 0 just before and read just after; then one
+    more step under the profiler. Fails unless every loss is finite,
+    every step_ok 1, step 0's loss within TRAIN_LOSS_ATOL of the no-grad
+    forward's, every param leaf moved, flash never launched and, for the
+    ssm family, each SSD symbol launched once a layer in the forward and
+    once more in the remat recompute (never in the backward: F8's
+    Function differentiates the plain version), after F8's gate."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.transfer import TransferEngine, TransferPolicy
+    from repro_torch.data.pipeline import (
+        DataConfig, StagedPipeline, SyntheticLMSource)
+    from repro_torch.kernels.flash_attention.kernel import FLASH
+    from repro_torch.kernels.ssd_scan.kernel import SSD
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import TrainConfig, Trainer, make_train_step
+    from repro_torch.utils.pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    if cfg.dtype != "bfloat16" or not cfg.remat:
+        fail(f"{arch}: expected a bf16 config with remat, got {cfg.dtype}, "
+             f"remat={cfg.remat}")
+    model = build_model(cfg)
+    line = {"model": cfg.name, "params": cfg.param_count(),
+            "dtype": cfg.dtype, "remat": cfg.remat_policy,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS}
+    ssd_expect = 2 * cfg.n_layers if cfg.family == "ssm" else 0
+    if ssd_expect:
+        line["f8"] = f8_gate(np, torch, dev, SSD, cfg)
+    gc.collect()  # earlier phases' engines may hold tensors in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.init()  # the allocator knows no device before it
+    line["memory_before_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    src = SyntheticLMSource(DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=0), cfg)
+    with torch.no_grad():
+        _, m0 = model.loss(params, _to_dev(torch, src.next_host_batch(0),
+                                           dev))
+    line["forward_loss_step0"] = float(m0["loss"])
+    before = _samples(torch, params)
+    opt = adamw_init(params)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, warmup=1, log_every=1)
+    engine = TransferEngine(TransferPolicy.kernel_level(), device=dev)
+    pipe = StagedPipeline(src, TransferPolicy.kernel_level(), engine=engine)
+    trainer = Trainer(model, tcfg)
+    try:
+        _zero(libs)
+        trainer.run(pipe, initial_state=(params, opt))
+        torch.cuda.synchronize()
+        launches = {lib.name: dict(lib.launches) for lib in libs}
+        hist = trainer.history
+        line["steps_log"] = [{k: r[k] for k in ("step", "loss", "step_ok",
+                                                "grad_norm", "dt_s")}
+                             for r in hist]
+        line["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        for r in hist:
+            if not (np.isfinite(r["loss"]) and r["step_ok"] == 1.0):
+                fail(f"{name}: step {r['step']} loss {r['loss']}, step_ok "
+                     f"{r['step_ok']}")
+        d0 = abs(hist[0]["loss"] - line["forward_loss_step0"])
+        line["step0_loss_vs_forward"] = d0
+        if d0 > TRAIN_LOSS_ATOL:
+            fail(f"{name}: step 0 loss {hist[0]['loss']} vs the no-grad "
+                 f"forward's {line['forward_loss_step0']} (> "
+                 f"{TRAIN_LOSS_ATOL})")
+        after = _samples(torch, params)
+        moved = [float((a != b).float().mean()) for a, b in
+                 zip(after, before)]
+        line["leaves_moved"] = sum(m > 0 for m in moved)
+        line["leaves"] = len(moved)
+        line["moved_fraction_min"] = min(moved)
+        if min(moved) == 0:
+            fail(f"{name}: {moved.count(0.0)} param leaves did not move")
+        if any(launches[FLASH.name].values()):
+            fail(f"{name}: the flash kernel ran during training: "
+                 f"{launches[FLASH.name]}")
+        want = {s: ssd_expect * TRAIN_STEPS for s in SSD_SYMS}
+        if launches[SSD.name] != want:
+            fail(f"{name}: SSD launches {launches[SSD.name]}, expected "
+                 f"{want}")
+        line["launches"] = launches
+        line["ssd_launches_a_step"] = ssd_expect
+        dts = sorted(r["dt_s"] for r in hist)
+        med = (dts[(len(dts) - 1) // 2] + dts[len(dts) // 2]) / 2
+        line["step_ms_median"] = med * 1e3
+        line["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / med
+        # one more step under the profiler (the schedule's last scale)
+        step_fn = make_train_step(model, tcfg)
+        batch = next(pipe)
+        prof = device_profile(torch, lambda: step_fn(params, opt, batch),
+                              top=8, spans=("optim.adamw",))
+        adamw = prof["spans"]["optim.adamw"]
+        prof["adamw_device_ms"] = adamw
+        prof["adamw_share"] = adamw / prof["device_ms"]
+        line["profile_step"] = prof
+        n = sum(p.numel() for p in tree_leaves(params))
+        # the params and the optimizer state read and written once
+        # (ADAMW_BYTES_PER_PARAM), against 8 FLOPs a param a token:
+        # forward 2, backward 4, the remat recompute 2
+        line["bound_ms"], line["bound_by"] = bound_ms(
+            ADAMW_BYTES_PER_PARAM * n, 8 * n * TRAIN_BATCH * TRAIN_SEQ,
+            BF16_FLOPS)
+        line["adamw_bound_ms"] = (ADAMW_BYTES_PER_PARAM * n
+                                  / HBM_BYTES_PER_S * 1e3)
+    finally:
+        pipe.close()
+        engine.close()
+    del params, opt, trainer, before
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t_phase
+    print(f"{name} " + json.dumps(line))
+    return line
+
+
+def train_lm_phase(np, torch, dev, libs) -> dict:
+    """The example's lm-100m (f32): LM100M_STEPS steps with async
+    checkpoints every LM100M_EVERY through an INTERRUPT pipeline over an
+    engine; a second Trainer on the same directory, as if the job had died
+    after step 20's write, resumes there and must reach the first run's
+    losses within LM100M_LOSS_ATOL; the checkpoint's bytes and write ms;
+    the TX us a batch under each of the three managements."""
+    import os
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import _snapshot, save_checkpoint
+    from repro_torch.core.transfer import TransferEngine, TransferPolicy
+    from repro_torch.data.pipeline import (
+        DataConfig, StagedPipeline, SyntheticLMSource)
+    from repro_torch.examples.train_lm import lm_100m
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.utils.pytree import tree_bytes, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = lm_100m()
+    model = build_model(cfg)
+    ckdir = ROOT / "build" / "chip_smoke_lm100m"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tcfg = TrainConfig(steps=LM100M_STEPS, n_microbatches=2, warmup=20,
+                       log_every=1, opt=AdamWConfig(lr=6e-4),
+                       checkpoint_dir=str(ckdir),
+                       checkpoint_every=LM100M_EVERY)
+    src = SyntheticLMSource(DataConfig(8, 256), cfg)
+    policy = TransferPolicy.kernel_level()
+    engine = TransferEngine(policy, device=dev)
+    line = {"model": cfg.name, "params": cfg.param_count(),
+            "dtype": cfg.dtype, "steps": LM100M_STEPS,
+            "checkpoint_every": LM100M_EVERY}
+    runs = []
+    try:
+        for start in (0, LM100M_EVERY):
+            pipe = StagedPipeline(src, policy, start_step=start,
+                                  engine=engine)
+            trainer = Trainer(model, tcfg)
+            _zero(libs)
+            try:
+                out = trainer.run(pipe, device=dev)
+            finally:
+                pipe.close()
+            runs.append((trainer, out))
+            if start:
+                break
+            # the job dies after step 20's checkpoint: step 40's never
+            # happened
+            man = ckdir / "manifest.json"
+            entries = json.loads(man.read_text())["checkpoints"]
+            for e in entries:
+                if e["step"] > LM100M_EVERY:
+                    os.remove(ckdir / e["file"])
+            man.write_text(json.dumps({"checkpoints": [
+                e for e in entries if e["step"] <= LM100M_EVERY]}))
+            line["checkpoint_bytes"] = os.path.getsize(
+                ckdir / f"step-{LM100M_EVERY:08d}.npz")
+    finally:
+        engine.close()
+    (t1, out1), (t2, out2) = runs
+    l1 = [r["loss"] for r in t1.history]
+    l2 = [r["loss"] for r in t2.history]
+    line["losses"] = l1
+    line["resumed_losses"] = l2
+    line["restarts"] = out2["fault"].restarts
+    if not l1[-1] < l1[0]:
+        fail(f"train_lm: loss {l1[0]} -> {l1[-1]} did not decrease")
+    if (out2["fault"].restarts != 1 or [r["step"] for r in t2.history]
+            != list(range(LM100M_EVERY, LM100M_STEPS))):
+        fail(f"train_lm: the second Trainer did not resume at step "
+             f"{LM100M_EVERY}: restarts {out2['fault'].restarts}, steps "
+             f"{[r['step'] for r in t2.history]}")
+    gap = max(abs(a - b) for a, b in zip(l2, l1[LM100M_EVERY:]))
+    line["resumed_max_loss_gap"] = gap
+    if gap > LM100M_LOSS_ATOL:
+        fail(f"train_lm: the resumed run's losses are {gap} from the first "
+             f"run's (> {LM100M_LOSS_ATOL})")
+    line["step_ms_median"] = sorted(r["dt_s"] for r in t1.history)[
+        LM100M_STEPS // 2] * 1e3
+    state = {"params": out2["params"], "opt": out2["opt_state"]}
+    line["state_bytes"] = tree_bytes(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = tree_map(_snapshot, state)
+    line["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckdir / "timed"), LM100M_STEPS, snap)
+    line["write_ms"] = (time.perf_counter() - t0) * 1e3
+    del snap, state, out1, out2, runs
+    shutil.rmtree(ckdir, ignore_errors=True)
+    # staging alone: STAGE_BATCHES batches under each management, each
+    # through an engine of the same policy
+    stage = {}
+    for pol in (TransferPolicy.user_level_polling(),
+                TransferPolicy.user_level_scheduled(),
+                TransferPolicy.kernel_level()):
+        eng = TransferEngine(pol, device=dev)
+        pipe = StagedPipeline(src, pol, engine=eng)
+        nexts = []
+        try:
+            for _ in range(STAGE_BATCHES):
+                t0 = time.perf_counter()
+                next(pipe)
+                torch.cuda.synchronize()
+                nexts.append((time.perf_counter() - t0) * 1e6)
+        finally:
+            pipe.close()
+        tx = sorted(st.wall_s * 1e6 for st in list(eng.stats)
+                    if st.direction == "tx")
+        eng.close()
+        stage[pol.tag] = {"tx_us_median": tx[len(tx) // 2],
+                          "tx_us_min": tx[0], "tx_count": len(tx),
+                          "next_us_median": sorted(nexts)[len(nexts) // 2],
+                          "batch_bytes": sum(
+                              v.nbytes for v in src.next_host_batch(0)
+                              .values())}
+    line["staging"] = stage
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("train_lm " + json.dumps(line))
+    return line
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -2436,6 +2819,12 @@ def main() -> None:
     encdec_paths(np, torch, dev, libs)
     vlm_launches = vlm_paths(np, torch, dev, libs, FLASH)
 
+    # 12f.-12h. training: qwen2.5-3b and mamba2-780m at full width (F8's
+    # gate first), the example's lm-100m with a checkpoint and a restart
+    train_cell(np, torch, dev, libs, "qwen2.5-3b", "train")
+    train_ssm = train_cell(np, torch, dev, libs, "mamba2-780m", "train_ssm")
+    train_lm_phase(np, torch, dev, libs)
+
     # 13. timing at the paths' shapes (B = 1 frame for conv and matmul)
     conv_in = []
     for h, w, cin, cout in layer_shapes:
@@ -2653,6 +3042,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
         "launches": ssm_launches["ssd_intra_chunk"],
         "launches_ssm_serve_channels": ssm_channel_launches["ssd_intra_chunk"],
+        "launches_train_ssm": train_ssm["launches"]["ssd_scan"][
+            "ssd_intra_chunk"],
         "max_abs_err": ssd_errs["float32"],
         "max_abs_err_bf16": ssd_errs["bfloat16"],
         "ms": sd_ms, "ms_f32": sd_ms32, "plain_ms": sd_plain,
@@ -2682,6 +3073,8 @@ def main() -> None:
                          "pallas_call): a loop of 3 launches a chunk",
         "launches": ssm_launches["ssd_state_pass"],
         "launches_ssm_serve_channels": ssm_channel_launches["ssd_state_pass"],
+        "launches_train_ssm": train_ssm["launches"]["ssd_scan"][
+            "ssd_state_pass"],
         "max_abs_err": ssd_errs["state_pass"],
         "ms": sp_ms, "plain_ms": sp_plain,
         "device_ms": ssd_dev["ssd_state_pass_kernel"],

@@ -127,6 +127,21 @@ class CudaLibrary:
         self.launches[sym] += 1
 
 
+def refuse_grad(what: str, *tensors: "torch.Tensor | None") -> None:
+    """Raise ``NotImplementedError`` where autograd would need a gradient
+    through a kernel: grad mode is on and an input requires grad. A kernel
+    writes into fresh buffers through ``ctypes``, so its outputs carry no
+    ``grad_fn`` and a backward through them would run and return wrong
+    gradients with no error. ``ssd_full`` differentiates its kernels through
+    an ``autograd.Function``; the other kernels have no backward (nor do
+    the reference's Pallas kernels)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} has no backward: run it under torch.no_grad(), or take "
+            f"the plain version for a gradient")
+
+
 def build_all(libraries: list[CudaLibrary]) -> None:
     """Build every library at once: one ``nvcc`` per source, all started
     together, then load each."""

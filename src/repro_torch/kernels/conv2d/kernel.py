@@ -16,7 +16,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import I, P, CudaLibrary
+from repro_torch.kernels._build import I, P, CudaLibrary, refuse_grad
 from repro_torch.kernels._split import (
     SPLIT_WORKSPACE,
     cdiv,
@@ -59,10 +59,12 @@ def conv_ranges(kh: int, kw: int, cin: int, splits: int,
 def conv2d_igemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                  relu: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; raise on anything it does
-    not take. x: [B, H, W, Cin]; w: [KH, KW, Cin, Cout]; b: [Cout]."""
+    not take (``NotImplementedError`` where autograd would need its
+    gradient). x: [B, H, W, Cin]; w: [KH, KW, Cin, Cout]; b: [Cout]."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"conv2d_igemm needs CUDA tensors, got {dev}")
+    refuse_grad("the conv2d kernel", x, w, b)
     if x.dim() != 4 or w.dim() != 4 or b.dim() != 1:
         raise ValueError(f"bad ranks: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}")

@@ -31,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import I, L, P, CudaLibrary
+from repro_torch.kernels._build import I, L, P, CudaLibrary, refuse_grad
 
 _ARGS = [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, I, I, P]
 FLASH = CudaLibrary(
@@ -98,7 +98,10 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] (Hkv divides H), read where
     they lie: no transposes. CUDA tensors only (``ops.flash_attention``
-    takes the plain version for CPU tensors)."""
+    takes the plain version for CPU tensors). Raises
+    ``NotImplementedError`` where autograd would need its gradient: the
+    kernel has no backward, as the reference's has none."""
+    refuse_grad("the flash attention kernel", q, k, v)
     _check(q, k, v, window)
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} is not [B, S, H, D]")

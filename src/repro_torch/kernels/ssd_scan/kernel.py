@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import I, L, P, CudaLibrary
+from repro_torch.kernels._build import I, L, P, CudaLibrary, refuse_grad
 from repro_torch.kernels._split import sm_count
 
 SSD = CudaLibrary(
@@ -102,7 +102,8 @@ def ssd_intra_chunk_call(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """x: [B,S,H,P]; dt: [B,S,H] f32; a: [H] f32; b, c: [B,S,G,N] in x's
     type. Returns (y_diag [B,S,H,P], states [B,nc,H,P,N], chunk_decay
     [B,nc,H]), f32. CUDA tensors only (``ops.ssd_intra_chunk`` takes the
-    plain version for CPU tensors)."""
+    plain version for CPU tensors; ``ops.ssd_full`` differentiates it)."""
+    refuse_grad("the SSD intra-chunk kernel", x, dt, a, b, c)
     _check(x, dt, a, b, c, chunk)
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -130,6 +131,8 @@ def ssd_state_pass_call(states: torch.Tensor, chunk_decay: torch.Tensor,
     Returns (prev [B,nc,H,P,N], the state entering each chunk; final
     [B,H,P,N]), f32, bitwise ``ref.ssd_state_pass_ref``. CUDA tensors
     only."""
+    refuse_grad("the SSD state-pass kernel", states, chunk_decay,
+                initial_state)
     if states.dim() != 5 or tuple(chunk_decay.shape) != tuple(states.shape[:3]):
         raise ValueError(f"bad shapes: states {tuple(states.shape)}, "
                          f"chunk_decay {tuple(chunk_decay.shape)}")

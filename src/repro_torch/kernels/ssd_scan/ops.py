@@ -7,7 +7,16 @@ points in bf16).
 Device rule: a CPU tensor takes the plain version (``ref.py``); a CUDA
 tensor launches the kernel or raises. ``use_kernel=False`` is the only way
 to the plain version on the card (the tests and ``chip_smoke.py`` use it to
-hold the kernel against it)."""
+hold the kernel against it).
+
+Gradients: the kernels write into fresh buffers, which carry no
+``grad_fn``. Where autograd needs a gradient, ``ssd_full`` runs as
+``_SSDFull``, an ``autograd.Function`` whose forward launches the kernels
+and whose backward recomputes the plain version (the same rounding points)
+from the saved inputs and returns its vector-Jacobian product. The
+reference has no backward kernel either: it trains through XLA's autodiff
+of plain code. ``use_kernel=False`` is plain code, which autograd
+differentiates as it is."""
 
 from __future__ import annotations
 
@@ -39,6 +48,50 @@ def ssd_full(x, dt, a, b, c, *, chunk: int, use_kernel: bool = True,
     """x: [B,S,H,P]; dt: [B,S,H]; a: [H]; b, c: [B,S,G,N]; S a multiple of
     ``chunk``. Returns (y [B,S,H,P] in x's type, final state [B,H,P,N]
     f32)."""
+    inputs = (x, dt, a, b, c, initial_state)
+    if use_kernel and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _SSDFull.apply(*inputs, chunk)
+    return _ssd_full(x, dt, a, b, c, chunk=chunk, use_kernel=use_kernel,
+                     initial_state=initial_state)
+
+
+class _SSDFull(torch.autograd.Function):
+    """``ssd_full`` through the kernels, differentiated by the plain
+    version: the backward reruns ``_ssd_full(..., use_kernel=False)`` on
+    the saved inputs under grad and returns its VJP. An input that needs no
+    gradient gets None, and the final state's cotangent is left out when
+    nothing used the state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, initial_state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, b, c, initial_state)
+        return _ssd_full(x, dt, a, b, c, chunk=chunk,
+                         initial_state=initial_state)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, needs)]
+            y, state = _ssd_full(*leaves[:5], chunk=ctx.chunk,
+                                 use_kernel=False, initial_state=leaves[5])
+            outs = [(o, g) for o, g in ((y, gy), (state, gstate))
+                    if g is not None]
+            want = [t for t, n in zip(leaves, needs) if n]
+            got = (torch.autograd.grad([o for o, _ in outs],
+                                       want, [g for _, g in outs],
+                                       allow_unused=True)
+                   if outs and want else [None] * len(want))
+        got = iter(got)
+        return (*(next(got) if n else None for n in needs), None)
+
+
+def _ssd_full(x, dt, a, b, c, *, chunk: int, use_kernel: bool = True,
+              initial_state: torch.Tensor | None = None):
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     y_diag, states, chunk_decay = ssd_intra_chunk(

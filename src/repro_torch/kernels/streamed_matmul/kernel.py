@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import I, P, CudaLibrary
+from repro_torch.kernels._build import I, P, CudaLibrary, refuse_grad
 from repro_torch.kernels._split import (  # noqa: F401 (re-exported)
     SPLIT_WORKSPACE,
     SplitWorkspace,
@@ -143,6 +143,7 @@ def matmul_blocks(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 128,
     dev = x.device
     if dev.type == "cpu":
         return matmul_ref(x, w)
+    refuse_grad("the BLOCKS matmul kernel", x, w)
     m, k, n = _check(x, w, dev)
     tile = (block_m, block_n, block_k)
     if tile not in TILES:
@@ -177,6 +178,7 @@ def matmul_unique(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             f"analogue. Use BLOCKS partitioning.")
     if x.device.type == "cpu":
         return matmul_ref(x, w)
+    refuse_grad("the UNIQUE matmul kernel", x, w)
     m, k, n = _check(x, w, x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if y.numel() == 0:

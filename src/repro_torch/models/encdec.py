@@ -31,7 +31,12 @@ from repro_torch.models.layers.attention import (
 )
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
 from repro_torch.models.layers.norm import apply_norm, norm_params
-from repro_torch.models.lm import _layer, head_product, stack_blocks
+from repro_torch.models.lm import (
+    head_product,
+    make_remat,
+    stack_blocks,
+    unstack,
+)
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -105,14 +110,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def encode(cfg: ModelConfig, params: dict,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: [B, S_enc, D] (stub frontend output) -> encoder states."""
-    x = frames.to(_dt(cfg))
-    for i in range(cfg.n_enc_layers):
-        p = _layer(params["enc_blocks"], i)
+
+    def block(p, x):
         h, _ = _attn(cfg, p["attn"], apply_norm(cfg.norm, p["ln1"], x),
                      rope_theta=cfg.rope_theta, causal=False)
         x = x + h
-        x = x + mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
-                          cfg.mlp)
+        return x + mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
+                             cfg.mlp)
+
+    block = make_remat(cfg)(block)
+    x = frames.to(_dt(cfg))
+    for p in unstack(params["enc_blocks"]):
+        x = block(p, x)
     return apply_norm(cfg.norm, params["enc_norm"], x)
 
 
@@ -140,8 +149,9 @@ def forward(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     """Scoring forward: logits over the decoder positions, aux = 0."""
     enc = encode(cfg, params, frames)
     x = params["embed"][tokens]
-    for i in range(cfg.n_layers):
-        x, _, _ = _dec_block(cfg, _layer(params["dec_blocks"], i), x, enc)
+    block = make_remat(cfg)(lambda p, h: _dec_block(cfg, p, h, enc)[0])
+    for p in unstack(params["dec_blocks"]):
+        x = block(p, x)
     return (_logits(cfg, params, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -185,8 +195,7 @@ def prefill(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     caches = init_dec_cache(cfg, x.shape[0], s_max, enc.shape[1], x.device)
     sc, cc = caches["self"], caches["cross"]
     length = sc.length
-    for i in range(cfg.n_layers):
-        p = _layer(params["dec_blocks"], i)
+    for i, p in enumerate(unstack(params["dec_blocks"])):
         cross = _fill_cross(cfg, p, enc, KVCache(cc.k[i], cc.v[i], 0))
         x, new_self, _ = _dec_block(
             cfg, p, x, enc, self_cache=KVCache(sc.k[i], sc.v[i], sc.length),
@@ -204,9 +213,9 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     x = params["embed"][token]
     sc, cc = caches["self"], caches["cross"]
     length = sc.length
-    for i in range(cfg.n_layers):
+    for i, p in enumerate(unstack(params["dec_blocks"])):
         x, new_self, _ = _dec_block_cached(
-            cfg, _layer(params["dec_blocks"], i), x,
+            cfg, p, x,
             KVCache(sc.k[i], sc.v[i], sc.length),
             KVCache(cc.k[i], cc.v[i], cc.length))
         length = new_self.length

@@ -156,17 +156,24 @@ def _shared_block(cfg: ModelConfig, shared: dict, loras: dict, gi: int,
 def _mamba_group_scan(cfg: ModelConfig, gparams: dict, x: torch.Tensor,
                       states: SSMState | None = None):
     """Run the mamba layers of one group in order. ``states``: the group's
-    stacked SSMState, updated in place (and returned), or None."""
-    for i in range(gparams["ln1"]["scale"].shape[0]):
-        lp = lm._layer(gparams, i)
+    stacked SSMState, updated in place (and returned), or None (then each
+    layer runs through ``make_remat``, as the reference's scan body)."""
+
+    def layer(lp, h):
+        return h + mamba2_apply(lp["mixer"],
+                                apply_norm(cfg.norm, lp["ln1"], h), cfg)[0]
+
+    remat_layer = lm.make_remat(cfg)(layer)
+    for i, lp in enumerate(lm.unstack(gparams)):
+        if states is None:
+            x = remat_layer(lp, x)
+            continue
         hn = apply_norm(cfg.norm, lp["ln1"], x)
-        st = SSMState(states.ssm[i], states.conv[i]) if states is not None \
-            else None
+        st = SSMState(states.ssm[i], states.conv[i])
         out, new_st = mamba2_apply(lp["mixer"], hn, cfg, state=st)
         x = x + out
-        if states is not None:
-            states.ssm[i].copy_(new_st.ssm)
-            states.conv[i].copy_(new_st.conv)
+        states.ssm[i].copy_(new_st.ssm)
+        states.conv[i].copy_(new_st.conv)
     return x, states
 
 
@@ -174,8 +181,12 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     """Scoring forward. Returns (logits [B,S,Vp] f32, aux=0)."""
     x = params["embed"][tokens]
     x0 = x
+    # remat the shared block, as the reference does: its [B,H,S,S] f32
+    # scores would otherwise stay in memory for the whole backward
+    shared = lm.make_remat(cfg)(lambda sh, lo, gi, a, b: _shared_block(
+        cfg, sh, lo, gi, a, b)[0])
     for gi in range(n_groups(cfg)):
-        h, _ = _shared_block(cfg, params["shared"], params["loras"], gi, x, x0)
+        h = shared(params["shared"], params["loras"], gi, x, x0)
         x = x + h
         x, _ = _mamba_group_scan(cfg, params["groups"][gi], x)
     logits = lm.logits_from_hidden(cfg, params, x)

@@ -4,8 +4,9 @@ Params keep the reference's pytree layout: a dict of tensors whose
 ``blocks`` subtree is stacked over layers (leading [L] axis), so the port's
 params and the reference's ``init_params`` carry over one to one
 (:func:`params_from_jax`). The reference scans the stack with
-``lax.scan``; here a Python loop indexes ``blocks[key][i]`` (a view, no
-copy) layer by layer. The skeleton is
+``lax.scan``; here a Python loop walks per-layer views of the stack
+(:func:`unstack`, no copy) layer by layer, each block under
+:func:`make_remat` when there is no cache. The skeleton is
 
     x -> [ block_0 ... block_{L-1} ] -> final_norm -> lm_head
 
@@ -20,11 +21,17 @@ text (``prefix_embeds``). The decode cache is a stacked ``KVCache`` or
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Callable
+from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import default_device
 from repro_torch.models.config import ModelConfig
@@ -38,25 +45,43 @@ from repro_torch.models.layers.ssm import (
     mamba2_params,
     ssm_state_zeros,
 )
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """``remat_policy="dots_nb"``: keep the outputs of the matrix products
+    with no batch dimension (``mm`` / ``addmm``, the layers' weight
+    products), recompute everything else, as the reference's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def make_remat(cfg: ModelConfig) -> Callable:
-    """No-op: this slice runs forward only (training is ROADMAP slice 5)."""
-    return lambda f: f
+    """Block-level activation checkpointing honouring ``cfg.remat`` and
+    ``cfg.remat_policy``, as the reference's ``jax.checkpoint``: under
+    grad, a wrapped block keeps its inputs and recomputes its activations
+    in the backward (``torch.utils.checkpoint``, non-reentrant). With grad
+    off (scoring, prefill, decode) the block runs as it is."""
+    if not cfg.remat:
+        return lambda f: f
+    kw = {}
+    if cfg.remat_policy == "dots_nb":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_products)
 
-
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """``fn`` over the leaves of nested dicts and lists (the hybrid's
-    ``groups`` is a list of stacked dicts)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+    def wrap(f: Callable) -> Callable:
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return f(*args)
+            return checkpoint(f, *args, use_reentrant=False, **kw)
+        return run
+    return wrap
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +208,15 @@ def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 # forward passes
 # ---------------------------------------------------------------------------
 
-def _layer(blocks: dict, i: int) -> dict:
-    return tree_map(lambda t: t[i], blocks)
+def unstack(blocks: dict) -> list[dict]:
+    """The per-layer params of a stacked [L, ...] tree: views from one
+    ``unbind`` a leaf. Under autograd the unbind's backward stacks the
+    layers' gradients once, where indexing ``t[i]`` a layer would add a
+    zero-filled gradient of the whole stack a layer (O(L^2) bytes: 36
+    fills and adds of qwen2.5-3b's 3.2 GB MLP stack a step)."""
+    per_leaf = tree_map(lambda t: t.unbind(0), blocks)
+    n = len(tree_leaves(per_leaf)[0])
+    return [tree_map(lambda u: u[i], per_leaf) for i in range(n)]
 
 
 def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -192,11 +224,11 @@ def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
     """Run the blocks in order over the stacked [L, ...] params (and the
     stacked cache, whose tensors each layer updates in place). The aux
     loss is the sum of the layers' (an f32 scalar on ``x``'s device)."""
-    blocks = params["blocks"]
+    blocks = unstack(params["blocks"])
     aux = 0.0
     if isinstance(caches, SSMState):
         for i in range(cfg.n_layers):
-            x, st, _ = block_apply(cfg, _layer(blocks, i), x,
+            x, st, _ = block_apply(cfg, blocks[i], x,
                                    cache=SSMState(caches.ssm[i],
                                                   caches.conv[i]))
             caches.ssm[i].copy_(st.ssm)
@@ -204,11 +236,16 @@ def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, caches, aux
     length = caches.length if caches is not None else None
+    block = make_remat(cfg)(
+        lambda p, h: block_apply(cfg, p, h, positions=positions))
     for i in range(cfg.n_layers):
-        lc = (KVCache(caches.k[i], caches.v[i], caches.length)
-              if caches is not None else None)
-        x, nc, a = block_apply(cfg, _layer(blocks, i), x, cache=lc,
-                               positions=positions)
+        if caches is None:
+            x, nc, a = block(blocks[i], x)
+        else:
+            x, nc, a = block_apply(
+                cfg, blocks[i], x,
+                cache=KVCache(caches.k[i], caches.v[i], caches.length),
+                positions=positions)
         aux += a
         if nc is not None:
             length = nc.length
@@ -248,10 +285,38 @@ def head_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """f32 ``x @ head``, as :func:`logits_from_hidden` takes it."""
     if (x.device.type == "cuda" and x.dtype == torch.bfloat16
             and head.dtype == torch.bfloat16):
-        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
-                       out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or head.requires_grad):
+            out = _HeadProduct.apply(x2, head)
+        else:
+            out = torch.mm(x2, head, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], head.shape[-1])
     return torch.matmul(x.float(), head.float())
+
+
+class _HeadProduct(torch.autograd.Function):
+    """The bf16-in, f32-out head product with a backward: ``torch.mm``
+    with ``out_dtype`` has no derivative. The backward is two more bf16
+    products into f32, the f32 cotangent rounded to bf16 first (an f32
+    product would need the f32 copy of the head that the forward avoids),
+    each gradient rounded to its operand's type."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        gx = gh = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(gb, head.t(), out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gh = torch.mm(x2.t(), gb, out_dtype=torch.float32).to(head.dtype)
+        return gx, gh
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,

@@ -14,6 +14,7 @@ import dataclasses
 import itertools
 import math
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -827,15 +828,34 @@ def test_faults_corrupt_drop_and_stall_recover_on_card(dev):
         s = g.fault_state.summary()
         assert s["retries"] == s["retry_successes"] == 2
         assert s["checksum_failures"] == 1
-        # a probe runs in the same pass that quarantines: one 64 KiB
-        # descriptor, stalled 20 ms against a sibling's ~1 ms, stays out
-        inj.stall(1, on=True, stall_s=0.02)
+        # The drift check quarantines the stalled channel when its
+        # descriptors take drift_quarantine_ratio (4) times its siblings',
+        # and a probe runs in the same pass: one 64 KiB descriptor on the
+        # stalled channel, raced against the same descriptor on a sibling,
+        # stays out only if it too took 4 times as long. Both read host
+        # clocks: a sibling's descriptor takes ~1 ms on a quiet host and
+        # a scheduler quantum or more on a loaded one, so a fixed 20 ms
+        # stall let a slow host rejoin the channel at once. The stall is
+        # set from the healthy time measured here, 20 times the slowest
+        # of 8 healthy probes, and at least 100 ms (several quanta).
+        probe = np.zeros(g.recovery.probe_bytes, np.uint8)
+        healthy = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            g.engines[0].tx_async(probe).wait(30.0)
+            healthy.append(time.perf_counter() - t0)
+        stall_s = max(0.1, 20 * max(healthy))
+        inj.stall(1, on=True, stall_s=stall_s)
         for _ in range(8):
             g.tx(x)
             g.check_channel_health()
             if g.fault_state.summary()["quarantines"]:
                 break
-        assert g.quarantined == {1}
+        s = g.fault_state.summary()
+        assert g.quarantined == {1}, (
+            f"quarantines {s['quarantines']}, unquarantines "
+            f"{s['unquarantines']}; healthy probes {healthy} s, stall "
+            f"{stall_s} s")
         round_trip()
         inj.stall(1, on=False)
         for _ in range(10):
@@ -935,3 +955,229 @@ def test_continuous_engine_on_card_matches_cpu(dev, arch):
     (cpu_toks, cpu_len), (card_toks, card_len) = got.values()
     assert card_toks == cpu_toks and card_len == cpu_len
     assert max(card_len) > 20
+
+
+# ---- training (F8: gradients through the kernels) ---------------------------
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+def test_ssd_gradients_through_the_kernels_match_the_plain_route(dev, dtype,
+                                                                 tol):
+    """F8: ``ssd_full`` under grad launches both kernels once and its
+    gradients (the plain version's VJP, fed the kernel route's cotangent)
+    match autograd through the plain route, relative L2 per input: f32
+    the SSD's 1e-3, bf16 2e-2 (the final states differ by the kernels'
+    bf16 rounding, and so does the cotangent the loss gives them)."""
+    args = _ssd_inputs(dev, dtype, 2, 512, 8, 64, 1, 128, seed=5,
+                       strided=True)
+    init = torch.randn((2, 8, 64, 128), generator=torch.Generator()
+                       .manual_seed(6)).to(dev)
+    w = torch.randn(args[0].shape, generator=torch.Generator()
+                    .manual_seed(7)).to(dev)
+    grads = []
+    for use_kernel in (True, False):
+        ins = [t.detach().requires_grad_() for t in (*args, init)]
+        before = dict(SSD.launches)
+        y, st = ssd_full(*ins[:5], chunk=256, initial_state=ins[5],
+                         use_kernel=use_kernel)
+        if use_kernel:
+            assert type(y.grad_fn).__name__ == "_SSDFullBackward"
+        loss = (y.float() * w).mean() + st.square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        n = int(use_kernel)
+        assert {k: SSD.launches[k] - before[k] for k in before} == {
+            "ssd_intra_chunk": n, "ssd_state_pass": n}
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, b) <= tol
+
+
+def test_ssm_model_gradients_on_card_match_the_cpu(dev):
+    """F8 at the model: the smoke mamba2's gradients on the card (the SSD
+    through the kernels) against the same params' on the CPU (the plain
+    SSD), every leaf within 1e-3 relative L2 (f32). Plain autograd, so
+    the test runs on code without the port's training modules too (on
+    code where the kernels' outputs carry no grad_fn, it fails)."""
+    cfg = smoke_config("mamba2-780m").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 65))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+
+    def grads(where):
+        leaves = {}
+
+        def handle(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: handle(v, path + (k,)) for k, v in tree.items()}
+            t = tree.detach().clone().to(where).requires_grad_()
+            leaves[path] = t
+            return t
+
+        loss, _ = model.loss(handle(params), _tree_to(batch, where))
+        loss.backward()
+        return float(loss), {k: t.grad.cpu() for k, t in leaves.items()}
+
+    before = SSD.launches["ssd_intra_chunk"]
+    lc, gc = grads(dev)
+    assert SSD.launches["ssd_intra_chunk"] == before + cfg.n_layers
+    lh, gh = grads("cpu")
+    assert lc == pytest.approx(lh, abs=1e-4)
+    rel = {"/".join(k): _rel_l2(gc[k], gh[k]) for k in gh}
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= 1e-3, (worst, rel[worst])
+
+
+def test_kernels_refuse_a_gradient(dev):
+    """Flash (and conv2d, the matmuls) have no backward: under grad with an
+    input that requires grad they raise, where their outputs would
+    otherwise carry no grad_fn and the gradients come back wrong."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 64, 4, 64), generator=g).to(dev, torch.bfloat16)
+    k = torch.randn((1, 64, 2, 64), generator=g).to(dev, torch.bfloat16)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention(qg, k, k)
+    with torch.no_grad():
+        flash_attention(qg, k, k)
+    flash_attention(q, k, k)  # nothing needs a gradient
+    x, w, b = _conv_case(dev, torch.float32, 1, 8, 8, 4, 8)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        conv2d_relu(x, w.requires_grad_(), b)
+    a = torch.randn((4, 32), generator=g).to(dev).requires_grad_()
+    m = torch.randn((32, 8), generator=g).to(dev)
+    for fn in (matmul_unique, matmul_blocks):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fn(a, m)
+
+
+def test_logits_head_bf16_backward_on_card(dev):
+    """The bf16 head's backward (two bf16 products into f32, the
+    cotangent rounded to bf16) against autograd through the up-cast f32
+    product: relative L2 within 1e-2 (the cotangent's bf16 rounding,
+    2^-9 an element), and the forward unchanged."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 48, 256), generator=g).to(dev, torch.bfloat16)
+    head = (torch.randn((256, 1000), generator=g) * 0.06).to(
+        dev, torch.bfloat16)
+    w = torch.randn((2, 48, 1000), generator=g).to(dev)
+    got, want = [], []
+    for out, up in ((got, False), (want, True)):
+        xs, hs = x.clone().requires_grad_(), head.clone().requires_grad_()
+        y = (lm.head_product(xs, hs) if not up
+             else torch.matmul(xs.float(), hs.float()))
+        assert y.dtype == torch.float32
+        (y * w).sum().backward()
+        out += [y.detach(), xs.grad, hs.grad]
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.bfloat16
+        assert _rel_l2(a, b) <= 1e-2
+
+
+def test_adamw_step_on_card_matches_cpu(dev):
+    """One AdamW step (clip, bias correction, decay on matrices) on the
+    card against the CPU's, f32, 1e-6."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    g = torch.Generator().manual_seed(0)
+    p = {"w": torch.randn((3, 64, 32), generator=g),
+         "b": torch.randn((32,), generator=g)}
+    grads = {k: torch.randn(v.shape, generator=g) * 3 for k, v in p.items()}
+    out = {}
+    for where in ("cpu", dev):
+        pp = {k: v.clone().to(where) for k, v in p.items()}  # updated in place
+        st = adamw_init(pp)
+        adamw_update(AdamWConfig(lr=1e-2), _tree_to(grads, where), st, pp,
+                     torch.tensor(0.5, device=where))
+        adamw_update(AdamWConfig(lr=1e-2), _tree_to(grads, where), st, pp,
+                     torch.tensor(1.0, device=where))
+        out[str(where)] = (pp, st)
+    (cp, cs), (gp, gs) = out.values()
+    for k in p:
+        torch.testing.assert_close(gp[k].cpu(), cp[k], rtol=1e-6, atol=1e-6)
+        for part in ("m", "v", "master"):
+            torch.testing.assert_close(gs[part][k].cpu(), cs[part][k],
+                                       rtol=1e-6, atol=1e-6)
+    assert int(gs["step"]) == 2 and gs["step"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("policy", ["user_level_polling",
+                                    "user_level_scheduled", "kernel_level"])
+@pytest.mark.parametrize("transport", ["engine", "copy_stream"])
+def test_staged_batches_on_card_are_the_host_batches(dev, policy, transport):
+    """20 batches staged on the card (through an engine, or the pipeline's
+    own copy stream), each read by a kernel on the consumer's stream
+    right away and again after the next batch staged: bitwise the host
+    batches (a wrong wait would read a half-copied batch, a missing
+    record_stream a reused one)."""
+    from repro_torch.data.pipeline import (
+        DataConfig, StagedPipeline, SyntheticLMSource)
+    cfg = smoke_config("pixtral-12b")
+    src = SyntheticLMSource(DataConfig(4, cfg.n_prefix_tokens + 64, 3), cfg)
+    eng = (TransferEngine(TransferPolicy.kernel_level(), device=dev)
+           if transport == "engine" else None)
+    pipe = StagedPipeline(src, getattr(TransferPolicy, policy)(),
+                          engine=eng, device=dev)
+    prev = None
+    try:
+        for i in range(20):
+            batch = next(pipe)
+            want = src.next_host_batch(i)
+            for k, v in want.items():
+                assert batch[k].device.type == "cuda"
+                assert torch.equal(batch[k], torch.from_numpy(v).to(dev))
+            if prev is not None:  # the last batch, read after this one
+                for k, v in prev[1].items():
+                    np.testing.assert_array_equal(prev[0][k].cpu().numpy(),
+                                                  v)
+            prev = (batch, want)
+    finally:
+        pipe.close()
+        if eng is not None:
+            eng.close()
+
+
+def test_checkpoint_mid_training_holds_the_params_of_its_step(dev, tmp_path):
+    """A Trainer on the card saves asynchronously at step 2 and updates the
+    params in place in the steps after: the file holds the params and the
+    optimizer state as they were at step 2, exactly."""
+    from repro_torch.checkpoint import restore_latest
+    from repro_torch.checkpoint.checkpoint import _unflatten_into
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    cfg = smoke_config("qwen2.5-3b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    opt = adamw_init(params)
+    rng = np.random.default_rng(0)
+    seen = {}
+
+    def batches():
+        for i in range(4):
+            if i == 2:  # maybe_save(2) ran after step 1
+                seen["at2"] = tree_map(lambda t: t.detach().cpu().clone(),
+                                       {"params": params, "opt": opt})
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 33))).to(dev)
+            yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    t = Trainer(model, TrainConfig(steps=4, warmup=1,
+                                   checkpoint_dir=str(tmp_path),
+                                   checkpoint_every=2))
+    t.run(batches(), initial_state=(params, opt))
+    assert restore_latest(str(tmp_path), seen["at2"])[0] == 4
+    with np.load(tmp_path / "step-00000002.npz") as z:
+        tree = _unflatten_into(seen["at2"], {k: z[k] for k in z.files})
+    for a, b in zip(tree_leaves(tree), tree_leaves(seen["at2"])):
+        assert torch.equal(a, b)
+    moved = [not torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves(params), tree_leaves(seen["at2"]["params"]))]
+    assert any(moved)

@@ -51,7 +51,14 @@ SLICE_MODULES = [
     "repro_torch.configs.granite_moe_1b_a400m",
     "repro_torch.configs.deepseek_moe_16b",
     "repro_torch.configs.seamless_m4t_medium",
-    "repro_torch.configs.pixtral_12b",
+    "repro_torch.configs.pixtral_12b", "repro_torch.utils.pytree",
+    "repro_torch.optim", "repro_torch.optim.schedule",
+    "repro_torch.optim.adamw", "repro_torch.optim.compression",
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+    "repro_torch.train", "repro_torch.train.loop",
+    "repro_torch.launch.train", "repro_torch.examples.train_lm",
+    "repro_torch.examples.quickstart",
 ]
 
 
