@@ -169,6 +169,24 @@ Phases, in order; any failure exits non-zero before a result is printed:
    resumes at step 20 and reaches the first run's losses within
    ``LM100M_LOSS_ATOL``; the checkpoint's bytes, the snapshot and write
    ms, and the TX us a batch under each of the three managements;
+12i. the distributed layer (a ``dist`` line) on a world of one NCCL rank
+   on the card (NCCL takes one rank a card; the multi-rank rings and the
+   sharded loss are held on the CPU by the tests): the local (1, 1) mesh,
+   the four rings at n = 1 bitwise ``x`` and ``x @ w``,
+   ``param_sharding`` of qwen2.5-3b's full-width params (every placement
+   ``Replicate()``, the leaf count) beside the bytes a device of the same
+   shapes under the (16, 16) production mesh's specs, B 2 x S 1024 qwen
+   batches staged as DTensors under the three managements (bitwise the
+   host batch, TX us a batch), and ``device_streamed_scan`` over
+   qwen2.5-3b's 36 layers in bf16 at B 2 x S 2048, the stacked layers in
+   pinned host memory (~5.55 GB) copied to the card a layer ahead: the
+   hidden states bitwise the resident ``_stack_scan``'s, exactly 36
+   tensor-core flash launches, the resident, streamed and copy ms and the
+   overlap share (copy + compute - streamed) / min(copy, compute);
+12j. ``repro_torch.examples.elastic_restart`` on the card (an ``elastic``
+   line): 10 steps with checkpoints at 5 and 10, a fresh Trainer resumed
+   at step 10 (``restarts == 1``), the plan of 384 of 512 devices and its
+   ``reshard_plan``;
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
    never calls it); conv2d per RoShamBo layer at batch 1 (events and
@@ -180,7 +198,7 @@ Phases, in order; any failure exits non-zero before a result is printed:
    and f32 and the state pass at mamba2's shape, with the device ms of a
    launch of each in mamba2's profiled forward;
 14. a ``kernels`` JSON line (flash's launches summed over the qwen, moe
-   and vlm scoring paths; the SSD rows' training launches beside theirs), the card line, and the ``ok`` line last.
+   and vlm scoring paths and the streamed scan; the SSD rows' training launches beside theirs), the card line, and the ``ok`` line last.
 
 Every time printed comes from this run on the card named by the ``card``
 line printed after the build (``nvidia-smi`` name and power limit).
@@ -331,6 +349,10 @@ STAGE_BATCHES = 10  # batches staged under each management for TX us
 # AdamW fused would move 28 B a param: grad (bf16) 2 + m, v, master 12
 # read; m, v, master 12 + param (bf16) 2 written
 ADAMW_BYTES_PER_PARAM = 28
+# the distributed lines: qwen batches of B 2 x S 1024 staged as DTensors,
+# qwen2.5-3b's 36 layers streamed from pinned host memory over B 2 x S 2048
+DIST_STAGE_BATCH, DIST_STAGE_SEQ = 2, 1024
+DIST_PRODUCTION = {"data": 16, "model": 16}  # sizes of the (16, 16) mesh
 
 
 def fail(msg: str) -> None:
@@ -2486,6 +2508,223 @@ def train_lm_phase(np, torch, dev, libs) -> dict:
     return line
 
 
+def dist_phase(np, torch, dev, libs, flash_lib) -> dict:
+    """12i. the distributed layer on a world of one NCCL rank on the card
+    (a ``dist`` line): the local mesh, the four rings at n = 1 (bitwise
+    ``x`` and ``x @ w``), ``param_sharding`` of qwen2.5-3b's full-width
+    params (every placement ``Replicate()``) beside the plan of the same
+    shapes on the (16, 16) production mesh from the rules' specs alone,
+    qwen batches staged as DTensors under the three managements (bitwise
+    the host batch, TX us a batch), and ``device_streamed_scan`` over the
+    36 layers in bf16 from pinned host memory, bitwise the resident
+    ``_stack_scan``, 36 tensor-core flash launches, with the resident,
+    streamed and copy ms and the overlap share. Returns the streamed
+    run's flash launches, by C symbol."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import pipeline_collectives as pc
+    from repro_torch.core.streaming import device_streamed_scan
+    from repro_torch.core.transfer import TransferEngine, TransferPolicy
+    from repro_torch.data.pipeline import (
+        DataConfig, StagedPipeline, SyntheticLMSource)
+    from repro_torch.dist.sharding import batch_sharding_tree, param_sharding
+    from repro_torch.kernels.flash_attention.kernel import SYMBOL
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.api import build_model
+    from repro_torch.utils.pytree import (
+        tree_bytes, tree_leaves, tree_map, tree_paths)
+
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / "chip_smoke_dist_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1, device_id=dev)
+    line = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    try:
+        # (a) the local mesh
+        mesh = make_local_mesh()
+        line["mesh"] = {"device_type": mesh.device_type,
+                        "shape": list(mesh.shape),
+                        "names": list(mesh.mesh_dim_names)}
+        if mesh.device_type != "cuda" or tuple(mesh.shape) != (1, 1):
+            fail(f"dist: local mesh {line['mesh']}")
+        # (b) the rings at n = 1
+        group = mesh.get_group("model")
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn((512, 256), generator=g).to(dev)
+        w = torch.randn((256, 384), generator=g).to(dev)
+        rings = {
+            "ring_all_gather": torch.equal(pc.ring_all_gather(x, group), x),
+            "ring_reduce_scatter": torch.equal(
+                pc.ring_reduce_scatter(x, group), x),
+            "overlapped_matmul_ag": torch.equal(
+                pc.overlapped_matmul_ag(x, w, group), x @ w),
+            "overlapped_matmul_rs": torch.equal(
+                pc.overlapped_matmul_rs(x, w, group), x @ w)}
+        line["rings_bitwise"] = rings
+        if not all(rings.values()):
+            fail(f"dist: rings at n = 1 {rings}")
+
+        # (c) the sharding rules over qwen2.5-3b's full-width params
+        cfg = get_config("qwen2.5-3b", dtype="bfloat16").replace(
+            use_pallas_attention=True)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        shardings = tree_leaves(param_sharding(params, mesh))
+        if any(not p.is_replicate() for sh in shardings
+               for p in sh.placements):
+            fail("dist: a placement on the (1, 1) mesh is not Replicate()")
+        plan = tree_leaves(param_sharding(params, DIST_PRODUCTION))
+        leaves = tree_leaves(params)
+        per_dev = sum(
+            t.numel() * t.element_size() // math.prod(
+                DIST_PRODUCTION[n] for s in sh.spec if s is not None
+                for n in ((s,) if isinstance(s, str) else s))
+            for t, sh in zip(leaves, plan))
+        line["sharding"] = {
+            "leaves": len(shardings), "all_replicate": True,
+            "param_bytes": tree_bytes(params),
+            "production_16x16": {
+                "bytes_per_device": per_dev,
+                "leaves_sharded": sum(any(s is not None for s in sh.spec)
+                                      for sh in plan),
+                "specs": {"/".join(map(str, k)): list(sh.spec) for (k, _), sh
+                          in zip(tree_paths(params), plan)}}}
+
+        # (d) sharded staging of qwen batches under each management
+        src = SyntheticLMSource(DataConfig(DIST_STAGE_BATCH, DIST_STAGE_SEQ),
+                                cfg)
+        stage = {}
+        for pol in (TransferPolicy.user_level_polling(),
+                    TransferPolicy.user_level_scheduled(),
+                    TransferPolicy.kernel_level()):
+            eng = TransferEngine(pol, device=dev)
+            pipe = StagedPipeline(src, pol, engine=eng, shardings=(
+                batch_sharding_tree(src.next_host_batch(0), mesh)))
+            try:
+                for i in range(STAGE_BATCHES):
+                    b = next(pipe)
+                    for k, v in src.next_host_batch(i).items():
+                        t = b[k]
+                        if not (isinstance(t, DTensor)
+                                and t.to_local().is_cuda
+                                and np.array_equal(t.to_local().cpu().numpy(),
+                                                   v)):
+                            fail(f"dist: staged {k} of batch {i} under "
+                                 f"{pol.tag} is not the host batch on the "
+                                 f"card as a DTensor")
+            finally:
+                pipe.close()
+            tx = sorted(st.wall_s * 1e6 for st in list(eng.stats)
+                        if st.direction == "tx")
+            eng.close()
+            stage[pol.tag] = {"tx_us_median": tx[len(tx) // 2],
+                              "tx_us_min": tx[0], "tx_count": len(tx)}
+        line["staging"] = stage
+
+        # (e) the 36 layers streamed from pinned host memory
+        host = tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, pin_memory=True).copy_(t),
+            params["blocks"])
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (LM_BATCH, LM_SEQ), dtype=np.int64)).to(dev)
+        positions = torch.arange(LM_SEQ, device=dev)
+        sym = SYMBOL[torch.bfloat16]
+
+        def layer(p, h):
+            return lm.block_apply(cfg, p, h, positions=positions)[0]
+
+        def h2d(p):
+            return tree_map(lambda t: t.to(dev, non_blocking=True), p)
+
+        def resident():
+            return lm._stack_scan(cfg, params, x0, None, positions)[0]
+
+        def streamed():
+            return device_streamed_scan(layer, host, x0, gather_fn=h2d)
+
+        def copies():
+            return [h2d(p) for p in lm.unstack(host)]
+
+        with torch.no_grad():
+            x0 = lm.embed_tokens(cfg, params, toks)
+            want = launched(torch, flash_lib, sym, cfg.n_layers, resident,
+                            "the resident scan")
+            _zero(libs)
+            got = streamed()
+            torch.cuda.synchronize()
+            launches = dict(flash_lib.launches)
+            if launches != {s: cfg.n_layers * (s == sym) for s in launches}:
+                fail(f"dist: the streamed scan launched {launches}")
+            if not bool(torch.isfinite(got).all()) or not torch.equal(
+                    got, want):
+                fail("dist: the streamed hidden states are not bitwise the "
+                     "resident ones")
+            del got, want
+            res_ms = wall_ms(torch, resident)
+            str_ms = wall_ms(torch, streamed)
+            copy_ms = wall_ms(torch, copies)
+        copy_bytes = tree_bytes(host)
+        line["streamed"] = {
+            "model": cfg.name, "layers": cfg.n_layers, "batch": LM_BATCH,
+            "seq": LM_SEQ, "dtype": "bfloat16",
+            "layer_params": sum(t.numel() for t in tree_leaves(host)),
+            "host_bytes": copy_bytes, "pinned": all(
+                t.is_pinned() for t in tree_leaves(host)),
+            "bitwise_resident": True, "launches": launches,
+            "resident_ms": res_ms, "streamed_ms": str_ms, "copy_ms": copy_ms,
+            "copy_gb_per_s": copy_bytes / copy_ms / 1e6,
+            "overlap_share": (copy_ms + res_ms - str_ms) / min(copy_ms,
+                                                               res_ms)}
+        del params, host, x0
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("dist " + json.dumps(line))
+    return launches
+
+
+def elastic_phase() -> dict:
+    """12j. ``repro_torch.examples.elastic_restart``'s three phases on the
+    card (an ``elastic`` line): 10 steps of the h2o-danube-1.8b smoke config
+    with checkpoints at 5 and 10, a fresh Trainer resumed at 10
+    (``restarts == 1``), and the shrunken plan with its ``reshard_plan``;
+    its checkpoints go to ``build/chip_smoke_elastic``, removed after."""
+    import shutil
+
+    from repro_torch.examples.elastic_restart import main as elastic_main
+
+    t_phase = time.perf_counter()
+    ckdir = ROOT / "build" / "chip_smoke_elastic"
+    try:
+        out = elastic_main(["--checkpoint-dir", str(ckdir)])
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if out["restarts"] != 1 or out["first_resumed_step"] != 10:
+        fail(f"elastic: restarts {out['restarts']}, first resumed step "
+             f"{out['first_resumed_step']}")
+    if not all(math.isfinite(v) for v in out["losses"]):
+        fail(f"elastic: losses {out['losses']}")
+    plan = out["plan"]
+    print("elastic " + json.dumps({
+        "restarts": out["restarts"],
+        "first_resumed_step": out["first_resumed_step"],
+        "losses": out["losses"],
+        "plan": {"shape": list(plan.shape),
+                 "axis_names": list(plan.axis_names),
+                 "n_devices": plan.n_devices},
+        "reshard": out["reshard"],
+        "phase_s": time.perf_counter() - t_phase}))
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -2825,6 +3064,11 @@ def main() -> None:
     train_ssm = train_cell(np, torch, dev, libs, "mamba2-780m", "train_ssm")
     train_lm_phase(np, torch, dev, libs)
 
+    # 12i.-12j. the distributed layer on a world of one NCCL rank (the
+    # streamed qwen2.5-3b forward), the elastic restart example
+    dist_launches = dist_phase(np, torch, dev, libs, FLASH)
+    elastic_phase()
+
     # 13. timing at the paths' shapes (B = 1 frame for conv and matmul)
     conv_in = []
     for h, w, cin, cout in layer_shapes:
@@ -3001,11 +3245,12 @@ def main() -> None:
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:115",
         "launches": sum(sum(d.values()) for d in (
-            lm_launches, moe_launches, vlm_launches)),
+            lm_launches, moe_launches, vlm_launches, dist_launches)),
         "launches_by_symbol": {s: lm_launches[s] + moe_launches[s]
-                               + vlm_launches[s] for s in lm_launches},
+                               + vlm_launches[s] + dist_launches[s]
+                               for s in lm_launches},
         "launches_by_path": {"lm_score": lm_launches, "moe": moe_launches,
-                             "vlm": vlm_launches},
+                             "vlm": vlm_launches, "dist": dist_launches},
         "max_abs_err": errs["flash_attention", "float32"],
         "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
         "ms": fl_ms, "ms_f32": fl_ms32, "plain_ms": fl_plain,

@@ -48,6 +48,7 @@ from repro_torch.core.transfer import (
     _numpy_dtype,
     reassemble_chunks,
 )
+from repro_torch.utils.pytree import tree_leaves, unstack
 
 
 @dataclass
@@ -420,3 +421,66 @@ def _unpack(chunks: list[torch.Tensor], ref: list[np.ndarray]) -> list[torch.Ten
                                        np.dtype(a.dtype)))
         off += a.nbytes
     return out
+
+
+def device_streamed_scan(
+    layer_fn: Callable[[Any, torch.Tensor], torch.Tensor],
+    stacked_params: Any,
+    x: torch.Tensor,
+    *,
+    gather_fn: Callable[[Any], Any] | None = None,
+    unroll: int = 1,
+) -> torch.Tensor:
+    """On-device per-layer streaming: scan over stacked layer params.
+
+    Walks the layers of a stacked ``[L, ...]`` param tree (per-layer views,
+    :func:`~repro_torch.utils.pytree.unstack`) in order: ``x =
+    layer_fn(gather_fn(layer_params), x)``. ``gather_fn`` (if given)
+    materialises one layer's params from their sharded / compressed /
+    host-resident resting state — the device-side analogue of the
+    per-layer TX. It computes exactly what that sequential loop computes.
+
+    On a CUDA ``x`` the gathers form a double buffer (the reference leaves
+    this schedule to XLA): layer k+1's gather is issued on a side stream
+    before layer k's compute, after layer k-1's compute (whose buffer it
+    takes over) on the device; the compute stream waits on the gather's
+    event, and each gathered tensor is recorded on the compute stream so
+    the caching allocator keeps it until the layer that reads it is done.
+    The host stays at most three layers ahead, so at most three layers'
+    gathered params are held at once. ``unroll`` is the reference's
+    signature: a Python loop has nothing to unroll."""
+    layers = unstack(stacked_params)
+    if gather_fn is None or x.device.type != "cuda":
+        for p in layers:
+            x = layer_fn(p if gather_fn is None else gather_fn(p), x)
+        return x
+    compute = torch.cuda.current_stream(x.device)
+    side = torch.cuda.Stream(x.device)
+    side.wait_stream(compute)  # whatever produced x and the stack
+    done: list[torch.cuda.Event] = []  # after each layer's compute
+
+    def gather(k: int) -> tuple[Any, torch.cuda.Event]:
+        if k >= 3:
+            done[k - 3].synchronize()  # bounds the gathered layers held
+        if k >= 2:
+            side.wait_event(done[k - 2])  # its buffer's last reader
+        with torch.cuda.stream(side):
+            p = gather_fn(layers[k])
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return p, ready
+
+    nxt = gather(0)
+    for k in range(len(layers)):
+        p, ready = nxt
+        if k + 1 < len(layers):
+            nxt = gather(k + 1)  # in flight while layer k computes
+        compute.wait_event(ready)
+        for t in tree_leaves(p):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(compute)
+        x = layer_fn(p, x)
+        ev = torch.cuda.Event()
+        ev.record(compute)
+        done.append(ev)
+    return x

@@ -96,20 +96,31 @@ class StagedPipeline:
     """Iterator of device-resident batches under a transfer policy.
 
     ``device``: where the batches go when there is no ``engine`` (an
-    engine's own device otherwise); the card unless it names another."""
+    engine's own device otherwise); the card unless it names another.
+
+    ``shardings``: a {key: :class:`~repro_torch.dist.sharding.Sharding`}
+    tree over the batch's keys (``batch_sharding_tree``). Each rank then
+    stages only its own shard of each leaf — sliced from the host batch,
+    staged under the policy's management as a whole batch would be — and
+    the step gets ``DTensor`` leaves made with ``DTensor.from_local``, as
+    ``jax.device_put(host_batch, shardings)`` hands each device its shard
+    and not the whole batch."""
 
     def __init__(self, source: SyntheticLMSource, policy: TransferPolicy,
                  shardings: Any | None = None, start_step: int = 0,
                  engine: Any | None = None, device=None):
-        if shardings is not None:
-            raise NotImplementedError(
-                "StagedPipeline(shardings=): sharded staging is the port's "
-                "distributed slice (ROADMAP slice 6, #21)")
         self.source = source
         self.policy = policy
+        self.shardings = shardings
         self.engine = engine  # TransferEngine or ChannelGroup (optional)
         self.device = (engine.device if engine is not None
                        else default_device(device))
+        if shardings is not None:
+            meshes = {getattr(sh.mesh, "device_type", None)
+                      for sh in shardings.values()}
+            if meshes != {self.device.type}:
+                raise ValueError(f"shardings on {meshes} meshes, batches "
+                                 f"staged to {self.device}")
         self.step = start_step
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if engine is None and self.device.type == "cuda"
@@ -129,7 +140,10 @@ class StagedPipeline:
     def _put_device(self, host_batch: dict
                     ) -> tuple[dict, "torch.cuda.Event | None"]:
         """The batch on the device and the event that marks it ready (None
-        on the host)."""
+        on the host): this rank's shard of each leaf under ``shardings``."""
+        if self.shardings is not None:
+            host_batch = {k: _local_shard(v, self.shardings[k])
+                          for k, v in host_batch.items()}
         if self.engine is not None:
             # stage through the engine's cached layout: the staging buffer
             # is reused every step (same batch shapes), the TX is measured,
@@ -224,6 +238,9 @@ class StagedPipeline:
             for t in batch.values():
                 t.record_stream(consumer)
         self.step += 1
+        if self.shardings is not None:
+            batch = {k: _from_local(t, self.shardings[k])
+                     for k, t in batch.items()}
         return batch
 
     def close(self) -> None:
@@ -236,3 +253,31 @@ class StagedPipeline:
             pass
         if self._thread is not None:
             self._thread.join(timeout=30.0)
+
+
+def _local_shard(a: np.ndarray, sh) -> np.ndarray:
+    """This rank's block of ``a`` under ``sh``'s placements: each mesh dim
+    that shards tensor dim d cuts the block left by the dims before it, as
+    ``DTensor`` lays out ``Shard(d)`` over several mesh dims (the rules
+    shard only dims they divide evenly)."""
+    from torch.distributed.tensor import Shard
+
+    coord = sh.mesh.get_coordinate()
+    block = [slice(0, n) for n in a.shape]
+    for mdim, pl in enumerate(sh.placements):
+        if isinstance(pl, Shard):
+            d = pl.dim
+            lo, hi = block[d].start, block[d].stop
+            step = (hi - lo) // sh.mesh.size(mdim)
+            block[d] = slice(lo + coord[mdim] * step,
+                             lo + (coord[mdim] + 1) * step)
+    return np.ascontiguousarray(a[tuple(block)])
+
+
+def _from_local(t: torch.Tensor, sh):
+    """The staged shard as a ``DTensor`` of the batch's global shape (the
+    rules shard only dims they divide evenly)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, sh.mesh, list(sh.placements),
+                              run_check=False)

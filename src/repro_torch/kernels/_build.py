@@ -30,6 +30,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -140,6 +142,17 @@ def refuse_grad(what: str, *tensors: "torch.Tensor | None") -> None:
         raise NotImplementedError(
             f"{what} has no backward: run it under torch.no_grad(), or take "
             f"the plain version for a gradient")
+
+
+def refuse_dtensor(what: str, *tensors: "torch.Tensor | None") -> None:
+    """Raise ``TypeError`` for a ``DTensor`` argument: a kernel reads raw
+    device pointers through ``ctypes``, and a ``DTensor`` is a wrapper
+    whose pointer is not its shard's, so a sharded tree that reached a
+    launch would give a wrong result with no error."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(
+            f"{what} takes plain tensors, not DTensors: pass each rank's "
+            f"shard (DTensor.to_local()) or the gathered tensor")
 
 
 def build_all(libraries: list[CudaLibrary]) -> None:

@@ -16,7 +16,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import I, P, CudaLibrary, refuse_grad
+from repro_torch.kernels._build import (
+    I, P, CudaLibrary, refuse_dtensor, refuse_grad)
 from repro_torch.kernels._split import (
     SPLIT_WORKSPACE,
     cdiv,
@@ -61,6 +62,7 @@ def conv2d_igemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     """Launch the CUDA kernel on CUDA tensors; raise on anything it does
     not take (``NotImplementedError`` where autograd would need its
     gradient). x: [B, H, W, Cin]; w: [KH, KW, Cin, Cout]; b: [Cout]."""
+    refuse_dtensor("the conv2d kernel", x, w, b)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"conv2d_igemm needs CUDA tensors, got {dev}")

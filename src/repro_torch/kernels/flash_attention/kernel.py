@@ -31,7 +31,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import I, L, P, CudaLibrary, refuse_grad
+from repro_torch.kernels._build import (
+    I, L, P, CudaLibrary, refuse_dtensor, refuse_grad)
 
 _ARGS = [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, I, I, P]
 FLASH = CudaLibrary(
@@ -101,6 +102,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     takes the plain version for CPU tensors). Raises
     ``NotImplementedError`` where autograd would need its gradient: the
     kernel has no backward, as the reference's has none."""
+    refuse_dtensor("the flash attention kernel", q, k, v)
     refuse_grad("the flash attention kernel", q, k, v)
     _check(q, k, v, window)
     if q.dim() != 4:

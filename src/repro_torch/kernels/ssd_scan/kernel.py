@@ -19,7 +19,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import I, L, P, CudaLibrary, refuse_grad
+from repro_torch.kernels._build import (
+    I, L, P, CudaLibrary, refuse_dtensor, refuse_grad)
 from repro_torch.kernels._split import sm_count
 
 SSD = CudaLibrary(
@@ -103,6 +104,7 @@ def ssd_intra_chunk_call(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     type. Returns (y_diag [B,S,H,P], states [B,nc,H,P,N], chunk_decay
     [B,nc,H]), f32. CUDA tensors only (``ops.ssd_intra_chunk`` takes the
     plain version for CPU tensors; ``ops.ssd_full`` differentiates it)."""
+    refuse_dtensor("the SSD intra-chunk kernel", x, dt, a, b, c)
     refuse_grad("the SSD intra-chunk kernel", x, dt, a, b, c)
     _check(x, dt, a, b, c, chunk)
     bs, s, h, p = x.shape
@@ -131,6 +133,8 @@ def ssd_state_pass_call(states: torch.Tensor, chunk_decay: torch.Tensor,
     Returns (prev [B,nc,H,P,N], the state entering each chunk; final
     [B,H,P,N]), f32, bitwise ``ref.ssd_state_pass_ref``. CUDA tensors
     only."""
+    refuse_dtensor("the SSD state-pass kernel", states, chunk_decay,
+                   initial_state)
     refuse_grad("the SSD state-pass kernel", states, chunk_decay,
                 initial_state)
     if states.dim() != 5 or tuple(chunk_decay.shape) != tuple(states.shape[:3]):

@@ -23,7 +23,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import I, P, CudaLibrary, refuse_grad
+from repro_torch.kernels._build import (
+    I, P, CudaLibrary, refuse_dtensor, refuse_grad)
 from repro_torch.kernels._split import (  # noqa: F401 (re-exported)
     SPLIT_WORKSPACE,
     SplitWorkspace,
@@ -140,6 +141,7 @@ def matmul_blocks(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 128,
     """BLOCKS-mode matmul: [M, K] @ [K, N], (bm, bn) output tiles, K
     streamed through shared memory bk at a time, split over blocks by
     ``split_k_plan`` and summed in slice order. Ragged edges are masked."""
+    refuse_dtensor("the BLOCKS matmul kernel", x, w)
     dev = x.device
     if dev.type == "cpu":
         return matmul_ref(x, w)
@@ -170,6 +172,7 @@ def matmul_unique(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """UNIQUE-mode matmul: one dot over the whole operands, no K-streamed
     partition. Raises ``ValueError`` over ``UNIQUE_BUDGET``, as the
     reference does."""
+    refuse_dtensor("the UNIQUE matmul kernel", x, w)
     m, k, n = x.shape[0], x.shape[-1], w.shape[-1]
     if not unique_fits(m, k, n, x.element_size()):
         raise ValueError(

@@ -29,6 +29,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models import encdec, hybrid, lm
 from repro_torch.models.config import ModelConfig
 
@@ -37,7 +38,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token CE over valid positions (labels >= 0), and accuracy.
 
-    logits: [B,S,Vp] float32; labels: [B,S] int (-1 = ignore)."""
+    logits: [B,S,Vp] float32; labels: [B,S] int (-1 = ignore). Logits
+    sharded over the vocab (a ``DTensor`` under ``param_sharding``'s head)
+    are gathered over it first: ``DTensor`` cannot index a sharded dim."""
+    if is_dtensor(logits):
+        logits = _replicate_dim(logits, logits.dim() - 1)
     valid = labels >= 0
     safe = labels.clamp_min(0).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -46,6 +51,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     denom = valid.sum().clamp_min(1)
     acc = ((logits.argmax(-1) == safe) & valid).sum() / denom
     return nll.sum() / denom, acc
+
+
+def _replicate_dim(t, dim: int):
+    """``t`` (a ``DTensor``) with every mesh dim that shards tensor dim
+    ``dim`` made ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    placements = [Replicate() if isinstance(p, Shard) and p.dim == dim
+                  else p for p in t.placements]
+    return t.redistribute(placements=placements)
 
 
 @dataclass(frozen=True)

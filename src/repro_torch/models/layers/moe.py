@@ -50,9 +50,10 @@ def _span(name: str):
 
 
 def _shard_experts(x: torch.Tensor, spec) -> torch.Tensor:
-    """The identity: the port runs on one card, with no mesh. The
-    reference constrains expert-major intermediates to the 'model' axis
-    here; expert sharding is ROADMAP Queue 1 item 21 (slice 6)."""
+    """The identity: the port's model runs with no mesh. The reference
+    constrains expert-major intermediates to the 'model' axis here (only
+    with ``moe_ep_sharding``, which no config sets); expert sharding under
+    a ``DeviceMesh`` is ROADMAP Queue 1 item 27."""
     return x
 
 

@@ -45,7 +45,7 @@ from repro_torch.models.layers.ssm import (
     mamba2_params,
     ssm_state_zeros,
 )
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import tree_leaves, tree_map, unstack
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -207,17 +207,6 @@ def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
-
-def unstack(blocks: dict) -> list[dict]:
-    """The per-layer params of a stacked [L, ...] tree: views from one
-    ``unbind`` a leaf. Under autograd the unbind's backward stacks the
-    layers' gradients once, where indexing ``t[i]`` a layer would add a
-    zero-filled gradient of the whole stack a layer (O(L^2) bytes: 36
-    fills and adds of qwen2.5-3b's 3.2 GB MLP stack a step)."""
-    per_leaf = tree_map(lambda t: t.unbind(0), blocks)
-    n = len(tree_leaves(per_leaf)[0])
-    return [tree_map(lambda u: u[i], per_leaf) for i in range(n)]
-
 
 def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
                 caches: "KVCache | SSMState | None", positions):

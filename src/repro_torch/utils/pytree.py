@@ -59,6 +59,17 @@ def tree_unflatten(template: Any, leaves: list) -> Any:
     return build(template)
 
 
+def unstack(blocks: Any) -> list:
+    """The per-layer trees of a stacked [L, ...] tree: views from one
+    ``unbind`` a leaf. Under autograd the unbind's backward stacks the
+    layers' gradients once, where indexing ``t[i]`` a layer would add a
+    zero-filled gradient of the whole stack a layer (O(L^2) bytes: 36
+    fills and adds of qwen2.5-3b's 3.2 GB MLP stack a step)."""
+    per_leaf = tree_map(lambda t: t.unbind(0), blocks)
+    n = len(tree_leaves(per_leaf)[0])
+    return [tree_map(lambda u: u[i], per_leaf) for i in range(n)]
+
+
 def chunks(t: torch.Tensor) -> list[torch.Tensor]:
     """Flat views of ``t`` of at most ``CHUNK`` elements (a copy only if
     ``t`` is not contiguous)."""

@@ -1181,3 +1181,127 @@ def test_checkpoint_mid_training_holds_the_params_of_its_step(dev, tmp_path):
     moved = [not torch.equal(a.cpu(), b) for a, b in zip(
         tree_leaves(params), tree_leaves(seen["at2"]["params"]))]
     assert any(moved)
+
+
+# --------------------------------------------------------------------------
+# the distributed slice on the card: a world of one NCCL rank (NCCL takes
+# one rank a card, so the multi-rank rings run on the CPU under gloo)
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        from repro_torch.launch.mesh import make_local_mesh
+        yield make_local_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_world_of_one_rings_on_the_card(dev, nccl_world):
+    """n = 1: each ring returns the reference's n = 1 result, bitwise."""
+    from repro_torch.core import pipeline_collectives as pc
+
+    mesh = nccl_world
+    assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+    group = mesh.get_group("model")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((64, 32), generator=g).to(dev)
+    w = torch.randn((32, 48), generator=g).to(dev)
+    assert torch.equal(pc.ring_all_gather(x, group), x)
+    assert torch.equal(pc.ring_reduce_scatter(x, group), x)
+    assert torch.equal(pc.overlapped_matmul_ag(x, w, group), x @ w)
+    assert torch.equal(pc.overlapped_matmul_rs(x, w, group), x @ w)
+
+
+@pytest.mark.parametrize("policy", ["user_level_polling",
+                                    "user_level_scheduled", "kernel_level"])
+def test_staged_pipeline_shardings_on_the_card(dev, nccl_world, policy):
+    """Each staged leaf is a DTensor on the card, bitwise the host batch,
+    with and without an engine."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import (
+        DataConfig, StagedPipeline, SyntheticLMSource)
+    from repro_torch.dist.sharding import batch_sharding_tree
+
+    cfg = smoke_config("qwen2.5-3b")
+    src = SyntheticLMSource(DataConfig(4, 64, seed=1), cfg)
+    pol = getattr(TransferPolicy, policy)()
+    for engine in (None, TransferEngine(pol, device=dev)):
+        pipe = StagedPipeline(src, pol, engine=engine, shardings=(
+            batch_sharding_tree(src.next_host_batch(0), nccl_world)))
+        try:
+            for step in range(3):
+                got, want = next(pipe), src.next_host_batch(step)
+                for k, v in want.items():
+                    assert isinstance(got[k], DTensor)
+                    assert got[k].to_local().is_cuda
+                    np.testing.assert_array_equal(
+                        got[k].to_local().cpu().numpy(), v)
+        finally:
+            pipe.close()
+            if engine is not None:
+                engine.close()
+
+
+def test_kernel_wrappers_refuse_a_dtensor_on_the_card(dev, nccl_world):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    def dt(t):
+        return distribute_tensor(t.to(dev), nccl_world,
+                                 [Replicate(), Replicate()])
+
+    x, wt, b = (dt(t) for t in _conv_case(dev, torch.float32, 1, 8, 8, 4, 8))
+    m = dt(torch.randn(32, 32))
+    q = dt(torch.randn(1, 64, 2, 64))
+    calls = {
+        "conv2d": lambda: conv2d_relu(x, wt, b),
+        "matmul_blocks": lambda: matmul_blocks(m, m),
+        "matmul_unique": lambda: matmul_unique(m, m),
+        "flash": lambda: flash_attention(q, q, q),
+        "ssd_full": lambda: ssd_full(
+            dt(torch.randn(1, 16, 2, 16)), dt(torch.rand(1, 16, 2)),
+            dt(-torch.rand(2)), dt(torch.randn(1, 16, 1, 8)),
+            dt(torch.randn(1, 16, 1, 8)), chunk=8),
+    }
+    before = (dict(CONV2D.launches), dict(MATMUL.launches),
+              dict(FLASH.launches), dict(SSD.launches))
+    for name, fn in calls.items():
+        with pytest.raises(TypeError, match="DTensor"):
+            fn()
+    assert before == (dict(CONV2D.launches), dict(MATMUL.launches),
+                      dict(FLASH.launches), dict(SSD.launches))
+
+
+def test_device_streamed_scan_from_pinned_host_is_bitwise_resident(dev):
+    """A widened smoke LM (flash's head dim 64), bf16, its stacked layers
+    resting in pinned host memory and copied to the card a layer ahead:
+    the hidden states bitwise the resident ``_stack_scan``'s, through one
+    flash launch a layer."""
+    from repro_torch.core.streaming import device_streamed_scan
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = _small_lm(n_layers=6)[0].replace(dtype="bfloat16",
+                                          use_pallas_attention=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    host = tree_map(lambda t: t.cpu().pin_memory(), params["blocks"])
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256))).to(dev)
+    positions = torch.arange(256, device=dev)
+    with torch.no_grad():
+        x0 = lm.embed_tokens(cfg, params, toks)
+        want = lm._stack_scan(cfg, params, x0, None, positions)[0]
+        before = FLASH.launches[SYMBOL[torch.bfloat16]]
+        got = device_streamed_scan(
+            lambda p, h: lm.block_apply(cfg, p, h, positions=positions)[0],
+            host, x0, gather_fn=lambda p: tree_map(
+                lambda t: t.to(dev, non_blocking=True), p))
+        torch.cuda.synchronize()
+    assert FLASH.launches[SYMBOL[torch.bfloat16]] - before == cfg.n_layers
+    assert got.is_cuda and torch.equal(got, want)

@@ -120,11 +120,47 @@ def test_pipeline_starts_at_start_step():
                                   src.next_host_batch(4)["tokens"])
 
 
-def test_pipeline_with_shardings_raises():
-    _, src = _sources("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        StagedPipeline(src, TransferPolicy.kernel_level(), shardings={},
+def test_pipeline_with_shardings_raises(tmp_path):
+    """``shardings=`` stages ``DTensor`` batches equal to the reference's
+    ``jax.device_put(batch, shardings)`` ones (a gloo world of one, a
+    (1, 1) mesh; the 4-rank shards are ``test_torch_dist.py``'s), and a
+    plan with no mesh behind it raises."""
+    import jax
+    import torch.distributed as dist
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from repro_torch.dist.sharding import batch_sharding_tree
+    from repro_torch.launch.mesh import make_local_mesh
+
+    jsrc, src = _sources("qwen2.5-3b")
+    plan = batch_sharding_tree(src.next_host_batch(0), {"data": 1, "model": 1})
+    with pytest.raises(ValueError, match="meshes"):
+        StagedPipeline(src, TransferPolicy.kernel_level(), shardings=plan,
                        device="cpu")
+    jmesh = jax.make_mesh((1, 1), ("data", "model"))
+    jpipe = JStagedPipeline(jsrc, JTransferPolicy.user_level_polling(),
+                            shardings={k: NamedSharding(jmesh, PartitionSpec())
+                                       for k in ("tokens", "labels")})
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(device_type="cpu")
+        pipe = StagedPipeline(
+            src, TransferPolicy.user_level_polling(), device="cpu",
+            shardings=batch_sharding_tree(src.next_host_batch(0), mesh))
+        try:
+            for _ in range(2):
+                want, got = next(jpipe), next(pipe)
+                assert sorted(got) == sorted(want)
+                for k in want:
+                    assert type(got[k]).__name__ == "DTensor"
+                    np.testing.assert_array_equal(
+                        got[k].full_tensor().numpy(), np.asarray(want[k]))
+        finally:
+            pipe.close()
+            jpipe.close()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_prefetch_error_surfaces_at_next():

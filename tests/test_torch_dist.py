@@ -1,0 +1,385 @@
+"""The port's distributed slice on the CPU against the reference:
+
+- ``dist/elastic.py``: the reference's elastic cases through both packages;
+- ``dist/sharding.py``: every leaf's ``.spec`` equal to the reference's
+  rules (``_param_spec`` / ``_data_axes`` through its tree functions) for
+  every arch's full-width params and AdamW state (shapes only, under
+  ``FakeTensorMode``), the reference's input specs of each shape cell and
+  the port's decode caches, on the (16, 16) and (2, 16, 16) sizes;
+- ``launch/mesh.py``: the production meshes built in a subprocess under
+  the ``fake`` process-group backend (world 256 / 512);
+- on 4 gloo ranks started once for the module (``torch_dist_ranks.py``):
+  the smoke qwen loss with params under ``param_sharding`` and the batch
+  under ``batch_sharding_tree`` on a (2, 2) mesh against the loss on whole
+  tensors (rtol 1e-5, as ``tests/test_sharding.py`` holds the reference),
+  ``StagedPipeline(shardings=)`` staging each rank's shard under the three
+  managements with and without an engine, and every kernel wrapper
+  refusing a ``DTensor``;
+- ``core/streaming.py:device_streamed_scan`` against the reference's with
+  a stacked MLP and a bf16 -> f32 gather (f32, 1e-5), and against the
+  port's ``_stack_scan`` on the smoke qwen (bitwise).
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+import repro.configs.registry as jregistry
+import repro.dist.elastic as jelastic
+import repro.dist.sharding as jsharding
+from repro.core.streaming import device_streamed_scan as j_scan
+from repro.models.api import input_specs
+from repro.models.config import SHAPE_CELLS, cell_applicable
+import repro_torch.dist.elastic as elastic
+from repro_torch.configs.registry import ARCHS, get_config, smoke_config
+from repro_torch.core.streaming import device_streamed_scan
+from repro_torch.dist import sharding
+from repro_torch.models import lm
+from repro_torch.models.api import build_model
+from repro_torch.optim import adamw_init
+from repro_torch.utils.pytree import tree_map
+from torch_dist_ranks import WORLD, spawn_ranks
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+SIZES = {"single_pod": {"data": 16, "model": 16},
+         "multi_pod": {"pod": 2, "data": 16, "model": 16}}
+
+
+# ---------------------------------------------------------------- elastic
+
+def _shrink_keeps_model_axis(m):
+    plan = m.shrink_mesh(384, model_parallel=16, multi_pod=True)
+    assert plan.shape[plan.axis_names.index("model")] == 16
+    assert plan.n_devices <= 384
+    return plan.shape, plan.axis_names, plan.n_devices
+
+
+def _shrink_single_pod(m):
+    plan = m.shrink_mesh(240, model_parallel=16)
+    assert plan.shape == (15, 16) and plan.axis_names == ("data", "model")
+    return plan.shape, plan.axis_names
+
+
+def _shrink_raises_when_model_axis_lost(m):
+    with pytest.raises(ValueError) as e:
+        m.shrink_mesh(8, model_parallel=16)
+    return str(e.value)
+
+
+def _reshard_data_only_change(m):
+    old = m.shrink_mesh(512, model_parallel=16, multi_pod=True)
+    new = m.shrink_mesh(384, model_parallel=16, multi_pod=True)
+    plan = m.reshard_plan(256, old, new)
+    assert plan["params_move"] is False  # TP width unchanged
+    assert plan["grad_replicas"] == new.n_devices // 16
+    return plan
+
+
+def _reshard_detects_tp_change(m):
+    plan = m.reshard_plan(256, m.MeshPlan((16, 16), ("data", "model")),
+                          m.MeshPlan((32, 8), ("data", "model")))
+    assert plan["params_move"] is True
+    return plan
+
+
+@pytest.mark.parametrize("case", [
+    _shrink_keeps_model_axis, _shrink_single_pod,
+    _shrink_raises_when_model_axis_lost, _reshard_data_only_change,
+    _reshard_detects_tp_change], ids=lambda f: f.__name__.strip("_"))
+def test_elastic_matches_reference(case):
+    assert case(elastic) == case(jelastic)
+
+
+def test_mesh_plan_validates_like_the_reference():
+    for m in (elastic, jelastic):
+        with pytest.raises(ValueError, match="align"):
+            m.MeshPlan((2, 2), ("data",))
+        with pytest.raises(ValueError, match=">= 1"):
+            m.shrink_mesh(16, model_parallel=0)
+
+
+# ----------------------------------------------------------- sharding rules
+
+@pytest.fixture(scope="module")
+def abstract_trees():
+    """Each arch's full-width params, AdamW state and decode caches, as
+    fake tensors (shapes and dtypes, no storage), built once."""
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        with FakeTensorMode():
+            params = model.init(torch.Generator().manual_seed(0),
+                                device="cpu")
+            opt = adamw_init(params)
+            caches = {}
+            jcfg = jregistry.get_config(arch)
+            for cell in SHAPE_CELLS:
+                if cell.kind == "decode" and cell_applicable(jcfg, cell)[0]:
+                    caches[cell.name] = model.init_cache(
+                        cell.global_batch, cell.seq_len, device="cpu")
+        out[arch] = params, opt, caches
+    return out
+
+
+def _reference_specs(fn, tree, sizes: dict, monkeypatch) -> list:
+    """The reference's tree function over ``tree``'s leaf shapes on a
+    mesh of ``sizes``: its ``_named`` gives back the PartitionSpec."""
+    monkeypatch.setattr(jsharding, "_named", lambda mesh, spec: spec)
+    mesh = SimpleNamespace(axis_names=tuple(sizes),
+                           devices=np.empty(tuple(sizes.values())))
+    shapes = jax.tree.map(lambda leaf: jax.ShapeDtypeStruct(
+        tuple(getattr(leaf, "shape", ())), jnp.float32), tree)
+    return [tuple(p) for p in jax.tree.leaves(fn(shapes, mesh))]
+
+
+def _port_specs(fn, tree, sizes: dict) -> list:
+    shardings = fn(tree, sizes)
+    leaves = jax.tree.leaves(shardings)
+    for sh in leaves:  # placements follow the spec, mesh dim by mesh dim
+        for name, pl in zip(sizes, sh.placements):
+            dims = [d for d, s in enumerate(sh.spec)
+                    if s == name or (isinstance(s, tuple) and name in s)]
+            assert (pl.is_shard() and pl.dim == dims[0]) if dims else (
+                pl.is_replicate()), (sh, name)
+    return [sh.spec for sh in leaves]
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharding_specs_match_reference(arch, size, abstract_trees,
+                                        monkeypatch):
+    sizes = SIZES[size]
+    params, opt, caches = abstract_trees[arch]
+    checks = [("param_sharding", params), ("opt_state_sharding", opt)]
+    for cell in SHAPE_CELLS:
+        cfg = jregistry.get_config(arch)
+        if cell_applicable(cfg, cell)[0]:
+            checks.append(("batch_sharding_tree", input_specs(cfg, cell)))
+    checks += [("cache_sharding", c) for c in caches.values()]
+    n_sharded = 0
+    for name, tree in checks:
+        got = _port_specs(getattr(sharding, name), tree, sizes)
+        want = _reference_specs(getattr(jsharding, name), tree, sizes,
+                                monkeypatch)
+        assert got == want, name
+        n_sharded += sum(any(s is not None for s in spec) for spec in got)
+    assert n_sharded > 0
+
+
+def test_two_mesh_dims_on_one_tensor_dim_are_shard_on_both():
+    sh = sharding.batch_sharding_tree(
+        {"tokens": torch.empty(64, 8)}, SIZES["multi_pod"])["tokens"]
+    assert sh.spec == (("pod", "data"), None) and sh.mesh is None
+    assert [str(p) for p in sh.placements] == ["S(0)", "S(0)", "R"]
+
+
+def test_length_vector_and_scalars_replicate():
+    cache = lm.KVCache(torch.empty(4, 32, 8, 2, 16), torch.empty(4, 32, 8,
+                                                                 2, 16),
+                       torch.empty(32, dtype=torch.int32))
+    specs = sharding.cache_sharding(cache, SIZES["single_pod"])
+    assert isinstance(specs, lm.KVCache)
+    assert specs.k.spec == (None, "data", None, None, None)
+    assert specs.length.spec == (None,)  # [B], where the reference's is [L]
+    assert sharding.cache_sharding(
+        lm.KVCache(cache.k, cache.v, 7), SIZES["single_pod"]).length.spec == ()
+
+
+def test_distribute_tree_refuses_a_plan_without_a_mesh():
+    sh = sharding.param_sharding({"w": torch.ones(16, 16)},
+                                 SIZES["single_pod"])
+    with pytest.raises(ValueError, match="no mesh"):
+        sharding.distribute_tree({"w": torch.ones(16, 16)}, sh)
+
+
+# ---------------------------------------------------------- production mesh
+
+_MESH_CODE = r"""
+import json, sys
+import torch.distributed as dist
+import repro_torch.launch.mesh as m
+from repro_torch.dist.sharding import param_sharding
+out = {"pg_after_import": dist.is_initialized()}
+for fn in (m.make_production_mesh, m.make_local_mesh):
+    try:
+        fn(device_type="cpu")
+    except RuntimeError as e:
+        out.setdefault("no_pg", []).append(str(e))
+from torch.testing._internal.distributed.fake_pg import FakeStore
+import torch
+for world, mp in ((256, False), (512, True)):
+    dist.init_process_group("fake", store=FakeStore(), rank=3,
+                            world_size=world)
+    mesh = m.make_production_mesh(multi_pod=mp, device_type="cpu")
+    try:
+        m.make_production_mesh(multi_pod=not mp, device_type="cpu")
+    except ValueError as e:
+        wrong = str(e)
+    sh = param_sharding({"w": torch.empty(2048, 11008),
+                         "b": torch.empty(3)}, mesh)
+    out[str(world)] = {
+        "shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
+        "device_type": mesh.device_type,
+        "coordinate": mesh.get_coordinate(), "wrong_size": wrong,
+        "w": [str(p) for p in sh["w"].placements],
+        "b": [str(p) for p in sh["b"].placements],
+        "local": list(m.make_local_mesh(16, device_type="cpu").shape)}
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def production_meshes():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _MESH_CODE],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_mesh_module_touches_no_process_group(production_meshes):
+    assert production_meshes["pg_after_import"] is False
+    assert len(production_meshes["no_pg"]) == 2
+    assert all("init_process_group" in e for e in production_meshes["no_pg"])
+
+
+@pytest.mark.parametrize("world,shape,names", [
+    ("256", [16, 16], ["data", "model"]),
+    ("512", [2, 16, 16], ["pod", "data", "model"])])
+def test_production_mesh_under_the_fake_backend(production_meshes, world,
+                                                shape, names):
+    got = production_meshes[world]
+    assert got["shape"] == shape and got["names"] == names
+    assert got["device_type"] == "cpu"
+    assert got["coordinate"] == ([0, 3] if world == "256" else [0, 0, 3])
+    assert "needs" in got["wrong_size"]
+    # the trailing dim on the model axis; a leaf it does not divide
+    # replicates
+    assert got["w"] == ["R"] * (len(shape) - 1) + ["S(1)"]
+    assert got["b"] == ["R"] * len(shape)
+    assert got["local"] == [int(world) // 16, 16]
+
+
+# ------------------------------------------------- 4 gloo ranks, (2, 2) mesh
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, 256, size=(4, 32)).astype(np.int32)
+    inputs = {"tokens": toks,
+              "labels": np.roll(toks, -1, axis=1).astype(np.int32)}
+    return spawn_ranks("dist", inputs, tmp_path_factory.mktemp("dist"))
+
+
+def test_sharded_loss_matches_the_unsharded_loss(ranks):
+    for res in ranks:
+        assert res["mesh"] == ((2, 2), ("data", "model"), "cpu")
+        # the rules did shard the model: most leaves split over 2
+        assert res["params_sharded"] >= res["params_leaves"] // 2
+        np.testing.assert_allclose(res["loss_sharded"], res["loss_single"],
+                                   rtol=1e-5)
+    assert len({res["loss_single"] for res in ranks}) == 1
+
+
+STAGINGS = [f"{m}/{e}" for m in ("polling", "scheduled", "interrupt")
+            for e in ("plain", "engine")]
+
+
+@pytest.mark.parametrize("staging", STAGINGS)
+def test_sharded_staging_stages_each_ranks_shard(ranks, staging):
+    host = ranks[0]["host"]
+    half = [b // 2 for b in ranks[0]["host_bytes"]]  # data = 2
+    for rank, res in enumerate(ranks):
+        got, tx = res["staged"][staging]
+        rows = slice((rank // 2) * 4, (rank // 2 + 1) * 4)  # its data row
+        for step, batch in enumerate(got):
+            assert sorted(batch) == sorted(host[step])
+            local_bytes = 0
+            for k, (kind, shape, placements, local, full) in batch.items():
+                assert kind == "DTensor"
+                assert shape == host[step][k].shape
+                assert placements == ["S(0)", "R"]
+                np.testing.assert_array_equal(local, host[step][k][rows])
+                np.testing.assert_array_equal(full, host[step][k])
+                local_bytes += local.nbytes
+            assert local_bytes == half[step]
+        if tx is not None:  # every TX through the engine is one shard
+            assert tx and set(tx) == {half[0]}
+
+
+@pytest.mark.parametrize("kernel", [
+    "conv2d", "matmul_blocks", "matmul_unique", "flash", "ssd_intra_chunk",
+    "ssd_state_pass"])
+def test_kernel_wrappers_refuse_a_dtensor(ranks, kernel):
+    for res in ranks:
+        assert res[f"refuse/{kernel}"] and "DTensor" in res[f"refuse/{kernel}"]
+
+
+# ---------------------------------------------------- device_streamed_scan
+
+def test_device_streamed_scan_matches_reference():
+    """A stacked MLP layer resting in bf16, gathered to f32 a layer."""
+    rng = np.random.default_rng(11)
+    n_layers, d, f = 5, 16, 32
+    w1 = (rng.standard_normal((n_layers, d, f)) / d ** 0.5).astype(np.float32)
+    w2 = (rng.standard_normal((n_layers, f, d)) / f ** 0.5).astype(np.float32)
+    x = rng.standard_normal((3, d)).astype(np.float32)
+    jparams = {"w1": jnp.asarray(w1, jnp.bfloat16),
+               "w2": jnp.asarray(w2, jnp.bfloat16)}
+    want = np.asarray(j_scan(
+        lambda p, h: h + jax.nn.relu(h @ p["w1"]) @ p["w2"], jparams,
+        jnp.asarray(x),
+        gather_fn=lambda p: jax.tree.map(lambda t: t.astype(jnp.float32),
+                                         p)))
+    params = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(
+        torch.bfloat16) for k, v in jparams.items()}
+
+    def layer(p, h):
+        return h + torch.relu(h @ p["w1"]) @ p["w2"]
+
+    got = device_streamed_scan(
+        layer, params, torch.from_numpy(x),
+        gather_fn=lambda p: tree_map(lambda t: t.float(), p))
+    # XLA's and PyTorch's CPU GEMMs sum the dots in different orders: over
+    # five residual layers that reaches ~4e-6 relative, so the limit is
+    # the reference's own f32 rtol for its rings and sharded loss
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # and exactly the sequential loop
+    h = torch.from_numpy(x)
+    for i in range(n_layers):
+        h = layer({k: v[i].float() for k, v in params.items()}, h)
+    assert torch.equal(got, h)
+
+
+def test_device_streamed_scan_is_bitwise_the_stack_scan():
+    cfg = smoke_config("qwen2.5-3b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(2, 16)).astype(np.int64))
+    positions = torch.arange(16)
+    with torch.no_grad():
+        x0 = lm.embed_tokens(cfg, params, tokens)
+        want = lm._stack_scan(cfg, params, x0, None, positions)[0]
+        got = device_streamed_scan(
+            lambda p, h: lm.block_apply(cfg, p, h, positions=positions)[0],
+            params["blocks"], x0,
+            gather_fn=lambda p: tree_map(torch.clone, p))
+        plain = device_streamed_scan(
+            lambda p, h: lm.block_apply(cfg, p, h, positions=positions)[0],
+            params["blocks"], x0)
+    assert torch.equal(got, want) and torch.equal(plain, want)

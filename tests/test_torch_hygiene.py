@@ -58,7 +58,10 @@ SLICE_MODULES = [
     "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
     "repro_torch.train", "repro_torch.train.loop",
     "repro_torch.launch.train", "repro_torch.examples.train_lm",
-    "repro_torch.examples.quickstart",
+    "repro_torch.examples.quickstart", "repro_torch.dist.elastic",
+    "repro_torch.dist.sharding", "repro_torch.launch.mesh",
+    "repro_torch.core.pipeline_collectives",
+    "repro_torch.examples.elastic_restart",
 ]
 
 
