@@ -187,6 +187,19 @@ Phases, in order; any failure exits non-zero before a result is printed:
    line): 10 steps with checkpoints at 5 and 10, a fresh Trainer resumed
    at step 10 (``restarts == 1``), the plan of 384 of 512 devices and its
    ``reshard_plan``;
+12k. ``repro_torch.examples.transfer_modes`` on the card (a
+   ``transfer_modes`` line): the paper's four Table-I policies, 10 conv
+   launches a frame, their logits bitwise equal; the unified runtime's
+   TOKEN class at 51 completions / 1632 bytes; the fault demo's channel 0
+   quarantined after two drops and back after the probe; the Table-I rows,
+   the coalescing ratio and the token RX p50;
+12l. the dry run (a ``dryrun`` line): qwen2.5-3b's bf16 prefill of B 2 x
+   S 2048 through plain attention on a world of one NCCL rank, predicted
+   under fake tensors and run on the card under the same counters
+   (predicted FLOPs equal to counted; peak bytes over the rise of
+   ``max_memory_allocated`` and the ms beside the roofline terms,
+   printed), then qwen2.5-3b decode_32k on the (16, 16) mesh under the
+   ``fake`` backend, ``ok``;
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
    never calls it); conv2d per RoShamBo layer at batch 1 (events and
@@ -2725,6 +2738,152 @@ def elastic_phase() -> dict:
     return out
 
 
+def transfer_modes_phase(np, torch, dev, libs, conv_lib) -> dict:
+    """12k. ``repro_torch.examples.transfer_modes`` on the card (a
+    ``transfer_modes`` line): the four Table-I policies' logits bitwise
+    equal to each other and within ``LOGIT_TOL`` of the plain forward, 10
+    conv launches a frame (4 policies x 4 frames),
+    the fault demo quarantining channel 0 after its two drops and
+    rejoining it after the probe with faults == retries ==
+    retry_successes == 2, and the TOKEN class at 51 completions and 1632
+    bytes; the Table-I rows, the coalescing ratio and the token RX p50
+    printed beside them. Returns the path's conv launches."""
+    from repro_torch.examples.transfer_modes import main as tm_main
+
+    t_phase = time.perf_counter()
+    _zero(libs)
+    out = tm_main([])
+    torch.cuda.synchronize()
+    launches = {lib.name: dict(lib.launches) for lib in libs}
+    rows = out["table_i"]["rows"]
+    frames = 4 * len(rows)  # a warm-up frame and 3 timed a policy
+    if conv_lib.launches["conv2d_bias_act"] != 10 * frames:
+        fail(f"transfer_modes: {conv_lib.launches} over {frames} frames")
+    first = rows[0]["logits"]
+    if not np.isfinite(first).all() or not all(
+            np.array_equal(r["logits"], first) for r in rows):
+        fail("transfer_modes: the policies' logits are not bitwise equal")
+    # against the plain forward (plain conv) of the example's params and
+    # frame: a generator seeded 0, default_rng(0)
+    from repro_torch.accel.roshambo import RoShamBoCNN
+    from repro_torch.kernels.conv2d.ref import conv2d_relu_ref
+
+    cnn = RoShamBoCNN()
+    params = cnn.init(torch.Generator().manual_seed(0), device=dev)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 64, 64, 1)).astype(np.float32)).to(dev)
+    for spec in cnn.cfg.layers:
+        x = cnn.layer_apply(spec, params[spec.name], x, conv=conv2d_relu_ref)
+    plain = (x.reshape(1, -1) @ params["fc"]["w"]
+             + params["fc"]["b"]).cpu().numpy()
+    np.testing.assert_allclose(first, plain, rtol=LOGIT_TOL[0],
+                               atol=LOGIT_TOL[1])
+    faults = out["faults"]
+    ledger = faults["ledger"]
+    if (faults["quarantined_after_tx"] != [0]
+            or faults["quarantined_after_probe"] != []
+            or not ledger["faults"] == ledger["retries"]
+            == ledger["retry_successes"] == 2):
+        fail(f"transfer_modes: fault demo {faults}")
+    token = out["unified"]["classes"]["token"]
+    if token != {"completed": 51, "bytes_total": 1632}:
+        fail(f"transfer_modes: token class {token}")
+    if not out["coalescing"]["rx_bitwise"]:
+        fail("transfer_modes: the batched RX is not the TX'd arrays")
+    print("transfer_modes " + json.dumps({
+        "table_i": [{k: r[k] for k in ("mode", "policy", "tx_us_per_B",
+                                       "rx_us_per_B", "frame_ms")}
+                    for r in rows],
+        "logits_bitwise": True,
+        "logits_vs_plain_max_abs_err": float(np.abs(first - plain).max()),
+        "sparsity": out["table_i"]["sparsity"],
+        "submit_ms": out["unified"]["submit_ms"],
+        "token_rx_p50_ms": out["unified"]["token_rx_p50_ms"],
+        "token_rx_max_ms": out["unified"]["token_rx_max_ms"],
+        "token_class": token, "tenant_demo": out["unified"]["tenant_demo"],
+        "coalescing_ratio": out["coalescing"]["ratio"],
+        "coalescing": out["coalescing"], "faults": faults,
+        "launches": launches, "phase_s": time.perf_counter() - t_phase}))
+    return launches[conv_lib.name]
+
+
+def dryrun_phase(np, torch, dev, libs) -> None:
+    """12l. the dry run tied to the card (a ``dryrun`` line): qwen2.5-3b's
+    prefill of B 2 x S 2048 in bf16 through plain attention on a world of
+    one NCCL rank, predicted under fake tensors and then run on the card
+    with params drawn there under the same counters: the predicted FLOPs
+    equal to the counted ones; the predicted peak bytes over the rise of
+    ``torch.cuda.max_memory_allocated``, and the run's ms beside the
+    prediction's roofline terms, printed, not gated. No kernel launches
+    (plain attention). Then one production cell, qwen2.5-3b decode_32k on
+    the (16, 16) mesh under the ``fake`` backend, must be ``ok``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.models.config import SHAPE_CELLS, ShapeCell
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-3b", dtype="bfloat16")
+    cell = ShapeCell("prefill_2k", LM_SEQ, LM_BATCH, "prefill")
+    store = ROOT / "build" / "chip_smoke_dryrun_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1, device_id=dev)
+    _zero(libs)
+    try:
+        tie = dryrun.on_device(cfg, cell, make_local_mesh(), dev)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    launches = {lib.name: dict(lib.launches) for lib in libs}
+    if any(n for d in launches.values() for n in d.values()):
+        fail(f"dryrun: the plain route launched kernels {launches}")
+    torch.cuda.empty_cache()
+    pred, meas = tie["predicted"], tie["measured"]
+    if pred["flops_per_device"] != meas["flops"] or not meas["flops"] > 0:
+        fail(f"dryrun: predicted {pred['flops_per_device']} FLOPs, counted "
+             f"{meas['flops']} on the card")
+    line = {"cell": {"arch": cfg.name, "kind": cell.kind,
+                     "batch": cell.global_batch, "seq": cell.seq_len,
+                     "dtype": cfg.dtype, "route": dryrun.route(cfg),
+                     "mesh": [1, 1]},
+            "flops": {"predicted": pred["flops_per_device"],
+                      "counted": meas["flops"]},
+            "bytes": {"predicted": pred["bytes_per_device"],
+                      "counted": meas["bytes"]},
+            "peak_bytes": {"predicted": pred["peak_bytes"],
+                           "counted": meas["peak_bytes"],
+                           "max_memory_allocated_rise":
+                           meas["max_memory_allocated_rise"],
+                           "ratio": pred["peak_bytes"]
+                           / max(meas["max_memory_allocated_rise"], 1)},
+            "ms": meas["ms"],
+            "roofline_ms": {k.replace("_term_s", ""): pred[k] * 1e3
+                            for k in ("compute_term_s", "memory_term_s",
+                                      "collective_term_s")},
+            "bottleneck": pred["bottleneck"], "launches": launches}
+
+    # one production cell under the fake backend, on this machine's torch
+    dryrun.start_fake_world(256)
+    try:
+        rec = dryrun.run_cell(get_config("qwen2.5-3b"), SHAPE_CELLS[2],
+                              make_production_mesh(device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
+    if rec["status"] != "ok":
+        fail(f"dryrun: decode_32k on the (16, 16) mesh: {rec.get('error')}")
+    line["production"] = {k: rec[k] for k in (
+        "arch", "shape", "world", "flops_per_device", "bytes_per_device",
+        "collective_bytes_per_device", "argument_bytes", "peak_bytes",
+        "bottleneck", "run_s")}
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("dryrun " + json.dumps(line))
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -3069,6 +3228,11 @@ def main() -> None:
     dist_launches = dist_phase(np, torch, dev, libs, FLASH)
     elastic_phase()
 
+    # 12k.-12l. the paper's experiment as the port's example; the dry run
+    # tied to the card, and a production cell under the fake backend
+    tm_launches = transfer_modes_phase(np, torch, dev, libs, CONV2D)
+    dryrun_phase(np, torch, dev, libs)
+
     # 13. timing at the paths' shapes (B = 1 frame for conv and matmul)
     conv_in = []
     for h, w, cin, cout in layer_shapes:
@@ -3185,6 +3349,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/conv2d/kernel.py:63",
         "launches": main_launches["conv2d_bias_act"],
         "launches_channels_frame": frame_launches,
+        "launches_transfer_modes": tm_launches["conv2d_bias_act"],
         "max_abs_err": errs["conv2d", "float32"],
         "max_abs_err_bf16": errs["conv2d", "bfloat16"],
         "max_abs_err_split_order": errs["conv2d_split_order", "float32"],

@@ -9,7 +9,7 @@ transfer submission can set, through every layer of the stack::
 Before this module the knobs were scattered: ``priority=`` on the eight
 engine submit methods, ``class_caps=`` / ``rx_timeout_s=`` / ``rx_group=``
 on :class:`~repro_torch.serve.engine.ServeConfig` and on the continuous
-batching engine (``serve/continuous.py``, not ported yet). Those kwargs
+batching engine (``serve/continuous.py``). Those kwargs
 still work for one release of compat, but they are deprecation shims:
 each builds a ``QosSpec`` internally and emits a ``DeprecationWarning``
 (see :func:`resolve_submit_qos`). The arbitration they produce is

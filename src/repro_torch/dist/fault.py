@@ -2,8 +2,8 @@
 
 Two consumers share this module:
 
-- the training loop (``train/loop.py``, not ported yet: ROADMAP Queue 1
-  item 18) — every step's wall time and finite-ness verdict flow through
+- the training loop (``train/loop.py``, ``Trainer.run``) — every step's
+  wall time and finite-ness verdict flow through
   :meth:`FaultState.record_step`, which flags stragglers (z-score over a
   rolling window, via :class:`repro_torch.utils.timing.StepClock`) and
   counts steps the optimizer skipped because of non-finite gradients.

@@ -41,6 +41,7 @@ them.
 
 from __future__ import annotations
 
+import functools
 import math
 import sys
 from dataclasses import dataclass
@@ -170,6 +171,145 @@ def cache_sharding(cache: Any, mesh) -> Any:
         return _named(mesh, spec)
 
     return _map(spec_for, cache)
+
+
+def zeros_sharded(tree: Any, shardings: Any, device) -> Any:
+    """Zero ``DTensor``s with the shapes and dtypes of ``tree``'s tensor
+    leaves (``meta`` tensors will do) under ``shardings``, each rank
+    allocating only its own shard on ``device`` (even shards, as the
+    rules give); non-tensor leaves are kept."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    def place(leaf, sh: Sharding):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        shape = list(leaf.shape)
+        for i, p in enumerate(sh.placements):
+            if p.is_shard():
+                shape[p.dim] //= sh.mesh.size(i)
+        local = torch.zeros(shape, dtype=leaf.dtype, device=device)
+        stride = tuple(math.prod(leaf.shape[d + 1:])
+                       for d in range(leaf.dim()))
+        return DTensor.from_local(local, sh.mesh, list(sh.placements),
+                                  shape=leaf.shape, stride=stride)
+
+    return _map(place, tree, shardings)
+
+
+def shard_placements(mesh, batch: int,
+                     dims: Mapping[int, int] | None = None) -> tuple:
+    """The placements a batch- and head-parallel computation runs its
+    shards on: ``Shard(0)`` on the data axes where they divide ``batch``
+    (``_data_axes``), and on "model" ``Shard(d)`` for the first tensor dim
+    ``d`` in ``dims`` ({dim: number of heads}) whose head count the axis
+    divides, so that a shard holds whole heads; ``Replicate()``
+    elsewhere. DTensor cannot run an attention or a scan whose batch and
+    head dims it shards on two mesh dims (the products it lowers to merge
+    them), so such code computes on the local shards of these placements
+    (:func:`local_shard`) and wraps its result back (``DTensor.from_local``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = _sizes(mesh)
+    data = _data_axes(sizes, batch) or ()
+    heads = [d for d, n in (dims or {}).items()
+             if "model" in sizes and n % sizes["model"] == 0]
+    return tuple(Shard(0) if name in data
+                 else Shard(heads[0]) if name == "model" and heads
+                 else Replicate() for name in sizes)
+
+
+def batch_sharded(x):
+    """``x`` as it is where it is a plain tensor; a ``DTensor`` activation
+    ``[B, ...]`` redistributed to its batch on the data axes and replicated
+    on every other mesh dim (``shard_placements(mesh, B)``), and its
+    gradient brought to the same placements on the way back. Left to
+    itself, DTensor's propagation can leave the residual stream, or its
+    gradient, sharded on the sequence over "model", and the products that
+    follow (which merge batch and sequence) then have no sharding it can
+    run; XLA's partitioner reshards such a case by itself."""
+    if not is_dtensor(x):
+        return x
+    return _batch_sharded_fn().apply(x)
+
+
+@functools.cache
+def _batch_sharded_fn():
+    import torch
+
+    class BatchSharded(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return _to_batch(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            return _to_batch(g)
+
+    return BatchSharded
+
+
+def _to_batch(t):
+    return t.redistribute(t.device_mesh,
+                          shard_placements(t.device_mesh, t.shape[0]))
+
+
+def layer_at(t, i: int):
+    """Layer ``i`` of a stacked ``[L, ...]`` tensor: ``t[i]``; for a
+    ``DTensor`` not sharded on its layer dim, the slice of its local
+    tensor as a ``DTensor`` (a view: writes reach the stack), since
+    DTensor's own ``select`` and ``unbind`` gather the whole stack."""
+    return layers_of(t)[i] if is_dtensor(t) else t[i]
+
+
+def layers_of(t) -> tuple:
+    """``t.unbind(0)``, with :func:`layer_at`'s rule for a ``DTensor``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not is_dtensor(t) or any(p.is_shard(0) for p in t.placements):
+        return t.unbind(0)
+    mesh = t.device_mesh
+    placements = [Shard(p.dim - 1) if p.is_shard() else p
+                  for p in t.placements]
+    shape = t.shape[1:]
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return tuple(DTensor.from_local(u, mesh, placements, shape=shape,
+                                    stride=stride)
+                 for u in t.to_local().unbind(0))
+
+
+def column_halves(w) -> tuple:
+    """The two halves of a ``DTensor`` weight's last dim (a gated
+    product's ``[gate | up]``), each on ``w``'s own placements. A product
+    over the whole ``w`` comes out sharded on the last dim, where a shard
+    can hold columns of both halves; DTensor's ``chunk`` then reshards the
+    activations (an all-to-all onto the sequence) before products that
+    merge batch and sequence can run. Gathering the weight instead moves
+    its bytes, not the activations', and keeps each half column-parallel."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = w.device_mesh
+    whole = w.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return tuple(h.redistribute(mesh, w.placements)
+                 for h in whole.chunk(2, dim=-1))
+
+
+def local_shard(t, placements) -> tuple:
+    """``t`` (a ``DTensor``) redistributed to ``placements`` (even shards):
+    this rank's local tensor and its offset into the global tensor, a dim
+    at a time (from the mesh coordinate; no tensor op, so it holds under
+    ``FakeTensorMode`` too)."""
+    mesh = t.device_mesh
+    local = t.redistribute(mesh, placements).to_local()
+    coord = mesh.get_coordinate()
+    offset = []
+    for d in range(t.dim()):
+        idx = 0
+        for i, pl in enumerate(placements):
+            if pl.is_shard(d):
+                idx = idx * mesh.size(i) + coord[i]
+        offset.append(idx * local.shape[d])
+    return local, tuple(offset)
 
 
 def distribute_tree(tree: Any, shardings: Any) -> Any:

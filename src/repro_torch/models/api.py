@@ -18,8 +18,11 @@ Batches are dicts of tensors. Keys by family, as the reference's:
 
 The dense, vlm, moe and ssm families run through ``models/lm.py``, the
 hybrid family through ``models/hybrid.py`` and the audio family through
-``models/encdec.py``. The reference's dry-run helpers (``input_specs``,
-``cache_specs``) are ROADMAP slice 7.
+``models/encdec.py``. For the dry run (``launch/dryrun.py``),
+:func:`input_specs` and :func:`cache_specs` give every input of a shape
+cell and the decode cache as tensors with no storage: fake tensors (on the
+CPU) under the caller's ``FakeTensorMode``, else ``meta`` tensors, in place
+of the reference's ``ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
@@ -38,11 +41,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token CE over valid positions (labels >= 0), and accuracy.
 
-    logits: [B,S,Vp] float32; labels: [B,S] int (-1 = ignore). Logits
-    sharded over the vocab (a ``DTensor`` under ``param_sharding``'s head)
-    are gathered over it first: ``DTensor`` cannot index a sharded dim."""
+    logits: [B,S,Vp] float32; labels: [B,S] int (-1 = ignore). ``DTensor``
+    logits take :func:`_sharded_cross_entropy`."""
     if is_dtensor(logits):
-        logits = _replicate_dim(logits, logits.dim() - 1)
+        return _sharded_cross_entropy(logits, labels)
     valid = labels >= 0
     safe = labels.clamp_min(0).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -53,13 +55,38 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.sum() / denom, acc
 
 
+def _sharded_cross_entropy(logits, labels):
+    """:func:`cross_entropy` over ``DTensor`` logits: the vocab gathered
+    and partial sums reduced (``_replicate_dim``), then each rank's rows
+    scored on its local tensors (DTensor's backward of the label
+    ``gather`` would build the whole batch's logits on every rank), and
+    the sums taken as ``DTensor``s again."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    logits = _replicate_dim(logits, logits.dim() - 1)
+    mesh, pl = logits.device_mesh, logits.placements
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim)
+    lab = labels.redistribute(mesh, pl).to_local()
+    lg = logits.to_local()
+    valid = lab >= 0
+    safe = lab.clamp_min(0).long()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, safe[..., None])[..., 0]
+    nll, hit, valid = (DTensor.from_local(t, mesh, pl) for t in (
+        (logz - gold) * valid, (lg.argmax(-1) == safe) & valid, valid))
+    denom = valid.sum().clamp_min(1)
+    return nll.sum() / denom, hit.sum() / denom
+
+
 def _replicate_dim(t, dim: int):
     """``t`` (a ``DTensor``) with every mesh dim that shards tensor dim
-    ``dim`` made ``Replicate()``."""
+    ``dim``, or holds partial sums (a tied head's product contracts over
+    the model-sharded features), made ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
 
-    placements = [Replicate() if isinstance(p, Shard) and p.dim == dim
-                  else p for p in t.placements]
+    placements = [Replicate() if (isinstance(p, Shard) and p.dim == dim)
+                  or p.is_partial() else p for p in t.placements]
     return t.redistribute(placements=placements)
 
 
@@ -163,3 +190,42 @@ def _build_encdec(cfg: ModelConfig) -> Model:
 
     return Model(cfg=cfg, init=init, forward=fwd, loss=_loss(cfg, fwd),
                  prefill=pre, decode=dec, init_cache=icache)
+
+
+def _spec_device() -> str:
+    """Where a stand-in lives: the CPU under an active ``FakeTensorMode``
+    (its tensors have no storage), else the ``meta`` device."""
+    from torch._guards import active_fake_mode
+
+    return "cpu" if active_fake_mode() is not None else "meta"
+
+
+def input_specs(cfg: ModelConfig, cell, *, for_init: bool = False) -> dict:
+    """Stand-ins for every model input of a shape cell: the reference's
+    keys, shapes and dtypes (tokens and labels int32), allocating nothing.
+    ``decode`` cells describe the single-token step against a seq_len cache
+    (built separately by :func:`cache_specs`)."""
+    b, s = cell.global_batch, cell.seq_len
+    dev = _spec_device()
+    f = getattr(torch, cfg.dtype)
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    i32 = torch.int32
+    if cell.kind == "decode":
+        return {"tokens": sds((b, 1), i32)}
+    if cfg.family == "audio":
+        return {"frames": sds((b, s, cfg.d_model), f),
+                "tokens": sds((b, s), i32), "labels": sds((b, s), i32)}
+    if cfg.family == "vlm":
+        s_text = s - cfg.n_prefix_tokens
+        return {"tokens": sds((b, s_text), i32),
+                "patch_embeds": sds((b, cfg.n_prefix_tokens, cfg.d_model), f),
+                "labels": sds((b, s_text), i32)}
+    return {"tokens": sds((b, s), i32), "labels": sds((b, s), i32)}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> Any:
+    """``init_cache(batch, s_max)``'s tree, allocating nothing."""
+    return build_model(cfg).init_cache(batch, s_max, device=_spec_device())

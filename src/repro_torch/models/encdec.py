@@ -22,17 +22,20 @@ import math
 import torch
 
 from repro_torch.device import default_device
+from repro_torch.dist.sharding import batch_sharded, is_dtensor, layer_at
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (
     KVCache,
-    attention,
+    attend_projected,
     attn_apply,
     attn_params,
 )
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
 from repro_torch.models.layers.norm import apply_norm, norm_params
 from repro_torch.models.lm import (
+    cache_for,
     head_product,
+    lookup,
     make_remat,
     stack_blocks,
     unstack,
@@ -114,9 +117,9 @@ def encode(cfg: ModelConfig, params: dict,
     def block(p, x):
         h, _ = _attn(cfg, p["attn"], apply_norm(cfg.norm, p["ln1"], x),
                      rope_theta=cfg.rope_theta, causal=False)
-        x = x + h
-        return x + mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
-                             cfg.mlp)
+        x = batch_sharded(x + h)
+        return batch_sharded(x + mlp_apply(
+            p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp))
 
     block = make_remat(cfg)(block)
     x = frames.to(_dt(cfg))
@@ -128,12 +131,13 @@ def encode(cfg: ModelConfig, params: dict,
 def _dec_block(cfg, p, x, enc, self_cache=None, cross_cache=None):
     h, new_self = _attn(cfg, p["attn"], apply_norm(cfg.norm, p["ln1"], x),
                         rope_theta=cfg.rope_theta, cache=self_cache)
-    x = x + h
+    x = batch_sharded(x + h)
     h, new_cross = _attn(cfg, p["xattn"], apply_norm(cfg.norm, p["ln_x"], x),
                          rope_theta=0.0, xk=enc, cache=cross_cache,
                          causal=False)
-    x = x + h
-    x = x + mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp)
+    x = batch_sharded(x + h)
+    x = batch_sharded(x + mlp_apply(
+        p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp))
     return x, new_self, new_cross
 
 
@@ -148,7 +152,7 @@ def forward(cfg: ModelConfig, params: dict, frames: torch.Tensor,
             tokens: torch.Tensor):
     """Scoring forward: logits over the decoder positions, aux = 0."""
     enc = encode(cfg, params, frames)
-    x = params["embed"][tokens]
+    x = lookup(params["embed"], tokens)
     block = make_remat(cfg)(lambda p, h: _dec_block(cfg, p, h, enc)[0])
     for p in unstack(params["dec_blocks"]):
         x = block(p, x)
@@ -175,10 +179,13 @@ def _fill_cross(cfg, p, enc, cc: KVCache) -> KVCache:
     """The encoder's K/V projected through one layer's cross-attention,
     written into that layer's cross cache ``cc`` in place."""
     b, s_enc, _ = enc.shape
-    k = (enc @ p["xattn"]["wk"] + p["xattn"].get("bk", 0)).reshape(
-        b, s_enc, cfg.n_kv_heads, cfg.head_dim_)
-    v = (enc @ p["xattn"]["wv"] + p["xattn"].get("bv", 0)).reshape(
-        b, s_enc, cfg.n_kv_heads, cfg.head_dim_)
+    kf = enc @ p["xattn"]["wk"] + p["xattn"].get("bk", 0)
+    vf = enc @ p["xattn"]["wv"] + p["xattn"].get("bv", 0)
+    if is_dtensor(kf):  # the cache's placements (its rows), then heads
+        kf, vf = (t.redistribute(t.device_mesh, cc.k.placements)
+                  for t in (kf, vf))
+    k = kf.reshape(b, s_enc, cfg.n_kv_heads, cfg.head_dim_)
+    v = vf.reshape(b, s_enc, cfg.n_kv_heads, cfg.head_dim_)
     cc.k.copy_(k)
     cc.v.copy_(v)
     return KVCache(cc.k, cc.v, s_enc)
@@ -191,14 +198,17 @@ def prefill(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     projected encoder K/V, so decode steps never project the encoder
     states again."""
     enc = encode(cfg, params, frames)
-    x = params["embed"][tokens]
-    caches = init_dec_cache(cfg, x.shape[0], s_max, enc.shape[1], x.device)
+    x = lookup(params["embed"], tokens)
+    caches = cache_for(x, lambda dev: init_dec_cache(
+        cfg, x.shape[0], s_max, enc.shape[1], dev))
     sc, cc = caches["self"], caches["cross"]
     length = sc.length
     for i, p in enumerate(unstack(params["dec_blocks"])):
-        cross = _fill_cross(cfg, p, enc, KVCache(cc.k[i], cc.v[i], 0))
+        cross = _fill_cross(cfg, p, enc, KVCache(layer_at(cc.k, i),
+                                                 layer_at(cc.v, i), 0))
         x, new_self, _ = _dec_block(
-            cfg, p, x, enc, self_cache=KVCache(sc.k[i], sc.v[i], sc.length),
+            cfg, p, x, enc, self_cache=KVCache(
+                layer_at(sc.k, i), layer_at(sc.v, i), sc.length),
             cross_cache=cross)
         length = new_self.length
     return (_logits(cfg, params, x[:, -1:]),
@@ -210,14 +220,14 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 caches: dict):
     """One decoder token against the prebuilt self / cross caches (the
     self cache updated in place and returned)."""
-    x = params["embed"][token]
+    x = lookup(params["embed"], token)
     sc, cc = caches["self"], caches["cross"]
     length = sc.length
     for i, p in enumerate(unstack(params["dec_blocks"])):
         x, new_self, _ = _dec_block_cached(
             cfg, p, x,
-            KVCache(sc.k[i], sc.v[i], sc.length),
-            KVCache(cc.k[i], cc.v[i], cc.length))
+            KVCache(layer_at(sc.k, i), layer_at(sc.v, i), sc.length),
+            KVCache(layer_at(cc.k, i), layer_at(cc.v, i), cc.length))
         length = new_self.length
     return (_logits(cfg, params, x),
             {"self": KVCache(sc.k, sc.v, length), "cross": cc})
@@ -230,11 +240,12 @@ def _dec_block_cached(cfg, p, x, self_cache: KVCache, cross_cache: KVCache):
     # cross-attention straight against the cached projected encoder K/V
     b, s, _ = x.shape
     xq = apply_norm(cfg.norm, p["ln_x"], x)
-    q = (xq @ p["xattn"]["wq"] + p["xattn"].get("bq", 0)).reshape(
-        b, s, cfg.n_heads, cfg.head_dim_)
-    o = attention(q, cross_cache.k, cross_cache.v, causal=False,
-                  kv_valid=cross_cache.length, kv_chunk=cfg.attn_kv_chunk,
-                  blocks_threshold=cfg.attn_blocks_threshold)
+    o, _ = attend_projected(
+        xq @ p["xattn"]["wq"] + p["xattn"].get("bq", 0), None, None,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+        rope_theta=0.0, window=0, kv_chunk=cfg.attn_kv_chunk,
+        blocks_threshold=cfg.attn_blocks_threshold, use_pallas=False,
+        cache=cross_cache, positions=None, cross=True, causal=False)
     x = x + o.reshape(b, s, cfg.n_heads * cfg.head_dim_) @ p["xattn"]["wo"]
     x = x + mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp)
     return x, new_self, cross_cache

@@ -23,17 +23,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import default_device
+from repro_torch.dist.sharding import (
+    batch_sharded, column_halves, is_dtensor, layer_at)
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (
     KVCache,
-    _cache_write,
-    attention,
+    attend_projected,
     attn_params,
 )
 from repro_torch.models.layers.mlp import mlp_params
 from repro_torch.models.layers.norm import apply_norm, norm_params
-from repro_torch.models.layers.rope import apply_rope
 from repro_torch.models.layers.ssm import (
     SSMState,
     mamba2_apply,
@@ -121,35 +121,30 @@ def _shared_block(cfg: ModelConfig, shared: dict, loras: dict, gi: int,
     hn = apply_norm(cfg.norm, shared["ln1"], h)
 
     p = shared["attn"]
-    q = hn @ p["wq"] + (hn @ loras["a_q"][gi]) @ loras["b_q"][gi]  # LoRA on q
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = (hn @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (hn @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    offset = cache.length if cache is not None else 0
-    pos = torch.arange(s, device=x.device) + offset
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    new_cache = None
-    if cache is not None:
-        ck = _cache_write(cache.k, k, cache.length)
-        cv = _cache_write(cache.v, v, cache.length)
-        new_cache = KVCache(ck, cv, cache.length + s)
-        o = attention(q, ck, cv, causal=True, q_offset=offset,
-                      kv_valid=cache.length + s, kv_chunk=cfg.attn_kv_chunk,
-                      blocks_threshold=cfg.attn_blocks_threshold)
-    else:
-        o = attention(q, k, v, causal=True, kv_chunk=cfg.attn_kv_chunk,
-                      blocks_threshold=cfg.attn_blocks_threshold)
-    h = h + o.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    # LoRA on q
+    q = hn @ p["wq"] + (hn @ layer_at(loras["a_q"], gi)) @ layer_at(
+        loras["b_q"], gi)
+    o, new_cache = attend_projected(
+        q, hn @ p["wk"], hn @ p["wv"], n_heads=cfg.n_heads,
+        n_kv=cfg.n_kv_heads, head_dim=hd, rope_theta=cfg.rope_theta,
+        window=0, kv_chunk=cfg.attn_kv_chunk,
+        blocks_threshold=cfg.attn_blocks_threshold, use_pallas=False,
+        cache=cache, positions=None, cross=False, causal=True)
+    h = batch_sharded(h + o.reshape(b, s, cfg.n_heads * hd) @ p["wo"])
 
     h2 = apply_norm(cfg.norm, shared["ln2"], h)
-    z = h2 @ shared["mlp"]["wi"] + (h2 @ loras["a_mlp"][gi]) @ loras["b_mlp"][gi]
-    if cfg.mlp == "gated_silu":
-        gate, up = z.chunk(2, dim=-1)
+    wi, b_mlp = shared["mlp"]["wi"], layer_at(loras["b_mlp"], gi)
+    lo = h2 @ layer_at(loras["a_mlp"], gi)
+    if cfg.mlp == "gated_silu" and is_dtensor(wi):
+        # the [gate | up] columns a half at a time (``column_halves``)
+        (wg, wu), (bg, bu) = column_halves(wi), column_halves(b_mlp)
+        z = F.silu(h2 @ wg + lo @ bg) * (h2 @ wu + lo @ bu)
+    elif cfg.mlp == "gated_silu":
+        gate, up = (h2 @ wi + lo @ b_mlp).chunk(2, dim=-1)
         z = F.silu(gate) * up
-    else:
-        z = F.gelu(z, approximate="tanh")  # jax.nn.gelu's default
-    h = h + z @ shared["mlp"]["wo"]
+    else:  # jax.nn.gelu's default
+        z = F.gelu(h2 @ wi + lo @ b_mlp, approximate="tanh")
+    h = batch_sharded(h + z @ shared["mlp"]["wo"])
     return h @ shared["proj_out"], new_cache
 
 
@@ -160,8 +155,8 @@ def _mamba_group_scan(cfg: ModelConfig, gparams: dict, x: torch.Tensor,
     layer runs through ``make_remat``, as the reference's scan body)."""
 
     def layer(lp, h):
-        return h + mamba2_apply(lp["mixer"],
-                                apply_norm(cfg.norm, lp["ln1"], h), cfg)[0]
+        return batch_sharded(h + mamba2_apply(
+            lp["mixer"], apply_norm(cfg.norm, lp["ln1"], h), cfg)[0])
 
     remat_layer = lm.make_remat(cfg)(layer)
     for i, lp in enumerate(lm.unstack(gparams)):
@@ -169,17 +164,17 @@ def _mamba_group_scan(cfg: ModelConfig, gparams: dict, x: torch.Tensor,
             x = remat_layer(lp, x)
             continue
         hn = apply_norm(cfg.norm, lp["ln1"], x)
-        st = SSMState(states.ssm[i], states.conv[i])
+        st = SSMState(layer_at(states.ssm, i), layer_at(states.conv, i))
         out, new_st = mamba2_apply(lp["mixer"], hn, cfg, state=st)
-        x = x + out
-        states.ssm[i].copy_(new_st.ssm)
-        states.conv[i].copy_(new_st.conv)
+        x = batch_sharded(x + out)
+        layer_at(states.ssm, i).copy_(new_st.ssm)
+        layer_at(states.conv, i).copy_(new_st.conv)
     return x, states
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     """Scoring forward. Returns (logits [B,S,Vp] f32, aux=0)."""
-    x = params["embed"][tokens]
+    x = lm.lookup(params["embed"], tokens)
     x0 = x
     # remat the shared block, as the reference does: its [B,H,S,S] f32
     # scores would otherwise stay in memory for the whole backward
@@ -187,7 +182,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
         cfg, sh, lo, gi, a, b)[0])
     for gi in range(n_groups(cfg)):
         h = shared(params["shared"], params["loras"], gi, x, x0)
-        x = x + h
+        x = batch_sharded(x + h)
         x, _ = _mamba_group_scan(cfg, params["groups"][gi], x)
     logits = lm.logits_from_hidden(cfg, params, x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -214,7 +209,7 @@ def _run_cached(cfg: ModelConfig, params: dict, x: torch.Tensor, caches):
     for gi in range(n_groups(cfg)):
         h, kv = _shared_block(cfg, params["shared"], params["loras"], gi, x,
                               x0, cache=caches[gi]["kv"])
-        x = x + h
+        x = batch_sharded(x + h)
         x, ssm = _mamba_group_scan(cfg, params["groups"][gi], x,
                                    states=caches[gi]["ssm"])
         new_caches.append({"ssm": ssm, "kv": kv})
@@ -224,8 +219,9 @@ def _run_cached(cfg: ModelConfig, params: dict, x: torch.Tensor, caches):
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             s_max: int):
     """Fill the caches from a prompt; returns (last_logits, caches)."""
-    x = params["embed"][tokens]
-    caches = init_cache(cfg, x.shape[0], s_max, x.device)
+    x = lm.lookup(params["embed"], tokens)
+    caches = lm.cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
+                                                    dev))
     x, new_caches = _run_cached(cfg, params, x, caches)
     return lm.logits_from_hidden(cfg, params, x[:, -1:]), new_caches
 
@@ -233,6 +229,6 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, caches):
     """One decode step. token: [B, 1]; caches from prefill/init_cache
     (updated in place and returned)."""
-    x = params["embed"][token]
+    x = lm.lookup(params["embed"], token)
     x, new_caches = _run_cached(cfg, params, x, caches)
     return lm.logits_from_hidden(cfg, params, x), new_caches

@@ -28,6 +28,7 @@ from typing import NamedTuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models.layers.rope import apply_rope
 
 NEG_INF = -2.0**30  # large-but-finite; avoids NaN from (-inf) - (-inf)
@@ -290,35 +291,68 @@ def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     attends over the valid prefix (decode path). positions: [S] absolute
     positions for RoPE (defaults to arange, offset by cache.length when
     decoding). ``use_pallas`` sends self-attention without a cache to the
-    flash kernel; ``pallas_interpret`` is accepted and means nothing here."""
+    flash kernel; ``pallas_interpret`` is accepted and means nothing here.
+    Projections that come out as ``DTensor``s take :func:`_sharded_attn`."""
     b, s, _ = x.shape
     src = x if xk is None else xk
-    dev = x.device
-    q = (x @ p["wq"] + p.get("bq", 0)).reshape(b, s, n_heads, head_dim)
-    k = (src @ p["wk"] + p.get("bk", 0)).reshape(b, src.shape[1], n_kv,
-                                                 head_dim)
-    v = (src @ p["wv"] + p.get("bv", 0)).reshape(b, src.shape[1], n_kv,
-                                                 head_dim)
+    qf = x @ p["wq"] + p.get("bq", 0)
+    kf = src @ p["wk"] + p.get("bk", 0)
+    vf = src @ p["wv"] + p.get("bv", 0)
+    kw = dict(rope_theta=rope_theta, window=window, kv_chunk=kv_chunk,
+              blocks_threshold=blocks_threshold, use_pallas=use_pallas,
+              cache=cache, positions=positions, cross=xk is not None,
+              causal=causal)
+    o, new_cache = attend_projected(qf, kf, vf, n_heads=n_heads, n_kv=n_kv,
+                                    head_dim=head_dim, **kw)
+    return o.reshape(b, s, n_heads * head_dim) @ p["wo"], new_cache
 
+
+def attend_projected(qf, kf, vf, *, n_heads: int, n_kv: int, head_dim: int,
+                     **kw) -> tuple[torch.Tensor, KVCache | None]:
+    """Attention from projections q [B, S, H x Dh], k / v [B, S_kv, Hkv x
+    Dh] (None for cross-attention against a cache, which holds them):
+    (out [B, S, H, Dh], new cache); ``kw`` as :func:`_attend`'s.
+    ``DTensor`` projections take :func:`_sharded_attn`."""
+    if any(is_dtensor(t) for t in (qf, kf, vf)):
+        return _sharded_attn(qf, kf, vf, n_heads, n_kv, head_dim, **kw)
+    b, s = qf.shape[:2]
+    k, v = ((None, None) if kf is None else
+            (t.reshape(b, t.shape[1], n_kv, head_dim) for t in (kf, vf)))
+    return _attend(qf.reshape(b, s, n_heads, head_dim), k, v, **kw)
+
+
+def _attend(q, k, v, *, rope_theta: float, window: int, kv_chunk: int,
+            blocks_threshold: int, use_pallas: bool, cache: KVCache | None,
+            positions, cross: bool, causal: bool,
+            kv_heads: torch.Tensor | None = None):
+    """``attn_apply`` after the projections: q [B, S, H, Dh], k / v [B,
+    S_kv, Hkv, Dh] -> (out [B, S, H, Dh], new cache). ``kv_heads``, where
+    given, is the K/V head each q head reads (a head-sharded q against
+    K/V its shard does not split the same way); after the cache write."""
+    b, s = q.shape[:2]
+    dev = q.device
     offset = cache.length if cache is not None else 0
     if positions is None:
         steps = torch.arange(s, device=dev)
         positions = (steps[None] + offset.to(dev).reshape(-1, 1)
                      if not _is_scalar(offset) else steps + offset)
-    if rope_theta > 0 and xk is None:  # no rope on cross-attention
+    if rope_theta > 0 and not cross:  # no rope on cross-attention
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions if k.shape[1] == s
-                       else torch.arange(src.shape[1], device=dev),
+                       else torch.arange(k.shape[1], device=dev),
                        rope_theta)
 
-    if (use_pallas and cache is None and xk is None
-            and q.shape[1] == src.shape[1]):
+    if use_pallas and cache is None and not cross and s == k.shape[1]:
         from repro_torch.kernels.flash_attention.ops import flash_attention
-        out = flash_attention(q, k, v, causal=causal, window=window)
-        return out.reshape(b, s, n_heads * head_dim) @ p["wo"], None
+        return flash_attention(q, k, v, causal=causal, window=window), None
+
+    def select(k, v):
+        if kv_heads is None:
+            return k, v
+        return k.index_select(2, kv_heads), v.index_select(2, kv_heads)
 
     new_cache = None
-    if cache is not None and xk is None:
+    if cache is not None and not cross:
         ck = _cache_write(cache.k, k, cache.length)
         cv = _cache_write(cache.v, v, cache.length)
         new_cache = KVCache(ck, cv, cache.length + s)
@@ -338,15 +372,105 @@ def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                 idx = start + torch.arange(w_eff, device=dev)
                 k, v = ck.index_select(1, idx), cv.index_select(1, idx)
             kv_off = start
+        k, v = select(k, v)
         out = attention(q, k, v, causal=causal, window=window, q_offset=offset,
                         kv_valid=cache.length + s, kv_chunk=kv_chunk,
                         blocks_threshold=blocks_threshold, kv_offset=kv_off)
     elif cache is not None:  # cross-attn with precomputed encoder cache
-        out = attention(q, cache.k, cache.v, causal=False,
+        k, v = select(cache.k, cache.v)
+        out = attention(q, k, v, causal=False,
                         kv_valid=cache.length, kv_chunk=kv_chunk,
                         blocks_threshold=blocks_threshold)
         new_cache = cache
     else:
+        k, v = select(k, v)
         out = attention(q, k, v, causal=causal, window=window,
                         kv_chunk=kv_chunk, blocks_threshold=blocks_threshold)
-    return out.reshape(b, s, n_heads * head_dim) @ p["wo"], new_cache
+    return out, new_cache
+
+
+def _sharded_attn(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int, *,
+                  cache: KVCache | None, positions, use_pallas: bool,
+                  cross: bool, **kw):
+    """:func:`_attend` over ``DTensor`` projections ([B, S, heads x Dh]).
+
+    DTensor can neither split a sharded feature dim inside a head (the
+    rules shard ``wk``'s 256 columns 16 ways for qwen's 2 KV heads) nor
+    run the products that merge a batch and a head dim sharded on two
+    mesh dims. So q, k and v are redistributed to batch on the data axes
+    and whole heads on "model" where the head count divides it (K / V
+    take the cache's placements where there is one), and the attention
+    runs on each rank's shards, as XLA's partitioner would place it; the
+    cache's local shards are written in place. The output is q's
+    placements again, for ``wo``'s product. A flash call refuses the
+    ``DTensor``s, as every kernel wrapper does."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.sharding import local_shard, shard_placements
+    from repro_torch.kernels._build import refuse_dtensor
+
+    if use_pallas and cache is None and not cross:
+        refuse_dtensor("flash_attention", qf, kf, vf)
+    mesh = next(t.device_mesh for t in (qf, kf, vf) if is_dtensor(t))
+    qf, kf, vf = (t if t is None or is_dtensor(t) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim) for t in (qf, kf, vf))
+    b = qf.shape[0]
+    q_pl = shard_placements(mesh, b, {2: n_heads})
+    # K / V on the cache's placements where it shards only its batch dim;
+    # else (a plain cache, or the rules sharded another dim: the hybrid's
+    # one-layer cache is [B, S_max, ...]) on its rows, all heads
+    gather = cache is not None and is_dtensor(cache.k) and any(
+        pl.is_shard() and pl.dim != 0 for pl in cache.k.placements)
+    if cache is None:
+        kv_pl = shard_placements(mesh, b, {2: n_kv})
+    elif is_dtensor(cache.k) and not gather:
+        kv_pl = cache.k.placements
+    else:
+        kv_pl = shard_placements(mesh, b)
+    q, q_off = local_shard(qf, q_pl)
+    q = q.reshape(q.shape[0], q.shape[1], -1, head_dim)
+    k = v = None  # cross-attention against a cache: K/V are the cache's
+    k_off = (0, 0, 0)
+    if kf is not None:
+        k, k_off = local_shard(kf, kv_pl)
+        v, _ = local_shard(vf, kv_pl)
+        k = k.reshape(k.shape[0], k.shape[1], -1, head_dim)
+        v = v.reshape(v.shape[0], v.shape[1], -1, head_dim)
+    rows = slice(q_off[0], q_off[0] + q.shape[0])  # this rank's batch rows
+
+    def local(t, batch_dim: bool):
+        if is_dtensor(t):
+            t = t.full_tensor() if batch_dim else t.to_local()
+        if batch_dim and isinstance(t, torch.Tensor) and t.dim() >= 1:
+            return t[rows]
+        return t
+
+    def rows_of(c):
+        if not is_dtensor(c):
+            return c[rows]
+        return local_shard(c, kv_pl)[0] if gather else c.to_local()
+
+    lcache = None
+    if cache is not None:
+        lk, lv = rows_of(cache.k), rows_of(cache.v)
+        length = cache.length
+        lcache = KVCache(lk, lv, local(length, not _is_scalar(length)))
+    if positions is not None:
+        positions = local(positions, positions.dim() == 2)
+    h0, k0 = q_off[2] // head_dim, k_off[2] // head_dim
+    h_l = q.shape[2]
+    n_kv_l = (lcache.k if cache is not None and cross else k).shape[2]
+    want = [(h0 + j) // (n_heads // n_kv) - k0 for j in range(h_l)]
+    kv_heads = None  # None: repeat_kv's grouping is this shard's
+    if h_l % n_kv_l or want != [j // (h_l // n_kv_l) for j in range(h_l)]:
+        kv_heads = torch.tensor(want, device=q.device)
+    out, new = _attend(q, k, v, cache=lcache, positions=positions,
+                       use_pallas=False, cross=cross, kv_heads=kv_heads, **kw)
+    out = DTensor.from_local(out, mesh, q_pl)
+    if gather and not cross:  # the gathered rows back into the cache
+        cache.k.copy_(DTensor.from_local(lk, mesh, kv_pl))
+        cache.v.copy_(DTensor.from_local(lv, mesh, kv_pl))
+    if new is not None:
+        new = KVCache(cache.k, cache.v,
+                      cache.length if cross else cache.length + q.shape[1])
+    return out, new

@@ -7,6 +7,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import column_halves, is_dtensor
+
 
 def mlp_params(generator: torch.Generator, d_model: int, d_ff: int,
                kind: str, dtype: torch.dtype, device=None) -> dict:
@@ -21,6 +23,11 @@ def mlp_params(generator: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """A gated ``DTensor`` ``wi`` is taken as its two column halves
+    (``column_halves``), the same products on the same columns."""
+    if kind == "gated_silu" and is_dtensor(p["wi"]):
+        wg, wu = column_halves(p["wi"])
+        return (F.silu(x @ wg) * (x @ wu)) @ p["wo"]
     h = x @ p["wi"]
     if kind == "gated_silu":
         gate, up = h.chunk(2, dim=-1)

@@ -35,6 +35,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import column_halves, is_dtensor
+
 
 class MoEMetrics(NamedTuple):
     aux_loss: torch.Tensor  # load-balance loss (Switch)
@@ -50,11 +52,26 @@ def _span(name: str):
 
 
 def _shard_experts(x: torch.Tensor, spec) -> torch.Tensor:
-    """The identity: the port's model runs with no mesh. The reference
-    constrains expert-major intermediates to the 'model' axis here (only
-    with ``moe_ep_sharding``, which no config sets); expert sharding under
-    a ``DeviceMesh`` is ROADMAP Queue 1 item 27."""
-    return x
+    """The reference's sharding constraint: ``x`` (a ``DTensor``)
+    redistributed to ``spec``, a mesh dim name (or None) a tensor dim —
+    ``("model", None, None)`` for an expert-major intermediate (expert
+    parallelism), ``("data", None)`` for a token-major one — every mesh
+    dim it does not name replicated. Returned unchanged where ``x`` is a
+    plain tensor (no mesh), or where the mesh lacks a named dim or the
+    dim's extent does not divide the tensor's, as the reference's
+    ``try/except`` returns it (a hint never changes the math)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    named = {name: d for d, name in enumerate(spec) if name is not None}
+    if any(name not in sizes or x.shape[d] % sizes[name]
+           for name, d in named.items()):
+        return x
+    return x.redistribute(mesh, [Shard(named[name]) if name in named
+                                 else Replicate() for name in sizes])
 
 
 def moe_params(generator: torch.Generator, d_model: int, n_experts: int,
@@ -88,17 +105,33 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
 
     Routing: softmax over experts, top-k, weights renormalised over the k.
     Tokens beyond an expert's capacity are dropped (their residual passes
-    through): standard capacity-based MoE semantics. ``ep_sharding`` is
-    accepted for the reference's signature and changes nothing here."""
+    through): standard capacity-based MoE semantics. ``ep_sharding``
+    constrains the expert-major intermediates to the "model" axis and the
+    gathered tokens to "data", at the reference's four sites
+    (:func:`_shard_experts`; nothing without a mesh).
+
+    Over a ``DTensor`` ``x`` the routing and the dispatch writes run on the
+    gathered tokens and router (every rank holds them whole, as the
+    reference's buffer is replicated over "data"; DTensor has no sharded
+    stable sort), and the dispatch buffer enters the expert products as a
+    replicated ``DTensor``."""
     b, s, d = x.shape
     e = p["we_up"].shape[0]
     t = b * s
     dev = x.device
     xt = x.reshape(t, d)
     capacity = max(int(math.ceil(top_k * t / e * capacity_factor)), 1)
+    mesh = x.device_mesh if is_dtensor(x) else None
+    xr, router = xt, p["router"]
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Replicate
+
+        rep = [Replicate()] * mesh.ndim
+        xr, router = (v.full_tensor() if is_dtensor(v) else v
+                      for v in (xt, router))
 
     with _span("moe.dispatch"):
-        logits = xt.float() @ p["router"]  # [T, E]
+        logits = xr.float() @ router  # [T, E]
         probs = torch.softmax(logits, dim=-1)
         gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1, sorted=True)
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(
@@ -127,29 +160,59 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
         slot_k = slot.reshape(top_k, t)  # [K, T]
         buf = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=dev)
         for k in range(top_k):
-            buf[slot_k[k]] = xt
-        xe = _shard_experts(buf[:-1].reshape(e, capacity, d), None)
+            buf[slot_k[k]] = xr
+        xe = buf[:-1].reshape(e, capacity, d)
+        if mesh is not None:
+            xe = DTensor.from_local(xe, mesh, rep)
+        ep = ("model", None, None)
+        if ep_sharding:
+            xe = _shard_experts(xe, ep)
 
     with _span("moe.experts"):  # gated silu, batched over experts
-        gate, up = torch.bmm(xe, p["we_up"]).chunk(2, dim=-1)
+        if mesh is not None and not ep_sharding:
+            gate, up = (torch.bmm(xe, w)
+                        for w in column_halves(p["we_up"]))
+        else:
+            h = torch.bmm(xe, p["we_up"])
+            if ep_sharding:
+                h = _shard_experts(h, ep)
+            gate, up = h.chunk(2, dim=-1)
         ye = torch.bmm(F.silu(gate) * up, p["we_down"])  # [E, C, D]
+        if ep_sharding:
+            ye = _shard_experts(ye, ep)
 
     with _span("moe.combine"):  # a gather per k-slot, summed k by k
         yflat = ye.reshape(e * capacity, d)
+        if mesh is not None:
+            # the gathers on the whole expert outputs, every rank's tokens
+            # replicated (DTensor's gather from rows sharded over "model"
+            # leaves a masked partial that its later reductions mishandle)
+            yfull = yflat.full_tensor()
         w = torch.where(keep, gate_vals.T.reshape(-1), 0.0).to(x.dtype)
         w_k = w.reshape(top_k, t)
+        if mesh is not None:  # the gates' gradient comes back whole
+            w_k = DTensor.from_local(w_k, mesh, rep)
         out = torch.zeros((t, d), dtype=x.dtype, device=dev)
         for k in range(top_k):
-            got = yflat[slot_k[k].clamp_max(e * capacity - 1)]  # [T, D]
+            idx = slot_k[k].clamp_max(e * capacity - 1)
+            got = (yflat[idx] if mesh is None  # [T, D]
+                   else DTensor.from_local(yfull[idx], mesh, rep))
+            if ep_sharding:  # token-major again
+                got = _shard_experts(got, ("data", None))
             out = out + got * w_k[k][:, None]
 
     if "ws_up" in p:  # shared experts (always on)
         with _span("moe.shared"):
-            gs, us = (xt @ p["ws_up"]).chunk(2, dim=-1)
+            if is_dtensor(p["ws_up"]):
+                gs, us = (xt @ w for w in column_halves(p["ws_up"]))
+            else:
+                gs, us = (xt @ p["ws_up"]).chunk(2, dim=-1)
             out = out + (F.silu(gs) * us) @ p["ws_down"]
 
     # Switch aux loss: E * sum_e f_e * P_e
     f_e = torch.zeros(e, dtype=torch.float32, device=dev).scatter_add_(
         0, flat_e, keep.float()) / keep.sum().clamp_min(1)
     aux = e * torch.sum(f_e * probs.mean(0))
+    if mesh is not None:  # computed whole on every rank: replicated
+        aux = DTensor.from_local(aux, mesh, rep)
     return out.reshape(b, s, d), MoEMetrics(aux, dropped)

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import batch_sharded
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -32,6 +34,9 @@ def norm_params(kind: str, d: int, device=None) -> dict:
 
 
 def apply_norm(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` result is made batch-sharded again (``batch_sharded``):
+    the rules shard a [D] scale over "model", which would leave the
+    activations split over their features into the products that follow."""
     if kind == "rms":
-        return rms_norm(x, params["scale"])
-    return layer_norm(x, params["scale"], params["bias"])
+        return batch_sharded(rms_norm(x, params["scale"]))
+    return batch_sharded(layer_norm(x, params["scale"], params["bias"]))

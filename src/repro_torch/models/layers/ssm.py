@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.kernels.ssd_scan.ops import ssd_full
 
 
@@ -196,10 +197,53 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
     and S > 1 (prefill) the SSD starts from it. A ragged S is padded to a
     multiple of the chunk (the padded steps have dt = 0: no decay, no
     input)."""
-    bsz, s, d = x.shape
+    zxbcdt = x @ p["in_proj"]
+    if is_dtensor(zxbcdt):
+        return _sharded_mamba2(p, zxbcdt, cfg, state, x.dtype)
+    y, new_state = _mamba2_core(p, zxbcdt, cfg, state)
+    return y.to(x.dtype) @ p["out_proj"], new_state
+
+
+def _sharded_mamba2(p: dict, zxbcdt, cfg, state: SSMState | None,
+                    dtype: torch.dtype):
+    """The mixer after ``in_proj`` over a ``DTensor``: the projection is
+    gathered over "model" and kept split by batch over the data axes
+    (``shard_placements``), the conv, scan and gated norm run on each
+    rank's rows (DTensor cannot run the scan's products with batch and
+    heads sharded on two mesh dims; the scan is replicated over "model"),
+    and ``out_proj`` takes the result as a ``DTensor`` again. The state's
+    local rows are the new state's, under the state's placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.dist.sharding import local_shard, shard_placements
+
+    mesh = zxbcdt.device_mesh
+    pl = shard_placements(mesh, zxbcdt.shape[0])
+    zl, off = local_shard(zxbcdt, pl)
+    # the mixer's small params whole on every rank; a rank's gradient of
+    # them holds its own rows only: a partial sum over the data axes
+    grad_pl = [Partial() if q.is_shard() else Replicate() for q in pl]
+    lp = {k: v.full_tensor(grad_placements=grad_pl) if is_dtensor(v) else v
+          for k, v in p.items() if k not in ("in_proj", "out_proj")}
+    rows = slice(off[0], off[0] + zl.shape[0])
+    lstate = None if state is None else SSMState(*(
+        t.to_local() if is_dtensor(t) else t[rows] for t in state))
+    y, new = _mamba2_core(lp, zl, cfg, lstate)
+    y = DTensor.from_local(y.to(dtype), mesh, pl)
+    if new is not None:
+        new = SSMState(*(DTensor.from_local(t, mesh, old.placements
+                                            if is_dtensor(old) else pl)
+                         for t, old in zip(new, state)))
+    return y @ p["out_proj"], new
+
+
+def _mamba2_core(p: dict, zxbcdt: torch.Tensor, cfg,
+                 state: SSMState | None):
+    """``mamba2_apply`` between the projections: the gated-norm output
+    (f32, [B, S, d_inner]) and the new state."""
+    bsz, s, _ = zxbcdt.shape
     din, n, g, h, pp = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
                         cfg.n_ssm_heads, cfg.ssm_head_dim)
-    zxbcdt = x @ p["in_proj"]
     z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * g * n, h], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])  # [B,S,H]
     a = -torch.exp(p["a_log"])  # [H], negative
@@ -236,8 +280,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
     # gated RMSNorm (mamba2's norm-before-out-proj)
     yf = y.float() * F.silu(z.float())
     var = yf.square().mean(-1, keepdim=True)
-    yf = yf * torch.rsqrt(var + 1e-6) * p["norm_scale"]
-    return yf.to(x.dtype) @ p["out_proj"], new_state
+    return yf * torch.rsqrt(var + 1e-6) * p["norm_scale"], new_state
 
 
 def ssm_state_zeros(cfg, batch: int, dtype: torch.dtype,

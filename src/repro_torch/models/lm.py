@@ -34,6 +34,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import default_device
+from repro_torch.dist.sharding import batch_sharded, is_dtensor, layer_at
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import KVCache, attn_apply, attn_params
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
@@ -180,11 +181,12 @@ def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 cache: KVCache | None = None, positions=None):
     """Returns (x, new_cache, aux_loss): the router's load-balance loss
     (an f32 scalar tensor) for a moe block; 0.0 for any other, which has
-    none."""
+    none. A ``DTensor`` residual stream is kept batch-sharded
+    (``batch_sharded``)."""
     if cfg.family == "ssm":
         h, new_state = mamba2_apply(
             p["mixer"], apply_norm(cfg.norm, p["ln1"], x), cfg, state=cache)
-        return x + h, new_state, 0.0
+        return batch_sharded(x + h), new_state, 0.0
     h, new_cache = attn_apply(
         p["attn"], apply_norm(cfg.norm, p["ln1"], x),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
@@ -193,15 +195,15 @@ def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         use_pallas=cfg.use_pallas_attention,
         pallas_interpret=cfg.pallas_interpret,
         cache=cache, positions=positions)
-    x = x + h
+    x = batch_sharded(x + h)
     h2 = apply_norm(cfg.norm, p["ln2"], x)
     if cfg.family == "moe":
         h2, metrics = moe_apply(p["moe"], h2, top_k=cfg.top_k,
                                 capacity_factor=cfg.capacity_factor,
                                 ep_sharding=cfg.moe_ep_sharding)
-        return x + h2, new_cache, metrics.aux_loss
+        return batch_sharded(x + h2), new_cache, metrics.aux_loss
     h2 = mlp_apply(p["mlp"], h2, cfg.mlp)
-    return x + h2, new_cache, 0.0
+    return batch_sharded(x + h2), new_cache, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +220,10 @@ def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
     if isinstance(caches, SSMState):
         for i in range(cfg.n_layers):
             x, st, _ = block_apply(cfg, blocks[i], x,
-                                   cache=SSMState(caches.ssm[i],
-                                                  caches.conv[i]))
-            caches.ssm[i].copy_(st.ssm)
-            caches.conv[i].copy_(st.conv)
+                                   cache=SSMState(layer_at(caches.ssm, i),
+                                                  layer_at(caches.conv, i)))
+            layer_at(caches.ssm, i).copy_(st.ssm)
+            layer_at(caches.conv, i).copy_(st.conv)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, caches, aux
     length = caches.length if caches is not None else None
@@ -233,7 +235,8 @@ def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
         else:
             x, nc, a = block_apply(
                 cfg, blocks[i], x,
-                cache=KVCache(caches.k[i], caches.v[i], caches.length),
+                cache=KVCache(layer_at(caches.k, i), layer_at(caches.v, i),
+                              caches.length),
                 positions=positions)
         aux += a
         if nc is not None:
@@ -248,10 +251,38 @@ def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                  prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = lookup(params["embed"], tokens)
     if prefix_embeds is not None:  # vlm: image patches before text
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
+
+
+def lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``. With a ``DTensor`` table split over its features
+    (the rules' choice where D divides "model"), each rank looks its own
+    tokens up in its own columns and the result is sharded as they are:
+    DTensor's own index op would gather the table and the tokens whole."""
+    if not (is_dtensor(embed) or is_dtensor(tokens)) or (
+            is_dtensor(embed) and any(p.is_shard(0)
+                                      for p in embed.placements)):
+        return embed[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = (embed if is_dtensor(embed) else tokens).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    e_pl = embed.placements if is_dtensor(embed) else rep
+    t_pl = tokens.placements if is_dtensor(tokens) else rep
+    # a rank's table gradient holds its own tokens' rows only: a partial
+    # sum over the mesh dims that split the tokens
+    grad_pl = [Partial() if pt.is_shard() and pe.is_replicate() else pe
+               for pe, pt in zip(e_pl, t_pl)]
+    local = (embed.to_local(grad_placements=grad_pl) if is_dtensor(embed)
+             else embed)[tokens.to_local() if is_dtensor(tokens) else tokens]
+    pl = [Shard(tokens.dim()) if pe.is_shard(1) else pt
+          for pe, pt in zip(e_pl, t_pl)]
+    shape = (*tokens.shape, embed.shape[1])
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(local, mesh, pl, shape=shape, stride=stride)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,
@@ -271,9 +302,11 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
 
 
 def head_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """f32 ``x @ head``, as :func:`logits_from_hidden` takes it."""
+    """f32 ``x @ head``, as :func:`logits_from_hidden` takes it (a
+    ``DTensor`` ``x`` through the up-cast product: DTensor has no rule
+    for ``torch.mm``'s ``out_dtype``)."""
     if (x.device.type == "cuda" and x.dtype == torch.bfloat16
-            and head.dtype == torch.bfloat16):
+            and head.dtype == torch.bfloat16 and not is_dtensor(x)):
         x2 = x.reshape(-1, x.shape[-1])
         if torch.is_grad_enabled() and (x.requires_grad
                                         or head.requires_grad):
@@ -337,10 +370,26 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, s_max: int,
             *, prefix_embeds: torch.Tensor | None = None):
     """Fill the cache from a prompt; returns (last_logits, cache)."""
     x = embed_tokens(cfg, params, tokens, prefix_embeds)
-    caches = init_cache(cfg, x.shape[0], s_max, x.device)
+    caches = cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
+                                                 dev))
     positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches, _ = _stack_scan(cfg, params, x, caches, positions)
     return logits_from_hidden(cfg, params, x[:, -1:]), new_caches
+
+
+def cache_for(x: torch.Tensor, make: Callable):
+    """``make(device)``, a new decode cache for ``x``'s rows, on ``x``'s
+    device; for a ``DTensor`` ``x`` a tree of ``DTensor``s under
+    ``cache_sharding`` on ``x``'s mesh (slots on the data axes), each rank
+    allocating only its shard (``zeros_sharded``; the tree is laid out on
+    the ``meta`` device first)."""
+    if not is_dtensor(x):
+        return make(x.device)
+    from repro_torch.dist.sharding import cache_sharding, zeros_sharded
+
+    cache = make("meta")
+    return zeros_sharded(cache, cache_sharding(cache, x.device_mesh),
+                         x.device)
 
 
 def prefill_chunked(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -351,7 +400,8 @@ def prefill_chunked(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     :func:`prefill` (causal attention never looks ahead)."""
     x = embed_tokens(cfg, params, tokens, prefix_embeds)
     s = x.shape[1]
-    caches = init_cache(cfg, x.shape[0], s_max, x.device)
+    caches = cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
+                                                 dev))
     if s % chunk:
         raise ValueError(f"prompt length {s} not divisible by chunk {chunk}")
     last = None

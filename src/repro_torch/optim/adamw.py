@@ -20,6 +20,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.utils.pytree import (
     chunks,
     global_norm,
@@ -68,18 +69,27 @@ def adamw_update(cfg: AdamWConfig, grads: Any, opt_state: dict, params: Any,
 
 def _update(cfg, grads, opt_state, params, lr_scale):
     gnorm = global_norm(grads)
+    if is_dtensor(gnorm):  # summed over every shard: a plain scalar
+        gnorm = gnorm.full_tensor()
     one = torch.ones((), dtype=torch.float32, device=gnorm.device)
     # cfg.grad_clip / max(gnorm, 1e-9) as a true division (a Python
     # number over a tensor is a reciprocal times the number in torch)
     clip = torch.minimum(one, (one * cfg.grad_clip)
                          / torch.clamp(gnorm, min=1e-9))
     old_step = opt_state["step"]
+    if is_dtensor(old_step):  # replicated: every rank holds the step
+        old_step = old_step.to_local()
+    if is_dtensor(lr_scale):
+        lr_scale = lr_scale.full_tensor()
     step = old_step + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
     lr = cfg.lr * lr_scale
-    ok = tree_finite(grads).to(gnorm.device) if cfg.skip_nonfinite else None
+    ok = tree_finite(grads) if cfg.skip_nonfinite else None
+    if is_dtensor(ok):
+        ok = ok.full_tensor()
+    ok = ok.to(gnorm.device) if ok is not None else None
 
     def keep(old: torch.Tensor, new: torch.Tensor) -> None:
         old.copy_(new if ok is None else torch.where(ok, new, old))
@@ -87,6 +97,9 @@ def _update(cfg, grads, opt_state, params, lr_scale):
     for g, m, v, ma, p in zip(*(tree_leaves(tree) for tree in (
             grads, opt_state["m"], opt_state["v"], opt_state["master"],
             params))):
+        if is_dtensor(p):  # each rank updates its own shard
+            g = g.redistribute(p.device_mesh, p.placements)
+            g, m, v, ma, p = (x.to_local() for x in (g, m, v, ma, p))
         if not all(x.is_contiguous() for x in (m, v, ma, p)):
             raise ValueError("adamw_update writes the state and the params "
                              "in place: each leaf must be contiguous")

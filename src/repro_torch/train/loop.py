@@ -28,6 +28,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import default_device
 from repro_torch.dist.fault import FaultState
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models.api import Model
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
@@ -65,6 +66,25 @@ def value_and_grad(model: Model, params, batch):
     return loss.detach(), _detached(metrics), tree_unflatten(params, grads)
 
 
+def _split_micro(x: torch.Tensor, n: int) -> list:
+    """``x`` [B, ...] as ``n`` microbatches of B / n rows: contiguous row
+    blocks, as the reference's reshape makes them; for a ``DTensor`` batch
+    each rank's own rows in ``n`` blocks (DTensor cannot split a sharded
+    dim across ranks), so microbatch i holds a different set of the rows
+    and the mean over the n is the same."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+
+        local = x.to_local()
+        if local.shape[0] % n:
+            raise ValueError(f"{local.shape[0]} rows a rank do not split "
+                             f"into {n} microbatches")
+        return [DTensor.from_local(c, x.device_mesh, x.placements)
+                for c in local.chunk(n)]
+    r = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+    return [r[i] for i in range(n)]
+
+
 def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     """Build the (params, opt_state, batch) -> (params, opt_state, metrics)
     step; params and opt_state are updated in place and returned."""
@@ -76,11 +96,11 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
             # the f32 cast of the gradients happens leaf by leaf inside
             # adamw_update (the reference casts the whole tree here)
         else:
-            micro = {k: x.reshape((n_micro, x.shape[0] // n_micro)
-                                  + tuple(x.shape[1:]))
-                     for k, x in batch.items()}
-            gacc = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in tree_leaves(params)]
+            micro = {k: _split_micro(x, n_micro) for k, x in batch.items()}
+            gacc = [torch.zeros_like(p, dtype=torch.float32) if is_dtensor(p)
+                    else torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device)
+                    for p in tree_leaves(params)]
             dev = gacc[0].device
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             asum = torch.zeros((), dtype=torch.float32, device=dev)

@@ -64,15 +64,23 @@ def unstack(blocks: Any) -> list:
     ``unbind`` a leaf. Under autograd the unbind's backward stacks the
     layers' gradients once, where indexing ``t[i]`` a layer would add a
     zero-filled gradient of the whole stack a layer (O(L^2) bytes: 36
-    fills and adds of qwen2.5-3b's 3.2 GB MLP stack a step)."""
-    per_leaf = tree_map(lambda t: t.unbind(0), blocks)
+    fills and adds of qwen2.5-3b's 3.2 GB MLP stack a step). A ``DTensor``
+    leaf is split on its local tensor (``dist.sharding.layers_of``)."""
+    from repro_torch.dist.sharding import layers_of
+
+    per_leaf = tree_map(layers_of, blocks)
     n = len(tree_leaves(per_leaf)[0])
     return [tree_map(lambda u: u[i], per_leaf) for i in range(n)]
 
 
 def chunks(t: torch.Tensor) -> list[torch.Tensor]:
     """Flat views of ``t`` of at most ``CHUNK`` elements (a copy only if
-    ``t`` is not contiguous)."""
+    ``t`` is not contiguous); a ``DTensor`` whole (DTensor cannot flatten
+    a sharded dim)."""
+    from repro_torch.dist.sharding import is_dtensor
+
+    if is_dtensor(t):
+        return [t]
     return list(t.reshape(-1).split(CHUNK))
 
 
@@ -116,7 +124,7 @@ def global_norm(tree: Any) -> torch.Tensor:
     for t in tree_leaves(tree):
         for c in chunks(t):
             cf = c.float()
-            sq = torch.dot(cf, cf)
+            sq = torch.dot(cf, cf) if cf.dim() == 1 else cf.square().sum()
             total = sq if total is None else total + sq
     if total is None:
         return torch.zeros((), dtype=torch.float32)

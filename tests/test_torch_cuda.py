@@ -1305,3 +1305,39 @@ def test_device_streamed_scan_from_pinned_host_is_bitwise_resident(dev):
         torch.cuda.synchronize()
     assert FLASH.launches[SYMBOL[torch.bfloat16]] - before == cfg.n_layers
     assert got.is_cuda and torch.equal(got, want)
+
+
+def test_transfer_modes_example_on_card(dev):
+    """The paper's experiment on the card: the four policies' logits
+    bitwise equal, the fault demo's quarantine and rejoin, the TOKEN
+    class's counts (the reference's 51 / 1632)."""
+    from repro_torch.examples.transfer_modes import main as tm_main
+
+    out = tm_main([])
+    rows = out["table_i"]["rows"]
+    assert len(rows) == 4
+    assert all(np.array_equal(r["logits"], rows[0]["logits"]) for r in rows)
+    assert np.isfinite(rows[0]["logits"]).all()
+    faults = out["faults"]
+    assert faults["quarantined_after_tx"] == [0]
+    assert faults["quarantined_after_probe"] == []
+    assert faults["ledger"]["faults"] == faults["ledger"]["retries"] == \
+        faults["ledger"]["retry_successes"] == 2
+    assert out["unified"]["classes"]["token"] == {"completed": 51,
+                                                  "bytes_total": 1632}
+    assert out["coalescing"]["rx_bitwise"]
+
+
+def test_dryrun_cell_predicted_equals_counted_on_the_card(dev, nccl_world):
+    """A widened smoke qwen's bf16 prefill on the world-of-one mesh:
+    the fake-tensor prediction's FLOPs and bytes are the card run's."""
+    from repro_torch.launch.dryrun import on_device
+    from repro_torch.models.config import ShapeCell
+
+    cfg = _small_lm()[0].replace(dtype="bfloat16")
+    out = on_device(cfg, ShapeCell("prefill_small", 256, 2, "prefill"),
+                    nccl_world, dev)
+    pred, meas = out["predicted"], out["measured"]
+    assert pred["flops_per_device"] == meas["flops"] > 0
+    assert pred["bytes_per_device"] == meas["bytes"]
+    assert meas["max_memory_allocated_rise"] > 0 and meas["ms"] > 0

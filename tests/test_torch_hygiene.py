@@ -62,6 +62,8 @@ SLICE_MODULES = [
     "repro_torch.dist.sharding", "repro_torch.launch.mesh",
     "repro_torch.core.pipeline_collectives",
     "repro_torch.examples.elastic_restart",
+    "repro_torch.examples.transfer_modes", "repro_torch.launch.dryrun",
+    "repro_torch.launch.op_cost", "repro_torch.launch.collective_cost",
 ]
 
 

@@ -4,8 +4,10 @@
 
 ``SUITE`` is ``collectives`` (the four rings on a ring of 4 and on the
 model dim of a (2, 2) mesh, their hop counts and divisibility errors) or
-``dist`` (the smoke qwen loss sharded on a (2, 2) mesh, sharded batch
-staging under the three managements, the kernels' refusal of DTensors).
+``dist`` (the smoke qwen loss sharded on a (2, 2) mesh, the loss, prefill
+and decode of a smoke config of each other family sharded the same way,
+sharded batch staging under the three managements, the kernels' refusal of
+DTensors).
 The ranks meet through a ``FileStore`` at ``STORE``, read their inputs
 from the ``.npz`` at ``INPUTS`` and write their readings to
 ``OUT/SUITE-RANK.pt``; ``tests/test_torch_collectives.py`` and
@@ -142,6 +144,9 @@ def sharded_dist(rank: int, world: int, inputs: dict) -> dict:
         any(p.is_shard() for p in t.placements) for t in tree_leaves(ps))
     out["params_leaves"] = len(tree_leaves(ps))
 
+    out["families"] = _families(mesh, inputs)
+    out["train_step"] = _train_step(mesh, inputs)
+
     # sharded staging under each management, with and without an engine
     src = SyntheticLMSource(DataConfig(8, 16, seed=3), cfg)
     host = [src.next_host_batch(i) for i in range(2)]
@@ -196,6 +201,141 @@ def sharded_dist(rank: int, world: int, inputs: dict) -> dict:
         except TypeError as e:
             out[f"refuse/{name}"] = str(e)
     return out
+
+
+# one smoke config of each family that runs other code under DTensor than
+# the dense qwen above: GQA with 3 q heads a shard against 1 KV head
+# (internlm2), the MoE with expert sharding on (granite), the SSM mixer,
+# the hybrid's shared attention (its one-layer cache sharded on S_max by
+# the rules), the encoder-decoder's cross-attention caches, the vlm prefix
+FAMILIES = ("internlm2-20b", "granite-moe-1b-a400m", "mamba2-780m",
+            "zamba2-1.2b", "seamless-m4t-medium", "pixtral-12b")
+
+
+def _families(mesh, inputs: dict) -> dict:
+    """Each of ``FAMILIES`` in f32: the loss, a prefill's last logits, one
+    decode step's logits and the loss's gradients, on whole tensors and
+    with params, batch and caches as DTensors on ``mesh``; for the MoE the
+    placement each ``_shard_experts`` site returned."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    import repro_torch.models.layers.moe as moe
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.dist.sharding import (
+        batch_sharding_tree, distribute_tree, param_sharding)
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.utils.pytree import tree_leaves
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).numpy()
+
+    sites = []
+    orig = moe._shard_experts
+
+    def spy(x, spec):
+        y = orig(x, spec)
+        sites.append((tuple(spec), [str(p) for p in y.placements]
+                      if isinstance(y, DTensor) else None))
+        return y
+
+    moe._shard_experts = spy
+    res = {}
+    try:
+        for arch in FAMILIES:
+            cfg = smoke_config(arch).replace(dtype="float32")
+            if cfg.family == "moe":
+                cfg = cfg.replace(moe_ep_sharding=True)
+            model = build_model(cfg)
+            params = model.init(torch.Generator().manual_seed(0),
+                                device="cpu")
+            toks = torch.from_numpy(inputs["tokens"]).long()
+            labels = torch.from_numpy(inputs["labels"]).long()
+            gen = torch.Generator().manual_seed(1)
+            batch = {"tokens": toks, "labels": labels}
+            if cfg.family == "vlm":
+                batch["patch_embeds"] = torch.randn(
+                    (toks.shape[0], cfg.n_prefix_tokens, cfg.d_model),
+                    generator=gen)
+            if cfg.family == "audio":
+                batch["frames"] = torch.randn(
+                    (toks.shape[0], toks.shape[1], cfg.d_model),
+                    generator=gen)
+            s_max = toks.shape[1] + cfg.n_prefix_tokens * (
+                cfg.family == "vlm") + 4
+            prompt = {k: v for k, v in batch.items() if k != "labels"}
+            got = {}
+            with torch.no_grad():
+                lg, cache = model.prefill(params, prompt, s_max)
+                tok = lg.argmax(-1)
+                got["single"] = (float(model.loss(params, batch)[0]),
+                                 lg.numpy(),
+                                 model.decode(params, tok, cache)[0].numpy())
+                del sites[:]
+                ps = distribute_tree(params, param_sharding(params, mesh))
+                bs = distribute_tree(batch, batch_sharding_tree(batch, mesh))
+                ts = distribute_tree({"t": tok}, batch_sharding_tree(
+                    {"t": tok}, mesh))["t"]
+                with implicit_replication():
+                    loss = model.loss(ps, bs)[0]
+                    slg, scache = model.prefill(
+                        ps, {k: v for k, v in bs.items() if k != "labels"},
+                        s_max)
+                    dlg = model.decode(ps, ts, scache)[0]
+                got["sharded"] = (float(whole(loss)), whole(slg), whole(dlg))
+            got["sites"] = list(sites)
+            with implicit_replication():
+                got["grads"] = [
+                    [whole(g) for g in tree_leaves(
+                        value_and_grad(model, p, b)[2])]
+                    for p, b in ((params, batch), (ps, bs))]
+            res[arch] = got
+    finally:
+        moe._shard_experts = orig
+    return res
+
+
+def _train_step(mesh, inputs: dict) -> dict:
+    """One AdamW step of the smoke qwen in f32 with 2 microbatches, on
+    whole tensors and with params, AdamW state and batch as DTensors on
+    ``mesh``: the loss, the gradient norm and every updated leaf."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.dist.sharding import (
+        batch_sharding_tree, distribute_tree, opt_state_sharding,
+        param_sharding)
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    from repro_torch.utils.pytree import tree_leaves
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).numpy()
+
+    cfg = smoke_config("qwen2.5-3b").replace(dtype="float32")
+    model = build_model(cfg)
+    step = make_train_step(model, TrainConfig(steps=10, warmup=2,
+                                              n_microbatches=2))
+    batch = {k: torch.from_numpy(inputs[k]).long()
+             for k in ("tokens", "labels")}
+    res = {}
+    for tag in ("single", "sharded"):
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        opt = adamw_init(params)
+        b = batch
+        if tag == "sharded":
+            params = distribute_tree(params, param_sharding(params, mesh))
+            opt = distribute_tree(opt, opt_state_sharding(opt, mesh))
+            b = distribute_tree(batch, batch_sharding_tree(batch, mesh))
+        with implicit_replication():
+            params, opt, metrics = step(params, opt, b)
+        res[tag] = (float(whole(metrics["loss"])),
+                    float(whole(metrics["grad_norm"])),
+                    [whole(t.detach()) for t in tree_leaves(params)])
+    return res
 
 
 def spawn_ranks(suite: str, inputs: dict, tmp: Path) -> list[dict]:
