@@ -2807,50 +2807,12 @@ def transfer_modes_phase(np, torch, dev, libs, conv_lib) -> dict:
     return launches[conv_lib.name]
 
 
-def dryrun_phase(np, torch, dev, libs) -> None:
-    """12l. the dry run tied to the card (a ``dryrun`` line): qwen2.5-3b's
-    prefill of B 2 x S 2048 in bf16 through plain attention on a world of
-    one NCCL rank, predicted under fake tensors and then run on the card
-    with params drawn there under the same counters: the predicted FLOPs
-    equal to the counted ones; the predicted peak bytes over the rise of
-    ``torch.cuda.max_memory_allocated``, and the run's ms beside the
-    prediction's roofline terms, printed, not gated. No kernel launches
-    (plain attention). Then one production cell, qwen2.5-3b decode_32k on
-    the (16, 16) mesh under the ``fake`` backend, must be ``ok``."""
-    import torch.distributed as dist
-
-    from repro_torch.configs.registry import get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
-    from repro_torch.models.config import SHAPE_CELLS, ShapeCell
-
-    t_phase = time.perf_counter()
-    cfg = get_config("qwen2.5-3b", dtype="bfloat16")
-    cell = ShapeCell("prefill_2k", LM_SEQ, LM_BATCH, "prefill")
-    store = ROOT / "build" / "chip_smoke_dryrun_store"
-    store.parent.mkdir(exist_ok=True)
-    store.unlink(missing_ok=True)
-    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
-                            rank=0, world_size=1, device_id=dev)
-    _zero(libs)
-    try:
-        tie = dryrun.on_device(cfg, cell, make_local_mesh(), dev)
-    finally:
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
-    torch.cuda.synchronize()
-    launches = {lib.name: dict(lib.launches) for lib in libs}
-    if any(n for d in launches.values() for n in d.values()):
-        fail(f"dryrun: the plain route launched kernels {launches}")
-    torch.cuda.empty_cache()
+def _tie_line(tie: dict, cfg, cell, route) -> dict:
+    """The ``dryrun`` line's record of one card tie (``on_device``)."""
     pred, meas = tie["predicted"], tie["measured"]
-    if pred["flops_per_device"] != meas["flops"] or not meas["flops"] > 0:
-        fail(f"dryrun: predicted {pred['flops_per_device']} FLOPs, counted "
-             f"{meas['flops']} on the card")
-    line = {"cell": {"arch": cfg.name, "kind": cell.kind,
+    return {"cell": {"arch": cfg.name, "kind": cell.kind,
                      "batch": cell.global_batch, "seq": cell.seq_len,
-                     "dtype": cfg.dtype, "route": dryrun.route(cfg),
-                     "mesh": [1, 1]},
+                     "dtype": cfg.dtype, "route": route, "mesh": [1, 1]},
             "flops": {"predicted": pred["flops_per_device"],
                       "counted": meas["flops"]},
             "bytes": {"predicted": pred["bytes_per_device"],
@@ -2865,21 +2827,108 @@ def dryrun_phase(np, torch, dev, libs) -> None:
             "roofline_ms": {k.replace("_term_s", ""): pred[k] * 1e3
                             for k in ("compute_term_s", "memory_term_s",
                                       "collective_term_s")},
-            "bottleneck": pred["bottleneck"], "launches": launches}
+            "bottleneck": pred["bottleneck"]}
 
-    # one production cell under the fake backend, on this machine's torch
-    dryrun.start_fake_world(256)
+
+# production cells the dry run must place on one card's memory: the MoE's
+# expert parallelism, the SSM's heads on "model", the hybrid's decode
+# against its sequence-sharded cache, and qwen2.5-3b's decode
+DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k"),
+                ("granite-moe-1b-a400m", "prefill_32k"),
+                ("mamba2-780m", "prefill_32k"), ("zamba2-1.2b", "decode_32k"))
+
+
+def dryrun_phase(np, torch, dev, libs) -> None:
+    """12l. the dry run tied to the card (a ``dryrun`` line), on a world of
+    one NCCL rank: qwen2.5-3b's prefill of B 2 x S 2048 in bf16 through
+    plain attention, and granite-moe-1b-a400m's through the MoE's
+    expert-parallel branch, each predicted under fake tensors and then run
+    on the card with params drawn there under the same counters: the
+    predicted FLOPs equal to the counted ones; the predicted peak bytes
+    over the rise of ``torch.cuda.max_memory_allocated``, and the run's ms
+    beside the prediction's roofline terms, printed, not gated; granite's
+    last logits against the plain forward's on the same params (bitwise
+    where the op order is the same, else within the MoE's bf16 limit, and
+    the line says which). No kernel launches (plain routes). Then the
+    production cells of ``DRYRUN_CELLS`` on the (16, 16) mesh under the
+    ``fake`` backend must be ``ok``, each with its peak under the card's
+    memory."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.models.config import SHAPE_CELLS, ShapeCell
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-3b", dtype="bfloat16")
+    gcfg = get_config("granite-moe-1b-a400m", dtype="bfloat16")
+    cell = ShapeCell("prefill_2k", LM_SEQ, LM_BATCH, "prefill")
+    store = ROOT / "build" / "chip_smoke_dryrun_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1, device_id=dev)
+    _zero(libs)
     try:
-        rec = dryrun.run_cell(get_config("qwen2.5-3b"), SHAPE_CELLS[2],
-                              make_production_mesh(device_type="cpu"))
+        tie = dryrun.on_device(cfg, cell, make_local_mesh(), dev)
+        torch.cuda.empty_cache()
+        gtie = dryrun.on_device(gcfg, cell, make_local_mesh(), dev,
+                                plain=True)
     finally:
         dist.destroy_process_group()
-    if rec["status"] != "ok":
-        fail(f"dryrun: decode_32k on the (16, 16) mesh: {rec.get('error')}")
-    line["production"] = {k: rec[k] for k in (
-        "arch", "shape", "world", "flops_per_device", "bytes_per_device",
-        "collective_bytes_per_device", "argument_bytes", "peak_bytes",
-        "bottleneck", "run_s")}
+        store.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    launches = {lib.name: dict(lib.launches) for lib in libs}
+    if any(n for d in launches.values() for n in d.values()):
+        fail(f"dryrun: the plain route launched kernels {launches}")
+    torch.cuda.empty_cache()
+    for name, t in (("qwen2.5-3b", tie), ("granite-moe-1b-a400m", gtie)):
+        pred, meas = t["predicted"], t["measured"]
+        if pred["flops_per_device"] != meas["flops"] or not meas["flops"] > 0:
+            fail(f"dryrun: {name} predicted {pred['flops_per_device']} "
+                 f"FLOPs, counted {meas['flops']} on the card")
+    line = _tie_line(tie, cfg, cell, dryrun.route(cfg))
+    line["launches"] = launches
+    got, want = gtie["logits"].float(), gtie["plain_logits"].float()
+    bitwise = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    # the MoE's bf16 limit (tests/test_torch_moe.py): rtol 2e-2, atol 2e-2
+    within = bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
+    if not (bitwise or within) or not torch.isfinite(got).all():
+        fail(f"dryrun: granite's expert-parallel prefill is {err} from the "
+             "plain forward's logits")
+    line["granite"] = dict(
+        _tie_line(gtie, gcfg, cell, dryrun.route(gcfg) + [
+            "expert-parallel MoE"]),
+        logits_vs_plain={"bitwise": bitwise, "max_abs_err": err,
+                         "held": "bitwise" if bitwise
+                         else "rtol 2e-2, atol 2e-2 (bf16)",
+                         "shape": list(got.shape)})
+
+    # the production cells under the fake backend, on this machine's torch
+    cells = {c.name: c for c in SHAPE_CELLS}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    line["production_cells"] = []
+    dryrun.start_fake_world(256)
+    try:
+        mesh = make_production_mesh(device_type="cpu")
+        for arch, shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(get_config(arch), cells[shape], mesh)
+            if rec["status"] != "ok":
+                fail(f"dryrun: {arch} {shape} on the (16, 16) mesh: "
+                     f"{rec.get('error')}")
+            if not rec["peak_bytes"] < total:
+                fail(f"dryrun: {arch} {shape} peaks at {rec['peak_bytes']} "
+                     f"B a device, over the card's {total}")
+            line["production_cells"].append({k: rec[k] for k in (
+                "arch", "shape", "world", "flops_per_device",
+                "bytes_per_device", "collective_bytes_per_device",
+                "argument_bytes", "peak_bytes", "bottleneck", "run_s")})
+    finally:
+        dist.destroy_process_group()
+    line["production"] = line["production_cells"][0]  # the first cell
+    line["card_total_memory"] = total
     line["phase_s"] = time.perf_counter() - t_phase
     print("dryrun " + json.dumps(line))
 

@@ -259,39 +259,83 @@ def layer_at(t, i: int):
     ``DTensor`` not sharded on its layer dim, the slice of its local
     tensor as a ``DTensor`` (a view: writes reach the stack), since
     DTensor's own ``select`` and ``unbind`` gather the whole stack."""
-    return layers_of(t)[i] if is_dtensor(t) else t[i]
+    if not is_dtensor(t) or any(p.is_shard(0) for p in t.placements):
+        return t[i]
+    return _layer(t, t.to_local()[i])
 
 
 def layers_of(t) -> tuple:
     """``t.unbind(0)``, with :func:`layer_at`'s rule for a ``DTensor``."""
-    from torch.distributed.tensor import DTensor, Shard
-
     if not is_dtensor(t) or any(p.is_shard(0) for p in t.placements):
         return t.unbind(0)
-    mesh = t.device_mesh
+    return tuple(_layer(t, u) for u in t.to_local().unbind(0))
+
+
+def _layer(t, local):
+    """``local``, one layer of the stacked ``DTensor`` ``t``'s local
+    tensor, as a ``DTensor`` of one layer's shape."""
+    from torch.distributed.tensor import DTensor, Shard
+
     placements = [Shard(p.dim - 1) if p.is_shard() else p
                   for p in t.placements]
     shape = t.shape[1:]
     stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
-    return tuple(DTensor.from_local(u, mesh, placements, shape=shape,
-                                    stride=stride)
-                 for u in t.to_local().unbind(0))
+    return DTensor.from_local(local, t.device_mesh, placements, shape=shape,
+                              stride=stride)
 
 
-def column_halves(w) -> tuple:
-    """The two halves of a ``DTensor`` weight's last dim (a gated
-    product's ``[gate | up]``), each on ``w``'s own placements. A product
-    over the whole ``w`` comes out sharded on the last dim, where a shard
-    can hold columns of both halves; DTensor's ``chunk`` then reshards the
-    activations (an all-to-all onto the sequence) before products that
-    merge batch and sequence can run. Gathering the weight instead moves
-    its bytes, not the activations', and keeps each half column-parallel."""
+def few_rows(x) -> bool:
+    """Whether the ``DTensor`` activation ``x`` [..., D] holds fewer rows
+    on this rank than it has features, with no gradient taken (a decode
+    step): a product over it then moves fewer bytes by gathering its
+    output's columns than by gathering its weight's (``column_segments``),
+    a weight having D rows. Under grad the weight's segments are taken
+    whatever the rows: the backward of a gathered output repeats work
+    on every "model" rank."""
+    import torch
+
+    return (not torch.is_grad_enabled()
+            and math.prod(x.to_local().shape[:-1]) < x.shape[-1])
+
+
+def column_segments(w, widths: Mapping[str, int]) -> dict:
+    """The named column segments of a weight's last dim, ``widths`` wide in
+    order (a gated product's ``[gate | up]``, the SSM projection's ``[z |
+    x | B | C | dt]``); for a ``DTensor`` each on ``w``'s own placements.
+    The rules split the last dim evenly, not on the segments' boundaries,
+    so a product over the whole ``w`` comes out with a shard holding
+    columns of several segments, and splitting it reshards the
+    activations. Gathering the weight instead moves its bytes, not the
+    activations', and keeps each segment column-parallel."""
+    parts = list(widths.values())
+    if not is_dtensor(w):
+        return dict(zip(widths, w.split(parts, dim=-1)))
     from torch.distributed.tensor import Replicate
 
     mesh = w.device_mesh
     whole = w.redistribute(mesh, [Replicate()] * mesh.ndim)
-    return tuple(h.redistribute(mesh, w.placements)
-                 for h in whole.chunk(2, dim=-1))
+    return {name: seg.redistribute(mesh, w.placements)
+            for name, seg in zip(widths, whole.split(parts, dim=-1))}
+
+
+def column_halves(w) -> tuple:
+    """The two halves of a ``DTensor`` weight's last dim (a gated
+    product's ``[gate | up]``), each on ``w``'s own placements
+    (:func:`column_segments`)."""
+    half = w.shape[-1] // 2
+    return tuple(column_segments(w, {"gate": half, "up": half}).values())
+
+
+def model_split(mesh, n: int) -> tuple:
+    """How "model" splits ``n`` heads or experts: (its mesh dim or None,
+    whether it divides ``n``, this rank's first, its count); where it
+    does not divide (or there is no "model"), every rank takes all ``n``."""
+    names = list(mesh.mesh_dim_names)
+    m = names.index("model") if "model" in names else None
+    if m is None or n % mesh.size(m):
+        return m, False, 0, n
+    count = n // mesh.size(m)
+    return m, True, mesh.get_coordinate()[m] * count, count
 
 
 def local_shard(t, placements) -> tuple:
@@ -299,17 +343,74 @@ def local_shard(t, placements) -> tuple:
     this rank's local tensor and its offset into the global tensor, a dim
     at a time (from the mesh coordinate; no tensor op, so it holds under
     ``FakeTensorMode`` too)."""
+    r = t.redistribute(t.device_mesh, placements)
+    return r.to_local(), tuple(shard_start(r, d) for d in range(t.dim()))
+
+
+def rows_to_columns(local, mesh, dims: list):
+    """All-to-alls that move a split from a tensor's dim 0 to its dim 1:
+    ``local`` is this rank's block of rows [b, S, ...] (dim 0 split over
+    the mesh dims ``dims``, outer first, every column here); the result is
+    every row's block of this rank's columns [b x n, S / n, ...] (dim 1
+    split over the same dims in the same order), as ``DTensor``'s
+    ``Shard(0)`` -> ``Shard(1)`` leaves it. One all-to-all a mesh dim
+    (``mesh.get_group(i)``), each moving 1 / n of the block, where
+    DTensor's redistribution on a CPU mesh gathers the whole tensor
+    first."""
+    import torch.distributed._functional_collectives as funcol
+
+    x = local
+    rest = tuple(x.shape[2:])
+    for i in dims:
+        n = mesh.size(i)
+        b, s = x.shape[0], x.shape[1]
+        # column block j of every row to rank j along this dim
+        x = x.reshape(b, n, s // n, *rest).transpose(0, 1).reshape(
+            n * b, s // n, *rest)
+        x = funcol.wait_tensor(funcol.all_to_all_single(
+            x.contiguous(), None, None, mesh.get_group(i)))
+    # the rows arrive with the last dim's sender outermost: put them back
+    # in the global order (the first dim's sender outermost)
+    k = len(dims)
+    sizes = [mesh.size(i) for i in reversed(dims)]
+    x = x.reshape(*sizes, -1, *x.shape[1:])
+    return x.permute(*reversed(range(k)), *range(k, x.dim())).reshape(
+        -1, *x.shape[k + 1:])
+
+
+def shard_start(t, dim: int) -> int:
+    """Where this rank's (even) shard of the ``DTensor`` ``t`` starts on
+    tensor dim ``dim`` (from the mesh coordinate and the shapes)."""
     mesh = t.device_mesh
-    local = t.redistribute(mesh, placements).to_local()
     coord = mesh.get_coordinate()
-    offset = []
-    for d in range(t.dim()):
-        idx = 0
-        for i, pl in enumerate(placements):
-            if pl.is_shard(d):
-                idx = idx * mesh.size(i) + coord[i]
-        offset.append(idx * local.shape[d])
-    return local, tuple(offset)
+    idx, n = 0, 1
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            idx = idx * mesh.size(i) + coord[i]
+            n *= mesh.size(i)
+    return idx * (t.shape[dim] // n)
+
+
+def global_rows(x, start: int, count: int):
+    """Rows ``[start, start + count)`` of a ``DTensor`` batch ``x`` (dim 0
+    on the data axes, whole elsewhere), placed by the batch rule for
+    ``count`` rows (:func:`shard_placements`): each rank writes the rows
+    it holds into zeros, and the sum over the data axes is scattered (one
+    nonzero term a row, so it is exact). A microbatch of the global batch,
+    as the reference's reshape splits it."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = x.device_mesh
+    local, off = x.to_local(), shard_start(x, 0)
+    part = torch.zeros((count, *local.shape[1:]), dtype=local.dtype,
+                       device=local.device)
+    lo, hi = max(start, off), min(start + count, off + local.shape[0])
+    if lo < hi:
+        part[lo - start:hi - start] = local[lo - off:hi - off]
+    return DTensor.from_local(part, mesh, [
+        Partial() if pl.is_shard(0) else pl for pl in x.placements]
+    ).redistribute(mesh, shard_placements(mesh, count))
 
 
 def distribute_tree(tree: Any, shardings: Any) -> Any:

@@ -48,6 +48,7 @@ from repro_torch.dist.sharding import (
     batch_sharding_tree,
     cache_sharding,
     distribute_tree,
+    is_dtensor,
     opt_state_sharding,
     param_sharding,
 )
@@ -232,15 +233,17 @@ def run_cell(cfg, cell, mesh, *, multi_pod: bool = False,
     return rec
 
 
-def on_device(cfg, cell, mesh, device) -> dict:
+def on_device(cfg, cell, mesh, device, *, plain: bool = False) -> dict:
     """A prefill cell predicted and then run on ``device`` (a card) over
     ``mesh`` (a world-of-one mesh there), under the same counters: the
     prediction builds the cell from fake tensors, the run from params
     drawn on the card from a generator seeded 0 and tokens from
     ``np.random.default_rng(0)``. Returns both counts, the prediction's
     roofline terms, the rise of ``torch.cuda.max_memory_allocated`` over
-    what was allocated before the run's inputs, and the wall ms of the run
-    without counters (best of 3, ended by a synchronise)."""
+    what was allocated before the run's inputs, the wall ms of the run
+    without counters (best of 3, ended by a synchronise) and its last
+    logits; with ``plain``, also the last logits of the same prefill on
+    the same params and tokens as plain tensors (no mesh)."""
     import numpy as np
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
@@ -282,10 +285,15 @@ def on_device(cfg, cell, mesh, device) -> dict:
     with torch.no_grad(), implicit_replication():
         for _ in range(3):
             t0 = time.perf_counter()
-            fn(*args)
+            logits = fn(*args)[0]
             torch.cuda.synchronize(device)
             walls.append((time.perf_counter() - t0) * 1e3)
     out["measured"]["ms"] = min(walls)
+    out["logits"] = (logits.full_tensor() if is_dtensor(logits)
+                     else logits)
+    if plain:
+        with torch.no_grad():
+            out["plain_logits"] = fn(params, batch)[0]
     return out
 
 

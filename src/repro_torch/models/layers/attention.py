@@ -52,14 +52,16 @@ def _cache_write(dst: torch.Tensor, new: torch.Tensor,
     ``dst``. A scalar start is clamped so the write fits, as
     ``dynamic_update_slice`` clamps it. With [B] lengths, a row whose
     column falls past S_max is dropped, as the reference's scatter drops
-    it (an idle continuous-batching slot keeps growing past S_max).
+    it (an idle continuous-batching slot keeps growing past S_max); so is
+    one before column 0 (a negative start: a write into one shard of a
+    cache split on its sequence, whose columns start past the write).
 
     The drop takes no host sync (decode writes every layer): each column
-    is clamped to S_max - 1 and written with the value that position must
-    end with — this call's row for it where the call covers it, else what
-    ``dst`` holds there — so every write a clamp sends to the last
-    position carries the same value, and that position keeps its old
-    value unless this call covers it."""
+    is clamped into [0, S_max - 1] and written with the value that
+    position must end with — this call's row for it where the call covers
+    it, else what ``dst`` holds there — so every write a clamp sends to
+    the first or last position carries the same value, and that position
+    keeps its old value unless this call covers it."""
     new = new.to(dst.dtype)
     s = new.shape[1]
     if isinstance(length, int):
@@ -74,10 +76,10 @@ def _cache_write(dst: torch.Tensor, new: torch.Tensor,
         return dst
     length = length.long()
     rows = torch.arange(new.shape[0], device=dst.device)[:, None]  # [B,1]
-    cols = (length[:, None] + steps[None, :]).clamp_max(dst.shape[1] - 1)
+    cols = (length[:, None] + steps[None, :]).clamp(0, dst.shape[1] - 1)
     src = cols - length[:, None]  # the row of ``new`` that covers cols
-    covered = (src >= 0)[..., None, None]
-    src = src.clamp_min(0)[..., None, None].expand(-1, -1, *new.shape[2:])
+    covered = ((src >= 0) & (src < s))[..., None, None]
+    src = src.clamp(0, s - 1)[..., None, None].expand(-1, -1, *new.shape[2:])
     dst[rows, cols] = torch.where(covered, new.gather(1, src), dst[rows, cols])
     return dst
 
@@ -321,6 +323,15 @@ def attend_projected(qf, kf, vf, *, n_heads: int, n_kv: int, head_dim: int,
     return _attend(qf.reshape(b, s, n_heads, head_dim), k, v, **kw)
 
 
+def _positions(offset: Length, s: int, device) -> torch.Tensor:
+    """The absolute positions of ``s`` new tokens after ``offset`` cached
+    ones: [s] for a scalar offset, [B, s] for per-slot lengths."""
+    steps = torch.arange(s, device=device)
+    if _is_scalar(offset):
+        return steps + offset
+    return steps[None] + offset.to(device).reshape(-1, 1)
+
+
 def _attend(q, k, v, *, rope_theta: float, window: int, kv_chunk: int,
             blocks_threshold: int, use_pallas: bool, cache: KVCache | None,
             positions, cross: bool, causal: bool,
@@ -333,9 +344,7 @@ def _attend(q, k, v, *, rope_theta: float, window: int, kv_chunk: int,
     dev = q.device
     offset = cache.length if cache is not None else 0
     if positions is None:
-        steps = torch.arange(s, device=dev)
-        positions = (steps[None] + offset.to(dev).reshape(-1, 1)
-                     if not _is_scalar(offset) else steps + offset)
+        positions = _positions(offset, s, dev)
     if rope_theta > 0 and not cross:  # no rope on cross-attention
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions if k.shape[1] == s
@@ -398,12 +407,14 @@ def _sharded_attn(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int, *,
     rules shard ``wk``'s 256 columns 16 ways for qwen's 2 KV heads) nor
     run the products that merge a batch and a head dim sharded on two
     mesh dims. So q, k and v are redistributed to batch on the data axes
-    and whole heads on "model" where the head count divides it (K / V
-    take the cache's placements where there is one), and the attention
-    runs on each rank's shards, as XLA's partitioner would place it; the
-    cache's local shards are written in place. The output is q's
-    placements again, for ``wo``'s product. A flash call refuses the
-    ``DTensor``s, as every kernel wrapper does."""
+    and whole heads on "model" where the head count divides it (K / V take
+    the cache's placements where there is one), and the attention runs on
+    each rank's shards, as XLA's partitioner would place it; the cache's
+    local shards are written in place. The output is q's placements
+    again, for ``wo``'s product. A cache the rules shard on its sequence
+    (the hybrid's one-layer [B, S_max, ...] cache) is read where it lies
+    (:func:`_seq_sharded_attn`, :func:`_prefill_seq_cache`). A flash call
+    refuses the ``DTensor``s, as every kernel wrapper does."""
     from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.dist.sharding import local_shard, shard_placements
@@ -414,16 +425,21 @@ def _sharded_attn(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int, *,
     mesh = next(t.device_mesh for t in (qf, kf, vf) if is_dtensor(t))
     qf, kf, vf = (t if t is None or is_dtensor(t) else DTensor.from_local(
         t, mesh, [Replicate()] * mesh.ndim) for t in (qf, kf, vf))
-    b = qf.shape[0]
+    b, s = qf.shape[:2]
+    if (cache is not None and not cross and is_dtensor(cache.k)
+            and any(pl.is_shard(1) for pl in cache.k.placements)):
+        if (s > 1 and isinstance(cache.length, int) and cache.length == 0
+                and positions is None):
+            return _prefill_seq_cache(qf, kf, vf, n_heads, n_kv, head_dim,
+                                      cache=cache, **kw)
+        return _seq_sharded_attn(qf, kf, vf, n_heads, n_kv, head_dim,
+                                 cache=cache, positions=positions, **kw)
     q_pl = shard_placements(mesh, b, {2: n_heads})
-    # K / V on the cache's placements where it shards only its batch dim;
-    # else (a plain cache, or the rules sharded another dim: the hybrid's
-    # one-layer cache is [B, S_max, ...]) on its rows, all heads
-    gather = cache is not None and is_dtensor(cache.k) and any(
-        pl.is_shard() and pl.dim != 0 for pl in cache.k.placements)
+    # K / V on the cache's placements where there is one; on batch and
+    # heads without
     if cache is None:
         kv_pl = shard_placements(mesh, b, {2: n_kv})
-    elif is_dtensor(cache.k) and not gather:
+    elif is_dtensor(cache.k):
         kv_pl = cache.k.placements
     else:
         kv_pl = shard_placements(mesh, b)
@@ -445,14 +461,10 @@ def _sharded_attn(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int, *,
             return t[rows]
         return t
 
-    def rows_of(c):
-        if not is_dtensor(c):
-            return c[rows]
-        return local_shard(c, kv_pl)[0] if gather else c.to_local()
-
     lcache = None
     if cache is not None:
-        lk, lv = rows_of(cache.k), rows_of(cache.v)
+        lk, lv = ((c.to_local() if is_dtensor(c) else c[rows])
+                  for c in (cache.k, cache.v))
         length = cache.length
         lcache = KVCache(lk, lv, local(length, not _is_scalar(length)))
     if positions is not None:
@@ -467,10 +479,151 @@ def _sharded_attn(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int, *,
     out, new = _attend(q, k, v, cache=lcache, positions=positions,
                        use_pallas=False, cross=cross, kv_heads=kv_heads, **kw)
     out = DTensor.from_local(out, mesh, q_pl)
-    if gather and not cross:  # the gathered rows back into the cache
-        cache.k.copy_(DTensor.from_local(lk, mesh, kv_pl))
-        cache.v.copy_(DTensor.from_local(lv, mesh, kv_pl))
     if new is not None:
         new = KVCache(cache.k, cache.v,
                       cache.length if cross else cache.length + q.shape[1])
     return out, new
+
+
+def _prefill_seq_cache(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int,
+                       *, cache: KVCache, **kw):
+    """A prompt from position 0 into a cache the rules shard on its
+    sequence: the attention runs over the new K/V on the batch rule's
+    placements (into a fresh cache of the same length with the batch on
+    the data axes, so the K/V are rotated, written and read as
+    :func:`_attend` does on whole tensors), and only the new K/V are moved
+    to the shards that hold their positions."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import zeros as dzeros
+
+    from repro_torch.dist.sharding import (
+        rows_to_columns, shard_placements, shard_start)
+
+    mesh = qf.device_mesh
+    b, s = qf.shape[:2]
+    s_max = cache.k.shape[1]
+    kv_pl = shard_placements(mesh, b, {2: n_kv})
+    fresh = KVCache(*(dzeros((b, s_max, n_kv, head_dim), dtype=cache.k.dtype,
+                             device_mesh=mesh, placements=kv_pl)
+                      for _ in range(2)), 0)
+    out, new = _sharded_attn(qf, kf, vf, n_heads, n_kv, head_dim,
+                             cache=fresh, positions=None, use_pallas=False,
+                             cross=False, **kw)
+    s0 = shard_start(cache.k, 1)
+    seq = [i for i, pl in enumerate(cache.k.placements) if pl.is_shard(1)]
+    for src, dst in ((new.k, cache.k), (new.v, cache.v)):
+        if seq == [i for i, pl in enumerate(kv_pl) if pl.is_shard(0)]:
+            # rows and positions on the same data axes: all-to-alls, then
+            # the heads gathered over "model"
+            src = DTensor.from_local(rows_to_columns(src.to_local(), mesh,
+                                                     seq), mesh,
+                                     [Shard(1) if i in seq else pl
+                                      for i, pl in enumerate(kv_pl)])
+        got = src.redistribute(mesh, dst.placements).to_local()
+        n = max(0, min(s - s0, got.shape[1]))
+        if n:
+            dst.to_local()[:, :n] = got[:, :n]
+    return out, KVCache(cache.k, cache.v, s)
+
+
+def _block_attention(q, k, v, *, causal: bool, window: int, q_offset,
+                     kv_offset, kv_valid):
+    """Attention of q [B, s, H, Dh] over one block of the keys [B,
+    S_blk, Hkv, Dh] whose first position is ``kv_offset``, as
+    :func:`attention_unique` takes it: (the output normalised over the
+    block, in q's type; its log-sum-exp [B, s, H], f32). A row with no
+    valid key in the block gets a log-sum-exp near ``NEG_INF``."""
+    h, dh = q.shape[2], q.shape[3]
+    k = repeat_kv(k, h // k.shape[2])
+    v = repeat_kv(v, h // v.shape[2])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) * (1.0 / math.sqrt(dh))
+    ok = _ok_mask(q.shape[1], k.shape[1], q_offset, causal=causal,
+                  window=window, kv_start=kv_offset, kv_valid=kv_valid,
+                  device=q.device)
+    scores = torch.where(ok[:, None], scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", (p / l).to(q.dtype), v)
+    return out, (m + torch.log(l))[..., 0].transpose(1, 2)
+
+
+def _seq_sharded_attn(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int,
+                      *, cache: KVCache, positions, rope_theta: float,
+                      window: int, causal: bool, **kw):
+    """Attention against a cache the rules shard on its sequence (S_max on
+    the data axes, replicated over "model"), read where it lies: each rank
+    attends its slice of the positions for every row, for the heads its
+    "model" rank takes where their count divides it; the partial outputs
+    and their log-sum-exp are merged over the slices (a collective of [B,
+    s, H/M, Dh + 1], never of the cache). The new K/V (every row's, every
+    head's: the cache is whole over "model") go only into the slice that
+    holds each row's position, per-slot lengths included; a scalar start
+    is clamped so the write fits, as :func:`_cache_write` clamps it. The
+    merge sums in another order than the whole cache's softmax (f32
+    reach)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.dist.sharding import (
+        model_split, shard_placements, shard_start)
+
+    mesh = qf.device_mesh
+    nd = mesh.ndim
+    b, s = qf.shape[:2]
+    m, split, h0, h_l = model_split(mesh, n_heads)
+    heads = [Shard(2) if i == m and split else Replicate()
+             for i in range(nd)]
+    q = qf.redistribute(mesh, heads).to_local().reshape(b, s, h_l, head_dim)
+    k, v = (t.redistribute(mesh, [Replicate()] * nd).to_local().reshape(
+        b, s, n_kv, head_dim) for t in (kf, vf))
+    length = cache.length
+    if is_dtensor(length):
+        length = length.full_tensor()
+    if is_dtensor(positions):
+        positions = positions.full_tensor()
+    dev = q.device
+    if positions is None:
+        positions = _positions(length, s, dev)
+    if rope_theta > 0:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+
+    ck, cv = cache.k.to_local(), cache.v.to_local()
+    s_l, s_max = ck.shape[1], cache.k.shape[1]
+    s0 = shard_start(cache.k, 1)
+    if isinstance(length, int):  # the part of the write in this shard
+        start = min(max(length, 0), s_max - s)
+        lo, hi = max(start, s0), min(start + s, s0 + s_l)
+        if lo < hi:
+            ck[:, lo - s0:hi - s0] = k[:, lo - start:hi - start].to(ck.dtype)
+            cv[:, lo - s0:hi - s0] = v[:, lo - start:hi - start].to(cv.dtype)
+    else:  # each row's start in this shard's columns; outside, dropped
+        start = length.to(dev).long()
+        if start.dim() == 0:
+            start = start.clamp(0, s_max - s).expand(b)
+        _cache_write(ck, k, start - s0)
+        _cache_write(cv, v, start - s0)
+
+    rep = n_heads // n_kv
+    if h0 % rep == 0 and h_l % rep == 0:  # whole groups: a slice
+        kk, vv = (c[:, :, h0 // rep:(h0 + h_l) // rep] for c in (ck, cv))
+    else:
+        idx = torch.tensor([(h0 + j) // rep for j in range(h_l)], device=dev)
+        kk, vv = ck.index_select(2, idx), cv.index_select(2, idx)
+    out, lse = _block_attention(q, kk, vv, causal=causal, window=window,
+                                q_offset=length, kv_offset=s0,
+                                kv_valid=length + s)
+    seq = [i for i, pl in enumerate(cache.k.placements) if pl.is_shard(1)]
+    on_model = [Shard(3) if i == m and split else Replicate()
+                for i in range(nd)]
+    part = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+    every = DTensor.from_local(part, mesh, [
+        Shard(0) if i in seq else q for i, q in enumerate(on_model)]
+    ).redistribute(mesh, on_model).to_local()  # [slices, B, s, H/M, Dh+1]
+    o_r, lse_r = every[..., :-1], every[..., -1:]
+    w = torch.exp(lse_r - lse_r.amax(0, keepdim=True))
+    out = ((w * o_r).sum(0) / w.sum(0)).to(q.dtype)
+    out = DTensor.from_local(out, mesh, heads).redistribute(
+        mesh, shard_placements(mesh, b, {2: n_heads}))
+    return out, KVCache(cache.k, cache.v, cache.length + s)

@@ -196,55 +196,134 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
     With ``state`` and S == 1 the recurrent decode path runs; with ``state``
     and S > 1 (prefill) the SSD starts from it. A ragged S is padded to a
     multiple of the chunk (the padded steps have dt = 0: no decay, no
-    input)."""
-    zxbcdt = x @ p["in_proj"]
-    if is_dtensor(zxbcdt):
-        return _sharded_mamba2(p, zxbcdt, cfg, state, x.dtype)
-    y, new_state = _mamba2_core(p, zxbcdt, cfg, state)
+    input). A ``DTensor`` input or projection takes
+    :func:`_sharded_mamba2`."""
+    if is_dtensor(x) or is_dtensor(p["in_proj"]):
+        return _sharded_mamba2(p, x, cfg, state)
+    din, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    z, xbc, dt = torch.split(x @ p["in_proj"], [din, din + 2 * gn,
+                                                cfg.n_ssm_heads], dim=-1)
+    y, new_state = _mamba2_core(p, z, xbc, dt, cfg, state)
     return y.to(x.dtype) @ p["out_proj"], new_state
 
 
-def _sharded_mamba2(p: dict, zxbcdt, cfg, state: SSMState | None,
-                    dtype: torch.dtype):
-    """The mixer after ``in_proj`` over a ``DTensor``: the projection is
-    gathered over "model" and kept split by batch over the data axes
-    (``shard_placements``), the conv, scan and gated norm run on each
-    rank's rows (DTensor cannot run the scan's products with batch and
-    heads sharded on two mesh dims; the scan is replicated over "model"),
-    and ``out_proj`` takes the result as a ``DTensor`` again. The state's
-    local rows are the new state's, under the state's placements."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+def _sharded_mamba2(p: dict, x, cfg, state: SSMState | None):
+    """:func:`mamba2_apply` over ``DTensor``s, with the heads on "model"
+    where their count divides it (else every "model" rank takes them all)
+    and the rows where the batch rule puts them.
 
-    from repro_torch.dist.sharding import local_shard, shard_placements
+    z, x and dt are split by heads; B and C (groups x state) are whole on
+    every rank. ``in_proj``'s columns are the segments [z | x | B | C |
+    dt], which the rule splits evenly rather than on their boundaries: a
+    device holding at least ``d_model`` tokens takes the weight's segments
+    (``column_segments``: the weight's bytes move), else (``few_rows``) it
+    gathers its rows of the projection (the activations' bytes move). The
+    depthwise conv takes each rank's own channels, the scan and the state
+    its heads, and the gated RMSNorm over all of ``d_inner`` sums its
+    squares over "model" ([B, S, 1]). ``out_proj`` takes ``y`` sharded on
+    its input dim (its weight resharded to rows, the products summed over
+    "model"), or gathered where the rows are few. The state keeps the
+    cache's placements (slots on the data axes): its new heads are
+    gathered over "model" into them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-    mesh = zxbcdt.device_mesh
-    pl = shard_placements(mesh, zxbcdt.shape[0])
-    zl, off = local_shard(zxbcdt, pl)
-    # the mixer's small params whole on every rank; a rank's gradient of
-    # them holds its own rows only: a partial sum over the data axes
-    grad_pl = [Partial() if q.is_shard() else Replicate() for q in pl]
-    lp = {k: v.full_tensor(grad_placements=grad_pl) if is_dtensor(v) else v
-          for k, v in p.items() if k not in ("in_proj", "out_proj")}
-    rows = slice(off[0], off[0] + zl.shape[0])
-    lstate = None if state is None else SSMState(*(
-        t.to_local() if is_dtensor(t) else t[rows] for t in state))
-    y, new = _mamba2_core(lp, zl, cfg, lstate)
-    y = DTensor.from_local(y.to(dtype), mesh, pl)
+    from repro_torch.dist.sharding import (
+        column_segments, few_rows, model_split, shard_placements)
+
+    mesh = (x if is_dtensor(x) else p["in_proj"]).device_mesh
+    nd = mesh.ndim
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * nd)
+    bsz = x.shape[0]
+    din, gn, h, pp = (cfg.d_inner, cfg.ssm_groups * cfg.ssm_state,
+                      cfg.n_ssm_heads, cfg.ssm_head_dim)
+    rows = list(shard_placements(mesh, bsz))
+    data = [i for i, q in enumerate(rows) if q.is_shard()]
+    m, split, h0, h_l = model_split(mesh, h)
+    c0, c1 = h0 * pp, (h0 + h_l) * pp  # this rank's channels of x and z
+
+    def pl(on_data, on_model) -> list:
+        return [on_data if i in data else on_model if i == m and split
+                else Replicate() for i in range(nd)]
+
+    heads = pl(Shard(0), Shard(2))
+    # the gradient of what every "model" rank reads: its own heads' share
+    shared = pl(Shard(0), Partial())
+    x = x.redistribute(mesh, rows)
+    small = not split or few_rows(x)
+    if small:
+        full = (x @ p["in_proj"]).redistribute(mesh, rows).to_local(
+            grad_placements=shared)
+        z = full[..., c0:c1]
+        xs = full[..., din + c0:din + c1]
+        bc = full[..., 2 * din:2 * din + 2 * gn]
+        dt = full[..., 2 * din + 2 * gn + h0:2 * din + 2 * gn + h0 + h_l]
+    else:
+        seg = column_segments(p["in_proj"], {"z": din, "x": din,
+                                             "bc": 2 * gn, "dt": h})
+        z, xs, dt = ((x @ seg[k]).redistribute(mesh, heads).to_local()
+                     for k in ("z", "x", "dt"))
+        bc = (x @ seg["bc"]).redistribute(mesh, rows).to_local(
+            grad_placements=shared)
+
+    def own(v, *spans):  # a small param's (or state's) local channels
+        if is_dtensor(v):
+            v = v.full_tensor(grad_placements=pl(Partial(), Partial()))
+        return torch.cat([v[..., a:b] for a, b in spans], dim=-1)
+
+    conv = ((c0, c1), (din, din + 2 * gn))  # x's channels, then B and C
+    lp = {"conv_w": own(p["conv_w"], *conv), "conv_b": own(p["conv_b"], *conv),
+          "norm_scale": own(p["norm_scale"], (c0, c1))}
+    for k in ("a_log", "d_skip", "dt_bias"):
+        lp[k] = own(p[k], (h0, h0 + h_l))
+    lstate = None
+    if state is not None:
+        ssm_l, conv_l = (
+            (t if is_dtensor(t) else DTensor.from_local(
+                t, mesh, [Replicate()] * nd)).redistribute(mesh, rows)
+            .to_local() for t in state)
+        lstate = SSMState(ssm_l[:, h0:h0 + h_l], own(conv_l, *conv))
+
+    def sum_sq(v):  # [B, S, 1] summed over the "model" ranks' channels
+        return DTensor.from_local(v, mesh, shared).redistribute(
+            mesh, rows).to_local(grad_placements=shared)
+
+    y, new = _mamba2_core(lp, z, torch.cat([xs, bc], dim=-1), dt, cfg,
+                          lstate, sum_sq if split else None)
+    y = DTensor.from_local(y.to(x.dtype), mesh, heads)
+    w = p["out_proj"]
+    if small:
+        out = y.redistribute(mesh, rows) @ w
+    else:
+        if is_dtensor(w):
+            w = w.redistribute(mesh, pl(Replicate(), Shard(0)))
+        out = y @ w  # a partial sum over "model"
     if new is not None:
-        new = SSMState(*(DTensor.from_local(t, mesh, old.placements
-                                            if is_dtensor(old) else pl)
+        tail = new.conv
+        xt = DTensor.from_local(tail[..., :c1 - c0], mesh, heads
+                                ).redistribute(mesh, rows).to_local()
+        new = SSMState(
+            DTensor.from_local(new.ssm, mesh, pl(Shard(0), Shard(1))),
+            DTensor.from_local(torch.cat([xt, tail[..., c1 - c0:]], -1),
+                               mesh, rows))
+        new = SSMState(*(t.redistribute(mesh, old.placements
+                                        if is_dtensor(old) else rows)
                          for t, old in zip(new, state)))
-    return y @ p["out_proj"], new
+    return out.redistribute(mesh, rows), new
 
 
-def _mamba2_core(p: dict, zxbcdt: torch.Tensor, cfg,
-                 state: SSMState | None):
-    """``mamba2_apply`` between the projections: the gated-norm output
-    (f32, [B, S, d_inner]) and the new state."""
-    bsz, s, _ = zxbcdt.shape
-    din, n, g, h, pp = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
-                        cfg.n_ssm_heads, cfg.ssm_head_dim)
-    z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * g * n, h], dim=-1)
+def _mamba2_core(p: dict, z: torch.Tensor, xbc: torch.Tensor,
+                 dt: torch.Tensor, cfg, state: SSMState | None,
+                 sum_sq=None):
+    """``mamba2_apply`` between the projections, over the heads that ``z``
+    [B, S, heads x P], ``xbc`` [B, S, heads x P + 2 G N] and ``dt`` [B, S,
+    heads] hold (``p``'s per-head params and channels are theirs): the
+    gated-norm output (f32, [B, S, heads x P]) and the new state. The
+    norm's mean square is over ``d_inner``: ``sum_sq`` sums the squares
+    over the channels other ranks hold, where given."""
+    bsz, s, din = z.shape
+    n, g, pp = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
+    h = din // pp
     dt = F.softplus(dt.float() + p["dt_bias"])  # [B,S,H]
     a = -torch.exp(p["a_log"])  # [H], negative
 
@@ -279,7 +358,10 @@ def _mamba2_core(p: dict, zxbcdt: torch.Tensor, cfg,
     y = y.reshape(bsz, s, din)
     # gated RMSNorm (mamba2's norm-before-out-proj)
     yf = y.float() * F.silu(z.float())
-    var = yf.square().mean(-1, keepdim=True)
+    if sum_sq is None:
+        var = yf.square().mean(-1, keepdim=True)
+    else:
+        var = sum_sq(yf.square().sum(-1, keepdim=True)) / cfg.d_inner
     return yf * torch.rsqrt(var + 1e-6) * p["norm_scale"], new_state
 
 

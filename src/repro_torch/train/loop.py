@@ -28,7 +28,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import default_device
 from repro_torch.dist.fault import FaultState
-from repro_torch.dist.sharding import is_dtensor
+from repro_torch.dist.sharding import global_rows, is_dtensor
 from repro_torch.models.api import Model
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
@@ -68,20 +68,13 @@ def value_and_grad(model: Model, params, batch):
 
 def _split_micro(x: torch.Tensor, n: int) -> list:
     """``x`` [B, ...] as ``n`` microbatches of B / n rows: contiguous row
-    blocks, as the reference's reshape makes them; for a ``DTensor`` batch
-    each rank's own rows in ``n`` blocks (DTensor cannot split a sharded
-    dim across ranks), so microbatch i holds a different set of the rows
-    and the mean over the n is the same."""
+    blocks, as the reference's reshape makes them. For a ``DTensor`` batch
+    microbatch i is the global rows [i B / n, (i + 1) B / n), placed by
+    the batch rule for B / n rows (``global_rows``)."""
+    rows = x.shape[0] // n
     if is_dtensor(x):
-        from torch.distributed.tensor import DTensor
-
-        local = x.to_local()
-        if local.shape[0] % n:
-            raise ValueError(f"{local.shape[0]} rows a rank do not split "
-                             f"into {n} microbatches")
-        return [DTensor.from_local(c, x.device_mesh, x.placements)
-                for c in local.chunk(n)]
-    r = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+        return [global_rows(x, i * rows, rows) for i in range(n)]
+    r = x.reshape((n, rows) + tuple(x.shape[1:]))
     return [r[i] for i in range(n)]
 
 

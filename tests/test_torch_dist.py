@@ -48,7 +48,8 @@ from repro_torch.models import lm
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw_init
 from repro_torch.utils.pytree import tree_map
-from torch_dist_ranks import FAMILIES, WORLD, spawn_ranks
+from torch_dist_ranks import (
+    FAMILIES, MOE_CASES, SEQ_CASES, WORLD, spawn_ranks)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -330,19 +331,140 @@ def test_expert_sharding_takes_the_reference_sites(ranks):
 
 
 def test_sharded_train_step_matches_whole_tensors(ranks):
-    """One AdamW step (2 microbatches) of the smoke qwen with params,
-    AdamW state and batch as DTensors on the (2, 2) mesh: the loss, the
-    gradient norm and every updated leaf within f32 reach of the step on
-    whole tensors (each rank's microbatches are its own rows, a different
-    split of the same batch: rtol 1e-5)."""
+    """One AdamW step of the smoke qwen with params, AdamW state and batch
+    as DTensors on the (2, 2) mesh: the loss, the gradient norm and every
+    updated leaf within f32 reach of the step on whole tensors (rtol
+    1e-5), with 2 microbatches and with 4 (a rank's 2 rows do not split
+    into 4: F9); microbatch i is the global rows [i B / n, (i + 1) B / n)
+    either way, as the reference's reshape splits them."""
     for res in ranks:
-        single, sharded = res["train_step"]["single"], \
-            res["train_step"]["sharded"]
-        np.testing.assert_allclose(sharded[0], single[0], rtol=1e-5)
-        np.testing.assert_allclose(sharded[1], single[1], rtol=1e-5)
-        assert len(sharded[2]) == len(single[2])
-        for got, want in zip(sharded[2], single[2]):
-            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        for n in (2, 4):
+            single, sharded = res["train_step"][n]["single"], \
+                res["train_step"][n]["sharded"]
+            np.testing.assert_allclose(sharded[0], single[0], rtol=1e-5)
+            np.testing.assert_allclose(sharded[1], single[1], rtol=1e-5)
+            assert len(sharded[2]) == len(single[2])
+            for got, want in zip(sharded[2], single[2]):
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,n", [(8, 2), (4, 4), (8, 4)])
+def test_microbatches_are_global_row_blocks(ranks, b, n):
+    """``_split_micro`` of a DTensor batch gives ``x.reshape(n, B / n,
+    ...)[i]``, where a rank's rows split into n and where they do not
+    (4 rows in 4, 2 a rank: F9), each microbatch placed by the batch rule
+    for its own row count (1 row: replicated)."""
+    for res in ranks:
+        x, micro = res["micro"][(b, n)]
+        assert len(micro) == n
+        want_pl = ["S(0)", "R"] if (b // n) % 2 == 0 else ["R", "R"]
+        for i, (m, pl) in enumerate(micro):
+            assert torch.equal(m, x.reshape(n, b // n, 3)[i])
+            assert pl == want_pl
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=lambda c: "-".join(
+    str(v) for v in c))
+def test_expert_parallel_moe_matches_whole_tensors(ranks, case):
+    """The expert-parallel MoE layer (tokens' rows on "data", experts on
+    "model") against the same layer on whole tensors: every rank's seats
+    (``keep``, the slots) its block of the whole seats and ``f_e`` /
+    ``dropped`` the whole ones, exactly, capacity drops included; granite's
+    output equal (atol 0, f32 and bf16; its k-slots sum in the reference's
+    order), deepseek's within rtol 1e-5 (its shared experts sum over the
+    "model" shards); aux within rtol 1e-6 (a mean of probabilities summed
+    over the ranks); in f32 every gradient within rtol 1e-5 of the leaf's
+    largest."""
+    arch, dt, cf, ep = case
+    for rank, res in enumerate(ranks):
+        got = res["moe_layer"][case]
+        whole, sharded = got["whole"], got["sharded"]
+        top_k = whole["seats"]["keep"].numel() // 128  # 128 tokens
+        block = slice((rank // 2) * 64, (rank // 2 + 1) * 64)  # its rows
+        for k in ("keep", "slot"):
+            want = whole["seats"][k].reshape(top_k, 128)[:, block]
+            assert torch.equal(sharded["seats"][k].reshape(top_k, 64),
+                               want), k
+        for k in ("f_e", "dropped"):
+            assert torch.equal(sharded["seats"][k], whole["seats"][k]), k
+        assert sharded["dropped"] == whole["dropped"]
+        if cf == 0.5:
+            assert whole["dropped"] > 0.1  # seats were dropped
+        if arch.startswith("granite"):
+            assert torch.equal(sharded["out"], whole["out"])
+        else:
+            np.testing.assert_allclose(sharded["out"].float().numpy(),
+                                       whole["out"].float().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(sharded["aux"], whole["aux"], rtol=1e-6)
+        if whole["grads"] is not None:
+            assert sorted(sharded["grads"]) == sorted(whole["grads"])
+            for k, w in whole["grads"].items():
+                np.testing.assert_allclose(
+                    sharded["grads"][k].numpy(), w.numpy(), rtol=1e-5,
+                    atol=1e-5 * float(w.abs().max()), err_msg=k)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SEQ_CASES])
+def test_attention_reads_a_sequence_sharded_cache_where_it_lies(ranks,
+                                                               case):
+    """Attention against a [B, 32, Hkv, Dh] cache the rules shard 2 x 16
+    on its sequence: each rank attends its slice for every row and the
+    slices merge their log-sum-exp (output within rtol 1e-5 of the whole
+    cache's); the new K/V land only in the slice that holds each row's
+    position, so each rank's cache shard is bitwise the whole cache's
+    slice after the write (a prompt from 0, positions 15 and 16 on either
+    side of the slices' boundary, a write across it, a 0-d length,
+    per-slot lengths in different slices and past the end)."""
+    for rank, res in enumerate(ranks):
+        got = res["seq_cache"][case]
+        assert got["placements"] == ["S(1)", "R"]
+        want, out = got["out"]
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        cols = slice((rank // 2) * 16, (rank // 2 + 1) * 16)
+        for shard, whole in got["shards"]:
+            assert torch.equal(shard, whole[:, cols])
+        w_len, s_len = got["length"]
+        assert torch.equal(torch.as_tensor(s_len), torch.as_tensor(w_len))
+
+
+def test_hybrid_decodes_across_the_cache_slices(ranks):
+    """zamba2 (smoke, f32) with its one-layer caches sharded 2 x 16 on the
+    sequence by the rules: a 15-token prompt, then decode steps at
+    positions 15 and 16 (the last column of rank 0's slice, the first of
+    rank 1's); every step's logits within the families' limit of the
+    whole tensors' (rtol 1e-5, atol 1e-5), every cache's K shard the
+    whole K's slice within f32 reach of the projections (1e-5)."""
+    for rank, res in enumerate(ranks):
+        whole, sharded = res["hybrid_steps"]["whole"], \
+            res["hybrid_steps"]["sharded"]
+        assert all(pl == ["S(1)", "R"] for pl in sharded["placements"])
+        assert len(sharded["logits"]) == 3
+        for got, want in zip(sharded["logits"], whole["logits"]):
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+        cols = slice((rank // 2) * 16, (rank // 2 + 1) * 16)
+        for got, want in zip(sharded["k"], whole["k"]):
+            np.testing.assert_allclose(got.numpy(), want[:, cols].numpy(),
+                                       rtol=1e-5, atol=1e-5)
+            assert not got[:, 17 - cols.start:].any() if cols.start else (
+                got[:, 15].any())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_mixer_runs_its_heads_on_model(ranks, arch):
+    """Under DTensors the SSM mixer takes half the heads a rank on the
+    (2, 2) mesh (the families' loss, prefill, decode and gradients above
+    hold the results), through the projection's column segments where a
+    rank holds at least d_model tokens and through its gathered rows
+    where it holds fewer (decode)."""
+    cfg = smoke_config(arch)
+    for res in ranks:
+        calls = res["families"][arch]["mixers"]
+        assert calls and {w for w, _ in calls} == {cfg.d_inner // 2}
+        rows = {r for _, r in calls}
+        assert min(rows) < cfg.d_model <= max(rows)
 
 
 STAGINGS = [f"{m}/{e}" for m in ("polling", "scheduled", "interrupt")

@@ -15,7 +15,15 @@ the CPU:
   counted with their group's size, and the dry run of the dense, moe and
   ssm smoke configs' prefill and decode cells ``ok`` on a (2, 2) and on
   the (16, 16) mesh, and ``main``'s record of a cell ``cell_applicable``
-  rules out.
+  rules out;
+- in one subprocess, three production cells on the (16, 16) mesh through
+  the port's ``run_cell`` and the reference's (granite-moe's prefill_32k,
+  zamba2's decode_32k, mamba2's prefill_32k: the MoE, the hybrid's
+  sequence-sharded cache, the SSM heads): FLOPs a device within 1.10x of
+  the reference's HLO count, the peak within 3x of its memory (argument +
+  output + temp - alias) and under 80e9 B, zamba2's collective bytes
+  within 10x; and at smoke size, a hybrid decode step's collective bytes
+  the same for twice the cache.
 """
 
 import json
@@ -241,3 +249,152 @@ def test_smoke_dryrun_cells_are_ok(fake_runs, world, arch, cell):
     assert rec["route"] == (["plain SSD"] if arch == "mamba2-780m"
                             else ["plain attention"])
     assert set(rec["collectives_by_axis"]) <= {"data", "model"}
+
+
+_PARITY_CODE = r"""
+import json
+import repro.launch.dryrun as ref  # first: 512 host devices for XLA
+import torch.distributed as dist
+import repro_torch.launch.dryrun as d
+from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.config import SHAPE_CELLS, ShapeCell
+cells = {c.name: c for c in SHAPE_CELLS}
+out = {}
+for arch, shape in PARITY_CELLS:
+    r = ref.run_cell(arch, cells[shape])
+    m = r.get("memory_analysis", {})
+    out[f"ref/{arch}/{shape}"] = {
+        "status": r["status"], "flops": r.get("flops_per_device"),
+        "collective": r.get("collective_bytes_per_device"),
+        "memory": sum(m.get(k, 0) for k in (
+            "argument_size_in_bytes", "output_size_in_bytes",
+            "temp_size_in_bytes")) - m.get("alias_size_in_bytes", 0)}
+d.start_fake_world(256)
+try:
+    mesh = make_production_mesh(device_type="cpu")
+    for arch, shape in PARITY_CELLS:
+        r = d.run_cell(get_config(arch), cells[shape], mesh)
+        out[f"port/{arch}/{shape}"] = {
+            "status": r["status"], "error": r.get("error"),
+            "flops": r.get("flops_per_device"),
+            "collective": r.get("collective_bytes_per_device"),
+            "peak": r.get("peak_bytes")}
+    for s_max in (64, 128):
+        r = d.run_cell(smoke_config("zamba2-1.2b"),
+                       ShapeCell("decode_small", s_max, 256, "decode"), mesh)
+        out[f"smoke/{s_max}"] = [r["status"],
+                                 r.get("collective_bytes_per_device")]
+finally:
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+PARITY_CELLS = [("granite-moe-1b-a400m", "prefill_32k"),
+                ("zamba2-1.2b", "decode_32k"), ("mamba2-780m", "prefill_32k")]
+
+
+@pytest.fixture(scope="module")
+def parity_runs():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    code = f"PARITY_CELLS = {PARITY_CELLS!r}\n" + _PARITY_CODE
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch,shape", PARITY_CELLS)
+def test_production_cells_place_their_work_as_the_reference(parity_runs,
+                                                            arch, shape):
+    """The MoE's expert parallelism, the SSM's heads on "model" and the
+    hybrid's decode against its sequence-sharded cache leave each device
+    the reference's share of the work: FLOPs within 1.10x of the
+    reference's HLO count either way, the peak within 3x of its memory and
+    under one card's 80e9 B; zamba2's decode moves within 10x of the
+    reference's collective bytes (the cache is never gathered)."""
+    ref = parity_runs[f"ref/{arch}/{shape}"]
+    port = parity_runs[f"port/{arch}/{shape}"]
+    assert ref["status"] == "ok"
+    assert port["status"] == "ok", port["error"]
+    assert 1 / 1.10 <= port["flops"] / ref["flops"] <= 1.10
+    assert port["peak"] <= 3 * ref["memory"] and port["peak"] < 80e9
+    if arch == "zamba2-1.2b":
+        assert port["collective"] <= 10 * ref["collective"]
+
+
+def test_hybrid_decode_collectives_do_not_grow_with_the_cache(parity_runs):
+    """A zamba2 smoke decode step on the (16, 16) mesh, its cache sharded
+    on S_max: twice the cache, the same collective bytes (each rank
+    attends its slice; the merge moves [B, 1, H/M, Dh + 1])."""
+    (st64, c64), (st128, c128) = parity_runs["smoke/64"], \
+        parity_runs["smoke/128"]
+    assert st64 == st128 == "ok"
+    assert c64 == c128 > 0
+
+
+def _records(tmp_path, port_changes: dict) -> tuple:
+    """A port and a reference JSONL of one hybrid decode_32k cell and one
+    moe train_4k cell (no reference figure), the port's figures changed
+    by ``port_changes``."""
+    ref = {"arch": "zamba2-1.2b", "shape": "decode_32k", "multi_pod": False,
+           "status": "ok", "flops_per_device": 4e9,
+           "collective_bytes_per_device": 3e9,
+           "memory_analysis": {"argument_size_in_bytes": 16e9,
+                               "output_size_in_bytes": 30e9,
+                               "temp_size_in_bytes": 4e9,
+                               "alias_size_in_bytes": 30e9}}
+    port = {"arch": "zamba2-1.2b", "shape": "decode_32k", "multi_pod": False,
+            "status": "ok", "flops_per_device": 4.1e9,
+            "collective_bytes_per_device": 1e9, "peak_bytes": 31e9}
+    port.update(port_changes)
+    train = {"arch": "granite-moe-1b-a400m", "shape": "train_4k",
+             "multi_pod": True, "status": "ok", "flops_per_device": 1e14,
+             "collective_bytes_per_device": 3e12, "peak_bytes": 16e9}
+    ref_train = dict(train, status="error", error="ImportError: x")
+    paths = tmp_path / "port.jsonl", tmp_path / "ref.jsonl"
+    paths[0].write_text(json.dumps(port) + "\n" + json.dumps(train) + "\n")
+    paths[1].write_text(json.dumps(ref) + "\n" + json.dumps(ref_train)
+                        + "\n")
+    return tuple(str(p) for p in paths)
+
+
+@pytest.mark.parametrize("changes,failure", [
+    ({}, None),
+    ({"flops_per_device": 4.5e9}, "FLOPs 1.125x"),
+    ({"flops_per_device": 3.5e9}, "FLOPs 0.875x"),
+    ({"peak_bytes": 103e9}, "peak 1.03e+11 B"),
+    ({"peak_bytes": 61e9}, "3.05x the reference's memory"),
+    ({"collective_bytes_per_device": 3.1e10}, "collective bytes 10.3x"),
+    ({"status": "error", "error": "ValueError: rows"}, "error ValueError"),
+])
+def test_dryrun_compare_holds_the_cells_to_their_limits(tmp_path, capsys,
+                                                        changes, failure):
+    """``dryrun_compare`` reads both packages' JSONL records, puts the
+    reference's memory (argument + output + temp - alias) and the ratios
+    beside each cell, and fails a cell over its limit: FLOPs outside
+    1.10x either way, a peak over 80e9 B, a moe / ssm / hybrid peak over
+    3x the reference's memory, a hybrid decode over 10x its collective
+    bytes, an error; a train cell with no reference figure is held to
+    ``ok`` and the peak only."""
+    from repro_torch.launch import dryrun_compare
+
+    rc = dryrun_compare.main(list(_records(tmp_path, changes)))
+    lines = capsys.readouterr().out.strip().splitlines()
+    summary = json.loads(lines[-1])
+    if failure is None:
+        assert rc == 0 and summary["failed"] == []
+        assert summary["cells"] == {"ok": 2}
+        row = json.loads(lines[0])
+        assert row["ref_memory"] == 20e9
+        assert row["flops_ratio"] == pytest.approx(4.1 / 4)
+        assert "flops_ratio" not in json.loads(lines[1])  # no reference
+    else:
+        assert rc == 1
+        assert any(failure in f for f in summary["failed"]), summary
+    rc = dryrun_compare.main([*_records(tmp_path, changes), "--markdown"])
+    table = capsys.readouterr().out
+    assert "| zamba2-1.2b (16, 16) |" in table
+    assert "| granite-moe-1b-a400m (2, 16, 16) | 1e+14 / 16 GB (no ref)" \
+        in table

@@ -64,6 +64,7 @@ SLICE_MODULES = [
     "repro_torch.examples.elastic_restart",
     "repro_torch.examples.transfer_modes", "repro_torch.launch.dryrun",
     "repro_torch.launch.op_cost", "repro_torch.launch.collective_cost",
+    "repro_torch.launch.dryrun_compare",
 ]
 
 

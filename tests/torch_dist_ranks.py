@@ -6,8 +6,10 @@
 model dim of a (2, 2) mesh, their hop counts and divisibility errors) or
 ``dist`` (the smoke qwen loss sharded on a (2, 2) mesh, the loss, prefill
 and decode of a smoke config of each other family sharded the same way,
-sharded batch staging under the three managements, the kernels' refusal of
-DTensors).
+the expert-parallel MoE layer's seats and outputs, attention against a
+cache sharded on its sequence, the zamba2 decode steps across the cache's
+shards, microbatches of the global batch, sharded batch staging under the
+three managements, the kernels' refusal of DTensors).
 The ranks meet through a ``FileStore`` at ``STORE``, read their inputs
 from the ``.npz`` at ``INPUTS`` and write their readings to
 ``OUT/SUITE-RANK.pt``; ``tests/test_torch_collectives.py`` and
@@ -145,7 +147,11 @@ def sharded_dist(rank: int, world: int, inputs: dict) -> dict:
     out["params_leaves"] = len(tree_leaves(ps))
 
     out["families"] = _families(mesh, inputs)
-    out["train_step"] = _train_step(mesh, inputs)
+    out["train_step"] = {n: _train_step(mesh, inputs, n) for n in (2, 4)}
+    out["moe_layer"] = _moe_layer(mesh)
+    out["seq_cache"] = _seq_cache(mesh)
+    out["hybrid_steps"] = _hybrid_steps(mesh, inputs)
+    out["micro"] = _micro(mesh)
 
     # sharded staging under each management, with and without an engine
     src = SyntheticLMSource(DataConfig(8, 16, seed=3), cfg)
@@ -221,6 +227,7 @@ def _families(mesh, inputs: dict) -> dict:
     from torch.distributed.tensor.experimental import implicit_replication
 
     import repro_torch.models.layers.moe as moe
+    import repro_torch.models.layers.ssm as ssm
     from repro_torch.configs.registry import smoke_config
     from repro_torch.dist.sharding import (
         batch_sharding_tree, distribute_tree, param_sharding)
@@ -241,6 +248,13 @@ def _families(mesh, inputs: dict) -> dict:
         return y
 
     moe._shard_experts = spy
+    mixers = []  # (heads, rows) of each mixer call over DTensors
+    core = ssm._mamba2_core
+
+    def heads_spy(p, z, *args, **kw):
+        mixers.append((z.shape[-1], z.shape[0] * z.shape[1]))
+        return core(p, z, *args, **kw)
+
     res = {}
     try:
         for arch in FAMILIES:
@@ -273,6 +287,7 @@ def _families(mesh, inputs: dict) -> dict:
                                  lg.numpy(),
                                  model.decode(params, tok, cache)[0].numpy())
                 del sites[:]
+                ssm._mamba2_core = heads_spy
                 ps = distribute_tree(params, param_sharding(params, mesh))
                 bs = distribute_tree(batch, batch_sharding_tree(batch, mesh))
                 ts = distribute_tree({"t": tok}, batch_sharding_tree(
@@ -284,7 +299,10 @@ def _families(mesh, inputs: dict) -> dict:
                         s_max)
                     dlg = model.decode(ps, ts, scache)[0]
                 got["sharded"] = (float(whole(loss)), whole(slg), whole(dlg))
+                ssm._mamba2_core = core
             got["sites"] = list(sites)
+            got["mixers"] = list(mixers)
+            del mixers[:]
             with implicit_replication():
                 got["grads"] = [
                     [whole(g) for g in tree_leaves(
@@ -293,13 +311,15 @@ def _families(mesh, inputs: dict) -> dict:
             res[arch] = got
     finally:
         moe._shard_experts = orig
+        ssm._mamba2_core = core
     return res
 
 
-def _train_step(mesh, inputs: dict) -> dict:
-    """One AdamW step of the smoke qwen in f32 with 2 microbatches, on
-    whole tensors and with params, AdamW state and batch as DTensors on
-    ``mesh``: the loss, the gradient norm and every updated leaf."""
+def _train_step(mesh, inputs: dict, n_micro: int) -> dict:
+    """One AdamW step of the smoke qwen in f32 with ``n_micro``
+    microbatches, on whole tensors and with params, AdamW state and batch
+    as DTensors on ``mesh``: the loss, the gradient norm and every updated
+    leaf."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -318,7 +338,7 @@ def _train_step(mesh, inputs: dict) -> dict:
     cfg = smoke_config("qwen2.5-3b").replace(dtype="float32")
     model = build_model(cfg)
     step = make_train_step(model, TrainConfig(steps=10, warmup=2,
-                                              n_microbatches=2))
+                                              n_microbatches=n_micro))
     batch = {k: torch.from_numpy(inputs[k]).long()
              for k in ("tokens", "labels")}
     res = {}
@@ -335,6 +355,205 @@ def _train_step(mesh, inputs: dict) -> dict:
         res[tag] = (float(whole(metrics["loss"])),
                     float(whole(metrics["grad_norm"])),
                     [whole(t.detach()) for t in tree_leaves(params)])
+    return res
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+# (arch, dtype, capacity factor, ep_sharding): the granite and deepseek
+# smoke layers (E 4, top-2 / top-6 with 2 shared experts) at 128 tokens;
+# capacity 1.25 gives C 80 < 3 F (the few-seats layout), 0.5 drops seats,
+# 4.0 gives C 256 >= 3 F (the many-seats layout)
+MOE_CASES = [(a, dt, cf, False) for a in ("granite-moe-1b-a400m",
+                                          "deepseek-moe-16b")
+             for dt in ("float32", "bfloat16") for cf in (1.25, 0.5, 4.0)]
+MOE_CASES.append(("granite-moe-1b-a400m", "float32", 1.25, True))
+
+
+def _moe_layer(mesh) -> dict:
+    """Each of ``MOE_CASES``: the MoE layer on whole tensors and over
+    DTensors (params under the rules, x's rows on "data"): the output,
+    aux, the seats of every call (this rank's block when sharded) and, in
+    f32, the gradients of a weighted sum of the output and aux."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    import repro_torch.models.layers.moe as moe
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.dist.sharding import (
+        batch_sharding_tree, distribute_tree, param_sharding)
+
+    seats = []
+    orig = moe._seats
+
+    def spy(*args, **kw):
+        r = orig(*args, **kw)
+        seats.append({k: getattr(r, k).detach().clone()
+                      for k in ("keep", "slot", "f_e", "dropped")})
+        return r
+
+    res = {}
+    moe._seats = spy
+    try:
+        for arch, dt, cf, ep in MOE_CASES:
+            cfg = smoke_config(arch)
+            dtype = getattr(torch, dt)
+            g = torch.Generator().manual_seed(7)
+            p = moe.moe_params(g, cfg.d_model, cfg.n_experts, cfg.d_expert,
+                               cfg.n_shared_experts, dtype)
+            x = torch.randn(4, 32, cfg.d_model, generator=g).to(dtype)
+            cot = torch.randn(4, 32, cfg.d_model, generator=g).to(dtype)
+            grad = dtype == torch.float32
+            kw = dict(top_k=cfg.top_k, capacity_factor=cf, ep_sharding=ep)
+            x_pl = list(batch_sharding_tree({"x": x}, mesh)["x"].placements)
+            got = {}
+            for tag in ("whole", "sharded"):
+                pt, xt, ct = p, x, cot
+                if tag == "sharded":
+                    pt = distribute_tree(p, param_sharding(p, mesh))
+                    xt = distribute_tensor(x, mesh, x_pl)
+                    ct = distribute_tensor(cot, mesh, x_pl)
+                pt = {k: v.detach().requires_grad_(grad)
+                      for k, v in pt.items()}
+                xt = xt.detach().requires_grad_(grad)
+                del seats[:]
+                with torch.set_grad_enabled(grad), implicit_replication():
+                    y, metrics = moe.moe_apply(pt, xt, **kw)
+                    if grad:
+                        ((y * ct).sum() + 3.0 * metrics.aux_loss).backward()
+                got[tag] = {
+                    "out": _whole(y.detach()), "seats": seats[0],
+                    "aux": float(_whole(metrics.aux_loss.detach())),
+                    "dropped": float(metrics.dropped_frac),
+                    "grads": {k: _whole(v.grad) for k, v in
+                              [*pt.items(), ("x", xt)]} if grad else None}
+            res[(arch, dt, cf, ep)] = got
+    finally:
+        moe._seats = orig
+    return res
+
+
+# (name, cached tokens, new tokens): an int length, a 0-d tensor (a),
+# per-slot [B] lengths (v), over a 32-position cache split 2 x 16 on
+# "data"; positions 15 and 16 are the last column of rank 0's slice and
+# the first of rank 1's
+SEQ_CASES = [("prefill", 0, 5), ("prefill_whole", 0, 32),
+             ("last_col_of_slice_0", 15, 1), ("first_col_of_slice_1", 16, 1),
+             ("across_slices", 14, 3), ("tensor_length", "a16", 1),
+             ("per_slot", "v3,16,20,31", 1), ("per_slot_past_end",
+                                               "v31,32,40,0", 1)]
+
+
+def _seq_cache(mesh) -> dict:
+    """``attend_projected`` against a cache the rules shard on its
+    sequence ([B, S_max, Hkv, Dh], S_max on "data") for each of
+    ``SEQ_CASES``, on whole tensors and over DTensors (q / k / v rows on
+    "data", columns on "model"): the output and, after the write, this
+    rank's cache shards beside the whole cache's."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.dist.sharding import cache_sharding
+    from repro_torch.models.layers.attention import KVCache, attend_projected
+
+    b, s_max, h, hkv, dh = 4, 32, 4, 2, 16
+    res = {}
+    for name, length, s in SEQ_CASES:
+        g = torch.Generator().manual_seed(11)
+        q, k, v = (torch.randn(b, s, n * dh, generator=g)
+                   for n in (h, hkv, hkv))
+        ck, cv = (torch.randn(b, s_max, hkv, dh, generator=g)
+                  for _ in range(2))
+        if isinstance(length, str) and length[0] == "a":
+            length = torch.tensor(int(length[1:]))
+        elif isinstance(length, str):
+            length = torch.tensor([int(n) for n in length[1:].split(",")])
+        kw = dict(n_heads=h, n_kv=hkv, head_dim=dh, rope_theta=10_000.0,
+                  window=0, kv_chunk=16, blocks_threshold=64,
+                  use_pallas=False, positions=None, cross=False, causal=True)
+        with torch.no_grad():
+            whole = KVCache(ck.clone(), cv.clone(), length)
+            o_w, w_new = attend_projected(q, k, v, cache=whole, **kw)
+            cache = KVCache(ck.clone(), cv.clone(), length)
+            sh = cache_sharding(cache, mesh)
+            dcache = KVCache(*(distribute_tensor(t, mesh, list(p.placements))
+                               for t, p in zip(cache[:2], sh[:2])), length)
+            # projections: rows on "data", columns on "model"
+            qkv = [distribute_tensor(t, mesh, [Shard(0), Shard(2)])
+                   for t in (q, k, v)]
+            o_s, new = attend_projected(*qkv, cache=dcache, **kw)
+        res[name] = {"out": (o_w, _whole(o_s)),
+                     "placements": [str(p) for p in dcache.k.placements],
+                     "length": (w_new.length, new.length),
+                     "shards": [(t.to_local().clone(), w) for t, w in
+                                ((dcache.k, whole.k), (dcache.v, whole.v))]}
+    return res
+
+
+def _hybrid_steps(mesh, inputs: dict) -> dict:
+    """The zamba2 smoke model in f32: a prompt of 15 tokens into a 32
+    position cache (sharded 2 x 16 on "data" by the rules), then decode
+    steps at positions 15 and 16 (the last column of rank 0's slice and
+    the first of rank 1's), on whole tensors and over DTensors: each
+    step's logits, and each cache's K shards after the last step."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.dist.sharding import (
+        batch_sharding_tree, distribute_tree, param_sharding)
+    from repro_torch.models.api import build_model
+
+    cfg = smoke_config("zamba2-1.2b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(inputs["tokens"][:, :15]).long()
+    res = {}
+    for tag in ("whole", "sharded"):
+        p, t = params, {"tokens": toks}
+        if tag == "sharded":
+            p = distribute_tree(params, param_sharding(params, mesh))
+            t = distribute_tree(t, batch_sharding_tree(t, mesh))
+        logits = []
+        with torch.no_grad(), implicit_replication():
+            lg, cache = model.prefill(p, t, 32)
+            logits.append(_whole(lg))
+            for _ in range(2):
+                tok = _whole(lg).argmax(-1)
+                if tag == "sharded":
+                    tok = distribute_tree({"t": tok}, batch_sharding_tree(
+                        {"t": tok}, mesh))["t"]
+                lg, cache = model.decode(p, tok, cache)
+                logits.append(_whole(lg))
+        res[tag] = {"logits": logits,
+                    "k": [c["kv"].k.to_local().clone()
+                          if isinstance(c["kv"].k, DTensor) else c["kv"].k
+                          for c in cache],
+                    "placements": [[str(q) for q in c["kv"].k.placements]
+                                   for c in cache] if tag == "sharded"
+                    else None}
+    return res
+
+
+def _micro(mesh) -> dict:
+    """``_split_micro`` of a [B, 3] batch whose rows sit on "data", into n
+    microbatches, for (B, n) where each rank's rows split into n and
+    where they do not: every microbatch whole and its placements."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.sharding import batch_sharding_tree
+    from repro_torch.train.loop import _split_micro
+
+    res = {}
+    for b, n in ((8, 2), (4, 4), (8, 4)):
+        x = torch.arange(b * 3, dtype=torch.int32).reshape(b, 3)
+        d = distribute_tensor(x, mesh, list(batch_sharding_tree(
+            {"x": x}, mesh)["x"].placements))
+        res[(b, n)] = (x, [(_whole(m), [str(p) for p in m.placements])
+                           for m in _split_micro(d, n)])
     return res
 
 
