@@ -306,7 +306,10 @@ STREAM_RUNS = 3  # a transport's first run checks every product
 # a streamed product's or output's RMS must be this far above atol (2e-3)
 # for its check to fail a kernel that is wrong
 STREAM_MIN_RMS = 100 * MATMUL_TOL["float32"][1]
-FAULT_STALL_S = 0.02  # per descriptor on the stalled channel
+# per descriptor on the stalled channel: FAULT_STALL_X times the slowest
+# of 8 healthy 64 KiB probes, and at least FAULT_STALL_MIN_S
+FAULT_STALL_X = 20
+FAULT_STALL_MIN_S = 0.1
 ROUNDS = 7  # alternating timing rounds of a kernel and its library call
 # the moe, continuous-batching, encoder-decoder and vlm lines
 MOE_BATCH, MOE_SEQ, DEEPSEEK_BATCH = 2, 2048, 1
@@ -1094,10 +1097,22 @@ def faults_phase(np) -> None:
 
     try:
         round_trip("drop (tx) + corrupt (rx) on channel 0")
-        inj.stall(1, on=True, stall_s=FAULT_STALL_S)
-        stalled_tx = 0
         # the pass that quarantines a channel also probes it: one 64 KiB
-        # descriptor stalled FAULT_STALL_S against a sibling's, kept out
+        # descriptor on the stalled channel raced against the same one on
+        # a sibling, kept out only at drift_quarantine_ratio (4) times the
+        # sibling's. Both read host clocks, and a sibling's descriptor takes
+        # ~1 ms on a quiet host but a scheduler quantum or more on a loaded
+        # one, so a fixed 20 ms stall let the channel rejoin at once. The
+        # stall is set from the healthy time measured here.
+        probe = np.zeros(recovery.probe_bytes, np.uint8)
+        healthy = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            g.engines[0].tx_async(probe).wait(30.0)
+            healthy.append(time.perf_counter() - t0)
+        stall_s = max(FAULT_STALL_MIN_S, FAULT_STALL_X * max(healthy))
+        inj.stall(1, on=True, stall_s=stall_s)
+        stalled_tx = 0
         while (not g.fault_state.summary()["quarantines"]
                and stalled_tx < 10):
             g.tx(x)
@@ -1105,7 +1120,9 @@ def faults_phase(np) -> None:
             g.check_channel_health()
         if g.quarantined != {1}:
             fail(f"faults: the stalled channel 1 was not quarantined after "
-                 f"{stalled_tx} transfers: {sorted(g.quarantined)}")
+                 f"{stalled_tx} transfers: {sorted(g.quarantined)} "
+                 f"({g.fault_state.summary()['quarantines']} quarantines; "
+                 f"healthy probes {healthy} s, stall {stall_s} s)")
         steps.append({"step": "stall channel 1", "stalled_tx": stalled_tx,
                       "quarantined": sorted(g.quarantined)})
         round_trip("channel 1 quarantined")
@@ -1130,7 +1147,8 @@ def faults_phase(np) -> None:
         fail(f"faults: counters {s}")
     print("faults " + json.dumps({
         "payload_bytes": CH_PAYLOAD, "n_channels": 3, "tag": policy.tag,
-        "stall_s": FAULT_STALL_S, "steps": steps, "summary": summary,
+        "healthy_probe_s": healthy, "stall_s": stall_s,
+        "steps": steps, "summary": summary,
         "events": [list(e) for e in inj.events]}))
 
 
@@ -2807,6 +2825,21 @@ def transfer_modes_phase(np, torch, dev, libs, conv_lib) -> dict:
     return launches[conv_lib.name]
 
 
+def _vs_plain(torch, got, want, what: str) -> dict:
+    """``got`` held against the plain run's ``want``: bitwise, else within
+    the bf16 limit of the MoE's tests (rtol 2e-2, atol 2e-2); fails
+    otherwise or where ``got`` is not finite."""
+    got, want = got.float(), want.float()
+    bitwise = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    within = bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
+    if not (bitwise or within) or not torch.isfinite(got).all():
+        fail(f"dryrun: {what} are {err} from the plain run's")
+    return {"bitwise": bitwise, "max_abs_err": err,
+            "held": "bitwise" if bitwise else "rtol 2e-2, atol 2e-2 (bf16)",
+            "shape": list(got.shape)}
+
+
 def _tie_line(tie: dict, cfg, cell, route) -> dict:
     """The ``dryrun`` line's record of one card tie (``on_device``)."""
     pred, meas = tie["predicted"], tie["measured"]
@@ -2832,10 +2865,21 @@ def _tie_line(tie: dict, cfg, cell, route) -> dict:
 
 # production cells the dry run must place on one card's memory: the MoE's
 # expert parallelism, the SSM's heads on "model", the hybrid's decode
-# against its sequence-sharded cache, and qwen2.5-3b's decode
+# against its sequence-sharded cache, qwen2.5-3b's decode; the B = 1
+# decodes of long_500k, their products split over the idle data axes (at
+# most DRYRUN_FLOPS_RATIO x the reference's FLOPs a device; h2o-danube's
+# holds a 32.5 GB cache, as the reference's does); mamba2's decode_32k
+# with its state head-sharded on "model" (not collective-bound)
 DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k"),
                 ("granite-moe-1b-a400m", "prefill_32k"),
-                ("mamba2-780m", "prefill_32k"), ("zamba2-1.2b", "decode_32k"))
+                ("mamba2-780m", "prefill_32k"), ("zamba2-1.2b", "decode_32k"),
+                ("h2o-danube-1.8b", "long_500k"), ("mamba2-780m", "long_500k"),
+                ("mamba2-780m", "decode_32k"))
+# XLA's FLOPs a device of the reference's partitioned long_500k programs
+# on the (16, 16) mesh (its HLO count from `python -m repro.launch.dryrun`
+# on a CPU; a count, not a measurement of any chip)
+REF_LONG_FLOPS = {"h2o-danube-1.8b": 92_308_480, "mamba2-780m": 17_525_760}
+DRYRUN_FLOPS_RATIO = 1.10
 
 
 def dryrun_phase(np, torch, dev, libs) -> None:
@@ -2849,10 +2893,19 @@ def dryrun_phase(np, torch, dev, libs) -> None:
     beside the prediction's roofline terms, printed, not gated; granite's
     last logits against the plain forward's on the same params (bitwise
     where the op order is the same, else within the MoE's bf16 limit, and
-    the line says which). No kernel launches (plain routes). Then the
-    production cells of ``DRYRUN_CELLS`` on the (16, 16) mesh under the
-    ``fake`` backend must be ``ok``, each with its peak under the card's
-    memory."""
+    the line says which). Then mamba2-780m's bf16 decode step at full
+    width the same way (B 2, one token after a prefill of 2048 into the
+    cache under the port's placements, ``decode_cache_sharding``): FLOPs
+    predicted = counted, the peak over the rise printed, its logits and
+    new SSM state against the plain decode's from the plain prefill
+    (bitwise, else within the bf16 limit, rtol / atol 2e-2; the line says
+    which). No kernel launches in the phase (plain routes: plain
+    attention and ``plain_ssd``; the decode step runs the recurrence).
+    Then the production cells of ``DRYRUN_CELLS`` on the (16, 16) mesh
+    under the ``fake`` backend must be ``ok``, each with its peak under
+    the card's memory, the long_500k cells at most
+    ``DRYRUN_FLOPS_RATIO`` x ``REF_LONG_FLOPS``, mamba2's decode_32k not
+    ``collective``-bound."""
     import torch.distributed as dist
 
     from repro_torch.configs.registry import get_config
@@ -2863,7 +2916,9 @@ def dryrun_phase(np, torch, dev, libs) -> None:
     t_phase = time.perf_counter()
     cfg = get_config("qwen2.5-3b", dtype="bfloat16")
     gcfg = get_config("granite-moe-1b-a400m", dtype="bfloat16")
+    mcfg = get_config("mamba2-780m", dtype="bfloat16")
     cell = ShapeCell("prefill_2k", LM_SEQ, LM_BATCH, "prefill")
+    dcell = ShapeCell("decode_2k", LM_SEQ, LM_BATCH, "decode")
     store = ROOT / "build" / "chip_smoke_dryrun_store"
     store.parent.mkdir(exist_ok=True)
     store.unlink(missing_ok=True)
@@ -2875,6 +2930,9 @@ def dryrun_phase(np, torch, dev, libs) -> None:
         torch.cuda.empty_cache()
         gtie = dryrun.on_device(gcfg, cell, make_local_mesh(), dev,
                                 plain=True)
+        torch.cuda.empty_cache()
+        mtie = dryrun.on_device(mcfg, dcell, make_local_mesh(), dev,
+                                plain=True)
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
@@ -2883,28 +2941,28 @@ def dryrun_phase(np, torch, dev, libs) -> None:
     if any(n for d in launches.values() for n in d.values()):
         fail(f"dryrun: the plain route launched kernels {launches}")
     torch.cuda.empty_cache()
-    for name, t in (("qwen2.5-3b", tie), ("granite-moe-1b-a400m", gtie)):
+    for name, t in (("qwen2.5-3b", tie), ("granite-moe-1b-a400m", gtie),
+                    ("mamba2-780m", mtie)):
         pred, meas = t["predicted"], t["measured"]
         if pred["flops_per_device"] != meas["flops"] or not meas["flops"] > 0:
             fail(f"dryrun: {name} predicted {pred['flops_per_device']} "
                  f"FLOPs, counted {meas['flops']} on the card")
     line = _tie_line(tie, cfg, cell, dryrun.route(cfg))
     line["launches"] = launches
-    got, want = gtie["logits"].float(), gtie["plain_logits"].float()
-    bitwise = bool(torch.equal(got, want))
-    err = float((got - want).abs().max())
-    # the MoE's bf16 limit (tests/test_torch_moe.py): rtol 2e-2, atol 2e-2
-    within = bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
-    if not (bitwise or within) or not torch.isfinite(got).all():
-        fail(f"dryrun: granite's expert-parallel prefill is {err} from the "
-             "plain forward's logits")
     line["granite"] = dict(
         _tie_line(gtie, gcfg, cell, dryrun.route(gcfg) + [
             "expert-parallel MoE"]),
-        logits_vs_plain={"bitwise": bitwise, "max_abs_err": err,
-                         "held": "bitwise" if bitwise
-                         else "rtol 2e-2, atol 2e-2 (bf16)",
-                         "shape": list(got.shape)})
+        logits_vs_plain=_vs_plain(torch, gtie["logits"], gtie["plain_logits"],
+                                  "granite's expert-parallel prefill logits"))
+    line["mamba2_decode"] = dict(
+        _tie_line(mtie, mcfg, dcell, dryrun.route(mcfg) + [
+            "recurrent decode", "state heads on model"]),
+        logits_vs_plain=_vs_plain(torch, mtie["logits"], mtie["plain_logits"],
+                                  "mamba2's decode logits"),
+        state_vs_plain=_vs_plain(torch, mtie["cache"][0],
+                                 mtie["plain_cache"][0],
+                                 "mamba2's new SSM state"))
+    del tie, gtie, mtie
 
     # the production cells under the fake backend, on this machine's torch
     cells = {c.name: c for c in SHAPE_CELLS}
@@ -2921,10 +2979,23 @@ def dryrun_phase(np, torch, dev, libs) -> None:
             if not rec["peak_bytes"] < total:
                 fail(f"dryrun: {arch} {shape} peaks at {rec['peak_bytes']} "
                      f"B a device, over the card's {total}")
+            ref = REF_LONG_FLOPS.get(arch) if shape == "long_500k" else None
+            if ref and not rec["flops_per_device"] <= (DRYRUN_FLOPS_RATIO
+                                                       * ref):
+                fail(f"dryrun: {arch} {shape} does {rec['flops_per_device']}"
+                     f" FLOPs a device, over {DRYRUN_FLOPS_RATIO} x the "
+                     f"reference's {ref}")
+            if (arch, shape) == ("mamba2-780m", "decode_32k") and (
+                    rec["bottleneck"] == "collective"):
+                fail(f"dryrun: {arch} {shape} is collective-bound: "
+                     f"{rec['collective_bytes_per_device']} B a device")
             line["production_cells"].append({k: rec[k] for k in (
                 "arch", "shape", "world", "flops_per_device",
                 "bytes_per_device", "collective_bytes_per_device",
                 "argument_bytes", "peak_bytes", "bottleneck", "run_s")})
+            if ref:
+                line["production_cells"][-1]["flops_vs_reference"] = (
+                    rec["flops_per_device"] / ref)
     finally:
         dist.destroy_process_group()
     line["production"] = line["production_cells"][0]  # the first cell

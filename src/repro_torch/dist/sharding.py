@@ -15,6 +15,12 @@ rules only decide what is profitably partitioned:
 - KV/SSM caches: data-parallel axes on the slot/batch dimension (dim 1 of
   the layer-stacked layout).
 
+The port adds two placements the reference leaves to XLA's partitioner
+(ROADMAP, the dry-run divergences): :func:`decode_cache_sharding` keeps an
+SSM state's heads on "model", where XLA keeps its output state, and
+:func:`contract_on_data` splits a product whose rows the batch rule leaves
+replicated (B = 1) over the idle data axes, as XLA splits it.
+
 Each function returns the input tree with a :class:`Sharding` in place of
 every leaf: the mesh, the ``DTensor`` placements of each mesh dim
 (``Shard(d)`` / ``Replicate()``) and ``.spec``, the reference-style tuple
@@ -173,6 +179,35 @@ def cache_sharding(cache: Any, mesh) -> Any:
     return _map(spec_for, cache)
 
 
+def decode_cache_sharding(cache: Any, mesh) -> Any:
+    """The port's decode-cache placements: ``cache_sharding``'s, except
+    that an SSM state's running state ``[L, B, H, P, N]`` (the ``ssm``
+    leaf of an ``SSMState``) also puts its heads (dim 2) on "model" where
+    H divides it, as the mixer splits them (``model_split``). The
+    reference's rule places only XLA's input, and XLA keeps its output
+    state head-sharded; a cache on the rule's placement would have the
+    new heads gathered over "model" every layer. The conv tail keeps the
+    rule's placement."""
+    sizes = _sizes(mesh)
+
+    def place(tree):
+        if getattr(tree, "_fields", None) == ("ssm", "conv"):
+            ssm = cache_sharding(tree.ssm, mesh)
+            spec = list(ssm.spec)
+            h = _shape(tree.ssm)[2] if len(spec) == 5 else 0
+            if h and "model" in sizes and h % sizes["model"] == 0:
+                spec[2] = "model"
+                ssm = _named(mesh, tuple(spec))
+            return type(tree)(ssm, cache_sharding(tree.conv, mesh))
+        if isinstance(tree, dict):
+            return {k: place(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [place(v) for v in tree]
+        return cache_sharding(tree, mesh)
+
+    return place(cache)
+
+
 def zeros_sharded(tree: Any, shardings: Any, device) -> Any:
     """Zero ``DTensor``s with the shapes and dtypes of ``tree``'s tensor
     leaves (``meta`` tensors will do) under ``shardings``, each rank
@@ -291,11 +326,49 @@ def few_rows(x) -> bool:
     output's columns than by gathering its weight's (``column_segments``),
     a weight having D rows. Under grad the weight's segments are taken
     whatever the rows: the backward of a gathered output repeats work
-    on every "model" rank."""
+    on every "model" rank. Where the rows are also replicated on the data
+    axes (B = 1), :func:`contract_on_data` splits the products over
+    them."""
     import torch
 
     return (not torch.is_grad_enabled()
             and math.prod(x.to_local().shape[:-1]) < x.shape[-1])
+
+
+def contract_on_data(x, w):
+    """``x @ w``; for a ``DTensor`` activation ``x`` [B, ..., K] whose rows
+    the batch rule leaves replicated on the data axes (``_data_axes``
+    finds none for B, as at B = 1) and a ``DTensor`` weight ``w`` [K, N],
+    with no gradient taken, the product split over those idle axes as
+    XLA's partitioner splits it: ``x`` to ``Shard(-1)`` and ``w`` to
+    ``Shard(0)`` on the data axes whose product divides K (local slices of
+    replicated tensors: no bytes move), a product of ``Partial()`` sums
+    there, then an all-reduce back to ``Replicate()``. ``w``'s "model"
+    placement is kept (``x`` is whole there); a ``w`` already split on K
+    takes the plain product. Otherwise every data rank would repeat its
+    "model" shard's whole product."""
+    import torch
+
+    if (torch.is_grad_enabled() or not (is_dtensor(x) and is_dtensor(w))
+            or w.dim() != 2 or any(p.is_shard(0) for p in w.placements)):
+        return x @ w
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = w.device_mesh
+    sizes = _sizes(mesh)
+    names = list(sizes)
+    axes = _data_axes(sizes, x.shape[-1]) or ()
+    data = [names.index(n) for n in axes if sizes[n] > 1]
+    if (not data or _data_axes(sizes, x.shape[0]) is not None
+            or not all(x.placements[i].is_replicate() for i in data)):
+        return x @ w
+    xs = x.redistribute(mesh, [Shard(x.dim() - 1) if i in data
+                               else Replicate() for i in range(mesh.ndim)])
+    ws = w.redistribute(mesh, [Shard(0) if i in data else p
+                               for i, p in enumerate(w.placements)])
+    out = xs @ ws
+    return out.redistribute(mesh, [Replicate() if i in data else p
+                                   for i, p in enumerate(out.placements)])
 
 
 def column_segments(w, widths: Mapping[str, int]) -> dict:

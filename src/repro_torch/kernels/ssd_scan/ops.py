@@ -7,7 +7,10 @@ points in bf16).
 Device rule: a CPU tensor takes the plain version (``ref.py``); a CUDA
 tensor launches the kernel or raises. ``use_kernel=False`` is the only way
 to the plain version on the card (the tests and ``chip_smoke.py`` use it to
-hold the kernel against it).
+hold the kernel against it); :func:`plain_ssd` passes it to every
+``ssd_full`` call made within it, for a model that calls ``ssd_full``
+itself (the dry run's "plain SSD" route on the card,
+``launch/dryrun.py:on_device``).
 
 Gradients: the kernels write into fresh buffers, which carry no
 ``grad_fn``. Where autograd needs a gradient, ``ssd_full`` runs as
@@ -19,6 +22,9 @@ of plain code. ``use_kernel=False`` is plain code, which autograd
 differentiates as it is."""
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -43,11 +49,27 @@ def ssd_state_pass(states, chunk_decay, initial_state=None, *,
     return ssd_state_pass_ref(states, chunk_decay, initial_state)
 
 
+_PLAIN = threading.local()
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """``use_kernel=False`` for every :func:`ssd_full` call made within, in
+    this thread."""
+    before = getattr(_PLAIN, "on", False)
+    _PLAIN.on = True
+    try:
+        yield
+    finally:
+        _PLAIN.on = before
+
+
 def ssd_full(x, dt, a, b, c, *, chunk: int, use_kernel: bool = True,
              initial_state: torch.Tensor | None = None):
     """x: [B,S,H,P]; dt: [B,S,H]; a: [H]; b, c: [B,S,G,N]; S a multiple of
     ``chunk``. Returns (y [B,S,H,P] in x's type, final state [B,H,P,N]
     f32)."""
+    use_kernel = use_kernel and not getattr(_PLAIN, "on", False)
     inputs = (x, dt, a, b, c, initial_state)
     if use_kernel and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in inputs):

@@ -11,7 +11,8 @@ with no card and no allocation: the port's counterpart of the reference's
 256, or 512 with ``--multi-pod``; its collectives move nothing) and builds
 the production mesh over it. Each cell's params, AdamW state, batches and
 caches are fake tensors (``FakeTensorMode``: shapes and dtypes, no
-storage), placed as ``DTensor``s under the sharding rules, and the cell's
+storage), placed as ``DTensor``s under the sharding rules (the caches
+under the port's ``decode_cache_sharding``), and the cell's
 computation (a train step, a prefill, a decode step) runs once under
 :class:`~repro_torch.launch.op_cost.OpCost`: FLOPs, bytes, collective bytes
 and live bytes of one device's shards. The reference compiles the cell and
@@ -46,7 +47,7 @@ from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.dist.sharding import (
     _data_axes,
     batch_sharding_tree,
-    cache_sharding,
+    decode_cache_sharding,
     distribute_tree,
     is_dtensor,
     opt_state_sharding,
@@ -132,7 +133,7 @@ def build_cell(cfg, cell, mesh, generator: torch.Generator,
     t_dist = distribute_tree(tok, batch_sharding_tree(tok, mesh))["tokens"]
     cache = build_model(cfg).init_cache(cell.global_batch, cell.seq_len,
                                         device=device)
-    c_dist = distribute_tree(cache, cache_sharding(cache, mesh))
+    c_dist = distribute_tree(cache, decode_cache_sharding(cache, mesh))
     return model.decode, (p_dist, t_dist, c_dist), {}
 
 
@@ -234,23 +235,38 @@ def run_cell(cfg, cell, mesh, *, multi_pod: bool = False,
 
 
 def on_device(cfg, cell, mesh, device, *, plain: bool = False) -> dict:
-    """A prefill cell predicted and then run on ``device`` (a card) over
-    ``mesh`` (a world-of-one mesh there), under the same counters: the
-    prediction builds the cell from fake tensors, the run from params
-    drawn on the card from a generator seeded 0 and tokens from
-    ``np.random.default_rng(0)``. Returns both counts, the prediction's
-    roofline terms, the rise of ``torch.cuda.max_memory_allocated`` over
-    what was allocated before the run's inputs, the wall ms of the run
-    without counters (best of 3, ended by a synchronise) and its last
-    logits; with ``plain``, also the last logits of the same prefill on
-    the same params and tokens as plain tensors (no mesh)."""
+    """A prefill or decode cell predicted and then run on ``device`` (a
+    card) over ``mesh`` (a world-of-one mesh there), under the same
+    counters and through the dry run's plain routes (plain attention,
+    ``plain_ssd``): the prediction builds the cell from fake tensors, the
+    run from params drawn on the card from a generator seeded 0 and tokens
+    from ``np.random.default_rng(0)``. A decode cell's run takes its
+    cache, under the port's placements (``decode_cache_sharding``), from a
+    prefill of the cell's ``seq_len`` tokens, and then the next token; the
+    prefill is set-up (the peak is taken after it), and each run of the
+    step starts from the same prefilled cache. Returns both counts, the
+    prediction's roofline terms, the rise of
+    ``torch.cuda.max_memory_allocated`` over what was allocated before the
+    run's inputs, the wall ms of the run without counters (best of 3,
+    ended by a synchronise) and its last logits (a decode cell: also its
+    new cache's tensors, whole, in order: ``cache``); with ``plain``, also
+    the same from the same params and tokens as plain tensors (no mesh):
+    ``plain_logits`` (and ``plain_cache``)."""
+    from repro_torch.kernels.ssd_scan.ops import plain_ssd
+
+    if cell.kind not in ("prefill", "decode"):
+        raise ValueError("on_device runs prefill and decode cells, not "
+                         f"{cell.kind!r}")
+    cfg = cfg.replace(use_pallas_attention=False)
+    with plain_ssd():
+        return _on_device(cfg, cell, mesh, device, plain)
+
+
+def _on_device(cfg, cell, mesh, device, plain: bool) -> dict:
     import numpy as np
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
-    if cell.kind != "prefill":
-        raise ValueError(f"on_device runs prefill cells, not {cell.kind!r}")
-    cfg = cfg.replace(use_pallas_attention=False)
     with FakeTensorMode():
         fn, args, _ = build_cell(cfg, cell, mesh,
                                  torch.Generator().manual_seed(0), device)
@@ -258,6 +274,7 @@ def on_device(cfg, cell, mesh, device, *, plain: bool = False) -> dict:
     del fn, args
     world = math.prod(mesh.shape)
     out = {"predicted": record(cfg, cell, mesh, pred, world)}
+    decode = cell.kind == "decode"
 
     torch.cuda.synchronize(device)
     base = torch.cuda.memory_allocated(device)
@@ -265,14 +282,33 @@ def on_device(cfg, cell, mesh, device, *, plain: bool = False) -> dict:
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0), device)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (cell.global_batch, cell.seq_len),
+        0, cfg.vocab, (cell.global_batch, cell.seq_len + decode),
         dtype=np.int32)).to(device)
-    batch = {"tokens": toks}
-    args = (distribute_tree(params, param_sharding(params, mesh)),
-            distribute_tree(batch, batch_sharding_tree(batch, mesh)))
+    batch = {"tokens": toks[:, :cell.seq_len]}
+    p_dist = distribute_tree(params, param_sharding(params, mesh))
+    b_dist = distribute_tree(batch, batch_sharding_tree(batch, mesh))
+    cache, filled = None, []
+    if decode:
+        tok = toks[:, cell.seq_len:]
+        t_dist = distribute_tree({"t": tok}, batch_sharding_tree(
+            {"t": tok}, mesh))["t"]
+        with torch.no_grad(), implicit_replication():
+            cache = model.prefill(p_dist, b_dist, cell.seq_len)[1]
+        # kept on the host, out of the card's peak
+        filled = [t.to_local().cpu() for t in _tensors(cache)]
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        args = (p_dist, t_dist, cache)
+        fn = model.decode
+    else:
+        args = (p_dist, b_dist)
 
-    def fn(p, b):
-        return model.prefill(p, b, cell.seq_len)
+        def fn(p, b):
+            return model.prefill(p, b, cell.seq_len)
+
+    def refill():  # a decode step's prefilled cache again, in place
+        for t, f in zip(_tensors(cache), filled):
+            t.to_local().copy_(f)
 
     real = measure(fn, args, train=False)
     torch.cuda.synchronize(device)
@@ -284,17 +320,40 @@ def on_device(cfg, cell, mesh, device, *, plain: bool = False) -> dict:
     walls = []
     with torch.no_grad(), implicit_replication():
         for _ in range(3):
+            refill()
+            torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            logits = fn(*args)[0]
+            logits, new = fn(*args)
             torch.cuda.synchronize(device)
             walls.append((time.perf_counter() - t0) * 1e3)
     out["measured"]["ms"] = min(walls)
-    out["logits"] = (logits.full_tensor() if is_dtensor(logits)
-                     else logits)
+    out["logits"] = _whole(logits)
+    if decode:
+        out["cache"] = [_whole(t) for t in _tensors(new)]
     if plain:
         with torch.no_grad():
-            out["plain_logits"] = fn(params, batch)[0]
+            if decode:
+                pcache = model.prefill(params, batch, cell.seq_len)[1]
+                out["plain_logits"], pcache = model.decode(params, tok,
+                                                           pcache)
+                out["plain_cache"] = _tensors(pcache)
+            else:
+                out["plain_logits"] = fn(params, batch)[0]
     return out
+
+
+def _whole(t):
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _tensors(tree) -> list:
+    """The tensor leaves of a cache tree (dicts, lists, NamedTuples), in
+    order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 def start_fake_world(world: int) -> None:

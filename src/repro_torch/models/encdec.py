@@ -22,7 +22,8 @@ import math
 import torch
 
 from repro_torch.device import default_device
-from repro_torch.dist.sharding import batch_sharded, is_dtensor, layer_at
+from repro_torch.dist.sharding import (
+    batch_sharded, contract_on_data, is_dtensor, layer_at)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (
     KVCache,
@@ -241,11 +242,13 @@ def _dec_block_cached(cfg, p, x, self_cache: KVCache, cross_cache: KVCache):
     b, s, _ = x.shape
     xq = apply_norm(cfg.norm, p["ln_x"], x)
     o, _ = attend_projected(
-        xq @ p["xattn"]["wq"] + p["xattn"].get("bq", 0), None, None,
+        contract_on_data(xq, p["xattn"]["wq"]) + p["xattn"].get("bq", 0),
+        None, None,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
         rope_theta=0.0, window=0, kv_chunk=cfg.attn_kv_chunk,
         blocks_threshold=cfg.attn_blocks_threshold, use_pallas=False,
         cache=cross_cache, positions=None, cross=True, causal=False)
-    x = x + o.reshape(b, s, cfg.n_heads * cfg.head_dim_) @ p["xattn"]["wo"]
+    x = x + contract_on_data(o.reshape(b, s, cfg.n_heads * cfg.head_dim_),
+                             p["xattn"]["wo"])
     x = x + mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp)
     return x, new_self, cross_cache

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import default_device
 from repro_torch.dist.sharding import (
-    batch_sharded, column_halves, is_dtensor, layer_at)
+    batch_sharded, column_halves, contract_on_data, is_dtensor, layer_at)
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (
@@ -114,38 +114,40 @@ def _shared_block(cfg: ModelConfig, shared: dict, loras: dict, gi: int,
     """Shared attention+MLP over concat([x, x0]) with group-gi LoRA.
 
     Returns (new_x [B,S,D], new_cache); the cache's K/V are written in
-    place."""
+    place. Rows replicated on the data axes (B = 1) split each product's
+    contraction over them (``contract_on_data``)."""
     hd = _head_dim2(cfg)
     b, s, _ = x.shape
+    mm = contract_on_data
     h = torch.cat([x, x0], dim=-1)
     hn = apply_norm(cfg.norm, shared["ln1"], h)
 
     p = shared["attn"]
     # LoRA on q
-    q = hn @ p["wq"] + (hn @ layer_at(loras["a_q"], gi)) @ layer_at(
-        loras["b_q"], gi)
+    q = mm(hn, p["wq"]) + mm(mm(hn, layer_at(loras["a_q"], gi)),
+                             layer_at(loras["b_q"], gi))
     o, new_cache = attend_projected(
-        q, hn @ p["wk"], hn @ p["wv"], n_heads=cfg.n_heads,
+        q, mm(hn, p["wk"]), mm(hn, p["wv"]), n_heads=cfg.n_heads,
         n_kv=cfg.n_kv_heads, head_dim=hd, rope_theta=cfg.rope_theta,
         window=0, kv_chunk=cfg.attn_kv_chunk,
         blocks_threshold=cfg.attn_blocks_threshold, use_pallas=False,
         cache=cache, positions=None, cross=False, causal=True)
-    h = batch_sharded(h + o.reshape(b, s, cfg.n_heads * hd) @ p["wo"])
+    h = batch_sharded(h + mm(o.reshape(b, s, cfg.n_heads * hd), p["wo"]))
 
     h2 = apply_norm(cfg.norm, shared["ln2"], h)
     wi, b_mlp = shared["mlp"]["wi"], layer_at(loras["b_mlp"], gi)
-    lo = h2 @ layer_at(loras["a_mlp"], gi)
+    lo = mm(h2, layer_at(loras["a_mlp"], gi))
     if cfg.mlp == "gated_silu" and is_dtensor(wi):
         # the [gate | up] columns a half at a time (``column_halves``)
         (wg, wu), (bg, bu) = column_halves(wi), column_halves(b_mlp)
-        z = F.silu(h2 @ wg + lo @ bg) * (h2 @ wu + lo @ bu)
+        z = F.silu(mm(h2, wg) + mm(lo, bg)) * (mm(h2, wu) + mm(lo, bu))
     elif cfg.mlp == "gated_silu":
         gate, up = (h2 @ wi + lo @ b_mlp).chunk(2, dim=-1)
         z = F.silu(gate) * up
     else:  # jax.nn.gelu's default
-        z = F.gelu(h2 @ wi + lo @ b_mlp, approximate="tanh")
-    h = batch_sharded(h + z @ shared["mlp"]["wo"])
-    return h @ shared["proj_out"], new_cache
+        z = F.gelu(mm(h2, wi) + mm(lo, b_mlp), approximate="tanh")
+    h = batch_sharded(h + mm(z, shared["mlp"]["wo"]))
+    return mm(h, shared["proj_out"]), new_cache
 
 
 def _mamba_group_scan(cfg: ModelConfig, gparams: dict, x: torch.Tensor,

@@ -28,7 +28,7 @@ from typing import NamedTuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import is_dtensor
+from repro_torch.dist.sharding import contract_on_data, is_dtensor
 from repro_torch.models.layers.rope import apply_rope
 
 NEG_INF = -2.0**30  # large-but-finite; avoids NaN from (-inf) - (-inf)
@@ -294,19 +294,22 @@ def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     positions for RoPE (defaults to arange, offset by cache.length when
     decoding). ``use_pallas`` sends self-attention without a cache to the
     flash kernel; ``pallas_interpret`` is accepted and means nothing here.
-    Projections that come out as ``DTensor``s take :func:`_sharded_attn`."""
+    Projections that come out as ``DTensor``s take :func:`_sharded_attn`;
+    rows replicated on the data axes (B = 1) split each projection's
+    contraction over them (``contract_on_data``)."""
     b, s, _ = x.shape
     src = x if xk is None else xk
-    qf = x @ p["wq"] + p.get("bq", 0)
-    kf = src @ p["wk"] + p.get("bk", 0)
-    vf = src @ p["wv"] + p.get("bv", 0)
+    qf = contract_on_data(x, p["wq"]) + p.get("bq", 0)
+    kf = contract_on_data(src, p["wk"]) + p.get("bk", 0)
+    vf = contract_on_data(src, p["wv"]) + p.get("bv", 0)
     kw = dict(rope_theta=rope_theta, window=window, kv_chunk=kv_chunk,
               blocks_threshold=blocks_threshold, use_pallas=use_pallas,
               cache=cache, positions=positions, cross=xk is not None,
               causal=causal)
     o, new_cache = attend_projected(qf, kf, vf, n_heads=n_heads, n_kv=n_kv,
                                     head_dim=head_dim, **kw)
-    return o.reshape(b, s, n_heads * head_dim) @ p["wo"], new_cache
+    return contract_on_data(o.reshape(b, s, n_heads * head_dim),
+                            p["wo"]), new_cache
 
 
 def attend_projected(qf, kf, vf, *, n_heads: int, n_kv: int, head_dim: int,

@@ -222,13 +222,20 @@ def _sharded_mamba2(p: dict, x, cfg, state: SSMState | None):
     its heads, and the gated RMSNorm over all of ``d_inner`` sums its
     squares over "model" ([B, S, 1]). ``out_proj`` takes ``y`` sharded on
     its input dim (its weight resharded to rows, the products summed over
-    "model"), or gathered where the rows are few. The state keeps the
-    cache's placements (slots on the data axes): its new heads are
-    gathered over "model" into them."""
+    "model"), or gathered where the rows are few. Rows replicated on the
+    data axes (B = 1) split both projections' contractions over them
+    (``contract_on_data``). The running state is read from, and its new
+    heads are left in, the placement ``decode_cache_sharding`` gives it
+    (slots on the data axes, heads on "model"): under that placement the
+    state moves no bytes. A state on another placement (the reference's
+    rule, whole over "model") is sliced to the heads and its new heads
+    gathered back into it. The conv tail keeps the rule's placement (slots
+    on the data axes): its new x channels are gathered over "model"."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.dist.sharding import (
-        column_segments, few_rows, model_split, shard_placements)
+        column_segments, contract_on_data, few_rows, model_split,
+        shard_placements)
 
     mesh = (x if is_dtensor(x) else p["in_proj"]).device_mesh
     nd = mesh.ndim
@@ -252,8 +259,8 @@ def _sharded_mamba2(p: dict, x, cfg, state: SSMState | None):
     x = x.redistribute(mesh, rows)
     small = not split or few_rows(x)
     if small:
-        full = (x @ p["in_proj"]).redistribute(mesh, rows).to_local(
-            grad_placements=shared)
+        full = contract_on_data(x, p["in_proj"]).redistribute(
+            mesh, rows).to_local(grad_placements=shared)
         z = full[..., c0:c1]
         xs = full[..., din + c0:din + c1]
         bc = full[..., 2 * din:2 * din + 2 * gn]
@@ -276,13 +283,14 @@ def _sharded_mamba2(p: dict, x, cfg, state: SSMState | None):
           "norm_scale": own(p["norm_scale"], (c0, c1))}
     for k in ("a_log", "d_skip", "dt_bias"):
         lp[k] = own(p[k], (h0, h0 + h_l))
+    state_pl = pl(Shard(0), Shard(1))  # the state's slots and heads
     lstate = None
     if state is not None:
-        ssm_l, conv_l = (
-            (t if is_dtensor(t) else DTensor.from_local(
-                t, mesh, [Replicate()] * nd)).redistribute(mesh, rows)
-            .to_local() for t in state)
-        lstate = SSMState(ssm_l[:, h0:h0 + h_l], own(conv_l, *conv))
+        ssm_t, conv_t = (t if is_dtensor(t) else DTensor.from_local(
+            t, mesh, [Replicate()] * nd) for t in state)
+        lstate = SSMState(ssm_t.redistribute(mesh, state_pl).to_local(),
+                          own(conv_t.redistribute(mesh, rows).to_local(),
+                              *conv))
 
     def sum_sq(v):  # [B, S, 1] summed over the "model" ranks' channels
         return DTensor.from_local(v, mesh, shared).redistribute(
@@ -293,7 +301,7 @@ def _sharded_mamba2(p: dict, x, cfg, state: SSMState | None):
     y = DTensor.from_local(y.to(x.dtype), mesh, heads)
     w = p["out_proj"]
     if small:
-        out = y.redistribute(mesh, rows) @ w
+        out = contract_on_data(y.redistribute(mesh, rows), w)
     else:
         if is_dtensor(w):
             w = w.redistribute(mesh, pl(Replicate(), Shard(0)))
@@ -303,7 +311,7 @@ def _sharded_mamba2(p: dict, x, cfg, state: SSMState | None):
         xt = DTensor.from_local(tail[..., :c1 - c0], mesh, heads
                                 ).redistribute(mesh, rows).to_local()
         new = SSMState(
-            DTensor.from_local(new.ssm, mesh, pl(Shard(0), Shard(1))),
+            DTensor.from_local(new.ssm, mesh, state_pl),
             DTensor.from_local(torch.cat([xt, tail[..., c1 - c0:]], -1),
                                mesh, rows))
         new = SSMState(*(t.redistribute(mesh, old.placements

@@ -34,7 +34,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import default_device
-from repro_torch.dist.sharding import batch_sharded, is_dtensor, layer_at
+from repro_torch.dist.sharding import (
+    batch_sharded, contract_on_data, is_dtensor, layer_at)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import KVCache, attn_apply, attn_params
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
@@ -304,7 +305,8 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
 def head_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """f32 ``x @ head``, as :func:`logits_from_hidden` takes it (a
     ``DTensor`` ``x`` through the up-cast product: DTensor has no rule
-    for ``torch.mm``'s ``out_dtype``)."""
+    for ``torch.mm``'s ``out_dtype``; rows replicated on the data axes
+    split its contraction over them, ``contract_on_data``)."""
     if (x.device.type == "cuda" and x.dtype == torch.bfloat16
             and head.dtype == torch.bfloat16 and not is_dtensor(x)):
         x2 = x.reshape(-1, x.shape[-1])
@@ -314,7 +316,7 @@ def head_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
         else:
             out = torch.mm(x2, head, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], head.shape[-1])
-    return torch.matmul(x.float(), head.float())
+    return contract_on_data(x.float(), head.float())
 
 
 class _HeadProduct(torch.autograd.Function):
@@ -380,15 +382,16 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, s_max: int,
 def cache_for(x: torch.Tensor, make: Callable):
     """``make(device)``, a new decode cache for ``x``'s rows, on ``x``'s
     device; for a ``DTensor`` ``x`` a tree of ``DTensor``s under
-    ``cache_sharding`` on ``x``'s mesh (slots on the data axes), each rank
-    allocating only its shard (``zeros_sharded``; the tree is laid out on
-    the ``meta`` device first)."""
+    ``decode_cache_sharding`` on ``x``'s mesh (slots on the data axes, an
+    SSM state's heads on "model"), each rank allocating only its shard
+    (``zeros_sharded``; the tree is laid out on the ``meta`` device
+    first)."""
     if not is_dtensor(x):
         return make(x.device)
-    from repro_torch.dist.sharding import cache_sharding, zeros_sharded
+    from repro_torch.dist.sharding import decode_cache_sharding, zeros_sharded
 
     cache = make("meta")
-    return zeros_sharded(cache, cache_sharding(cache, x.device_mesh),
+    return zeros_sharded(cache, decode_cache_sharding(cache, x.device_mesh),
                          x.device)
 
 

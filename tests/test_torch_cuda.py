@@ -1341,3 +1341,30 @@ def test_dryrun_cell_predicted_equals_counted_on_the_card(dev, nccl_world):
     assert pred["flops_per_device"] == meas["flops"] > 0
     assert pred["bytes_per_device"] == meas["bytes"]
     assert meas["max_memory_allocated_rise"] > 0 and meas["ms"] > 0
+
+
+def test_dryrun_decode_cell_predicted_equals_counted_on_the_card(
+        dev, nccl_world):
+    """The mamba2 smoke model's f32 decode cell on the world-of-one mesh:
+    a prefill of 64 tokens into the cache under the port's placements,
+    then one step: the prediction's FLOPs and bytes are the card run's,
+    its logits and new state within f32 reach of the plain decode's
+    (rtol 1e-5, atol 1e-5), and no SSD kernel launched (``plain_ssd``)."""
+    from repro_torch.kernels.ssd_scan.kernel import SSD
+    from repro_torch.launch.dryrun import on_device
+    from repro_torch.models.config import ShapeCell
+
+    cfg = smoke_config("mamba2-780m").replace(dtype="float32")
+    before = dict(SSD.launches)
+    out = on_device(cfg, ShapeCell("decode_small", 64, 2, "decode"),
+                    nccl_world, dev, plain=True)
+    torch.cuda.synchronize()
+    assert dict(SSD.launches) == before
+    pred, meas = out["predicted"], out["measured"]
+    assert pred["flops_per_device"] == meas["flops"] > 0
+    assert pred["bytes_per_device"] == meas["bytes"]
+    for got, want in ((out["logits"], out["plain_logits"]),
+                      *zip(out["cache"], out["plain_cache"])):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)

@@ -13,8 +13,12 @@
   under ``batch_sharding_tree`` on a (2, 2) mesh against the loss on whole
   tensors (rtol 1e-5, as ``tests/test_sharding.py`` holds the reference),
   ``StagedPipeline(shardings=)`` staging each rank's shard under the three
-  managements with and without an engine, and every kernel wrapper
-  refusing a ``DTensor``;
+  managements with and without an engine, every kernel wrapper
+  refusing a ``DTensor``, and B = 1 decodes (h2o-danube's sliding
+  window, mamba2's state) against whole tensors with each product's
+  contraction split over "data" and the SSM state never gathered;
+- ``decode_cache_sharding``: the reference's rule but for the SSM
+  state's heads on "model";
 - ``core/streaming.py:device_streamed_scan`` against the reference's with
   a stacked MLP and a bf16 -> f32 gather (f32, 1e-5), and against the
   port's ``_stack_scan`` on the smoke qwen (bitwise).
@@ -49,7 +53,7 @@ from repro_torch.models.api import build_model
 from repro_torch.optim import adamw_init
 from repro_torch.utils.pytree import tree_map
 from torch_dist_ranks import (
-    FAMILIES, MOE_CASES, SEQ_CASES, WORLD, spawn_ranks)
+    B1_CASES, FAMILIES, MOE_CASES, SEQ_CASES, WORLD, spawn_ranks)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -177,6 +181,31 @@ def test_sharding_specs_match_reference(arch, size, abstract_trees,
         assert got == want, name
         n_sharded += sum(any(s is not None for s in spec) for spec in got)
     assert n_sharded > 0
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_cache_sharding_puts_the_ssm_heads_on_model(arch, size,
+                                                          abstract_trees):
+    """The port's decode-cache placements are the reference's rule
+    (``cache_sharding``) for every leaf but an SSM state's running state
+    [L, B, H, P, N], which also has its heads on "model" (H divides 16 for
+    mamba2 and zamba2)."""
+    sizes = SIZES[size]
+    caches = abstract_trees[arch][2]
+    for cache in caches.values():
+        got = jax.tree.leaves(sharding.decode_cache_sharding(cache, sizes))
+        want = jax.tree.leaves(sharding.cache_sharding(cache, sizes))
+        leaves = jax.tree.leaves(cache)
+        assert len(got) == len(want) == len(leaves)
+        for g, w, leaf in zip(got, want, leaves):
+            if isinstance(leaf, torch.Tensor) and leaf.dim() == 5 and (
+                    leaf.dtype == torch.float32) and (
+                    get_config(arch).family in ("ssm", "hybrid")):
+                assert g.spec == (*w.spec[:2], "model", None, None)
+                assert str(g.placements[-1]) == "S(2)"
+            else:
+                assert g == w
 
 
 def test_two_mesh_dims_on_one_tensor_dim_are_shard_on_both():
@@ -450,6 +479,73 @@ def test_hybrid_decodes_across_the_cache_slices(ranks):
                                        rtol=1e-5, atol=1e-5)
             assert not got[:, 17 - cols.start:].any() if cols.start else (
                 got[:, 15].any())
+
+
+@pytest.mark.parametrize("arch", [c[0] for c in B1_CASES])
+def test_b1_decode_matches_whole_tensors(ranks, arch):
+    """A B = 1 prompt and decode steps (h2o-danube's smoke window slicing
+    the cache read; three mamba2 steps) over DTensors on the (2, 2) mesh,
+    where the batch rule leaves the rows replicated on "data": every
+    logit within the families' limit of the whole tensors' (f32, rtol
+    1e-5, atol 1e-5)."""
+    for res in ranks:
+        got = res["b1_decode"][arch]
+        whole, sharded = got["whole"]["logits"], got["sharded"]["logits"]
+        assert len(sharded) == len(whole) == 1 + dict(
+            (c[0], c[3]) for c in B1_CASES)[arch]
+        for g, w in zip(sharded, whole):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", [c[0] for c in B1_CASES])
+def test_b1_decode_splits_each_contraction_over_data(ranks, arch):
+    """A B = 1 decode step's products on rank 0 of the (2, 2) mesh, under
+    ``OpCost``: each product of the step on whole tensors [1, K] x [K, N]
+    is [1, K/2] x [K/2, N/2] here (its contraction over "data", its
+    columns over "model": a quarter of its FLOPs), and each product's
+    partial sums are all-reduced over "data", one all-reduce a product."""
+    for res in ranks[:1]:
+        got = res["b1_decode"][arch]
+        whole, sharded = got["whole"]["seen"], got["sharded"]["seen"]
+        assert whole["products"] and whole["collectives"] == []
+        assert sharded["products"] == [
+            ((m, k // 2), (k // 2, n // 2))
+            for (m, k), (_, n) in whole["products"]]
+        reduced = [c for c in sharded["collectives"]
+                   if c[:2] == ("all-reduce", "data")]
+        assert len(reduced) == len(whole["products"])
+        assert [c[2][-1] for c in reduced] == [
+            n // 2 for _, (_, n) in whole["products"]]
+        assert sharded["flops"] < whole["flops"] / 2
+
+
+def test_ssm_state_stays_head_sharded_on_model(ranks):
+    """Three mamba2 decode steps at B = 1 from the port's prefilled cache:
+    the running state stays [Replicate(), Shard(2)] (heads on "model"),
+    each rank's shard its heads of the whole state after the steps (f32,
+    rtol 1e-5, atol 1e-5), and no collective moves the state (no result
+    ends [.., P, N]); the same step from a cache on the reference's rule
+    gathers the new heads over "model" once a layer."""
+    cfg = smoke_config("mamba2-780m")
+    pn = (cfg.ssm_head_dim, cfg.ssm_state)
+    h_l = cfg.n_ssm_heads // 2
+    for rank, res in enumerate(ranks):
+        got = res["b1_decode"]["mamba2-780m"]
+        assert got["placements"] == ["R", "S(2)"]
+        h0 = (rank % 2) * h_l
+        shard, whole = got["sharded"]["state"], got["whole"]["state"]
+        assert shard.shape[2] == h_l
+        np.testing.assert_allclose(shard.numpy(),
+                                   whole[:, :, h0:h0 + h_l].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+        def state_moves(seen):
+            return [c for c in seen["collectives"] if c[2][-2:] == pn]
+
+        assert state_moves(got["sharded"]["seen"]) == []
+        assert state_moves(got["rule_cache"]) == [
+            ("all-gather", "model", (2, h_l, *pn))] * cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])

@@ -173,6 +173,32 @@ def test_cpu_tensors_take_the_plain_version():
     assert ssd_kernel.SSD.launches == launches
 
 
+def test_plain_ssd_passes_use_kernel_false_within(monkeypatch):
+    """``plain_ssd()`` makes every ``ssd_full`` call within it take the
+    plain versions (``use_kernel=False``, as the dry run's card tie asks),
+    and only within it: the same values as ``use_kernel=False``."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    seen = []
+    orig = ops.ssd_intra_chunk
+
+    def spy(*args, use_kernel=True, **kw):
+        seen.append(use_kernel)
+        return orig(*args, use_kernel=use_kernel, **kw)
+
+    monkeypatch.setattr(ops, "ssd_intra_chunk", spy)
+    args = _torch(*_inputs(1, 32, 4, 16, 1, 8, seed=13), "float32")
+    want = ssd_full(*args, chunk=16, use_kernel=False)
+    with ops.plain_ssd():
+        with ops.plain_ssd():  # nested: still plain after the inner exit
+            pass
+        got = ssd_full(*args, chunk=16)
+    ssd_full(*args, chunk=16)
+    assert seen == [False, False, True]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_cuda_binding_refuses_cpu_tensors():
     args = _torch(*_inputs(1, 32, 4, 16, 1, 8), "float32")
     with pytest.raises(ValueError, match="CUDA"):

@@ -8,8 +8,10 @@ model dim of a (2, 2) mesh, their hop counts and divisibility errors) or
 and decode of a smoke config of each other family sharded the same way,
 the expert-parallel MoE layer's seats and outputs, attention against a
 cache sharded on its sequence, the zamba2 decode steps across the cache's
-shards, microbatches of the global batch, sharded batch staging under the
-three managements, the kernels' refusal of DTensors).
+shards, microbatches of the global batch, B = 1 decodes with their
+products split over "data" and the SSM state's heads kept on "model",
+sharded batch staging under the three managements, the kernels' refusal
+of DTensors).
 The ranks meet through a ``FileStore`` at ``STORE``, read their inputs
 from the ``.npz`` at ``INPUTS`` and write their readings to
 ``OUT/SUITE-RANK.pt``; ``tests/test_torch_collectives.py`` and
@@ -152,6 +154,7 @@ def sharded_dist(rank: int, world: int, inputs: dict) -> dict:
     out["seq_cache"] = _seq_cache(mesh)
     out["hybrid_steps"] = _hybrid_steps(mesh, inputs)
     out["micro"] = _micro(mesh)
+    out["b1_decode"] = _b1_decode(mesh)
 
     # sharded staging under each management, with and without an engine
     src = SyntheticLMSource(DataConfig(8, 16, seed=3), cfg)
@@ -535,6 +538,109 @@ def _hybrid_steps(mesh, inputs: dict) -> dict:
                     "placements": [[str(q) for q in c["kv"].k.placements]
                                    for c in cache] if tag == "sharded"
                     else None}
+    return res
+
+
+# (arch, prompt tokens, cache positions, decode steps) of the B = 1
+# decodes: h2o-danube's smoke window (32) slices the cache read once the
+# cache holds over 128 positions; mamba2's state stays O(1)
+B1_CASES = (("h2o-danube-1.8b", 144, 160, 1), ("mamba2-780m", 16, 16, 3))
+
+
+def _b1_decode(mesh) -> dict:
+    """Each of ``B1_CASES`` in f32 at B = 1 (rows the batch rule cannot
+    put on "data"): a prompt, then decode steps, on whole tensors and over
+    DTensors (params under the rules, the cache from the port's prefill),
+    each step's logits; the local products and collectives (kind, mesh
+    dim, result shape) of the first sharded step and of the same step on
+    whole tensors; for the SSM, the state's placements and this rank's
+    shard beside the whole state after the steps, and the same first step
+    from a cache on the reference's rule (``cache_sharding``)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.dist.sharding import (
+        batch_sharding_tree, cache_sharding, distribute_tree,
+        param_sharding)
+    from repro_torch.launch.collective_cost import collective_of
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models.api import build_model
+
+    groups = {mesh.get_group(n).group_name: n for n in mesh.mesh_dim_names}
+
+    class Seen(OpCost):
+        """OpCost, keeping each product's operand shapes and each
+        collective's (kind, mesh dim, result shape)."""
+
+        def __init__(self):
+            super().__init__()
+            self.products, self.collectives = [], []
+
+        def record(self, func, args, out):
+            super().record(func, args, out)
+            if func._overloadpacket in (torch.ops.aten.mm,
+                                        torch.ops.aten.addmm):
+                self.products.append(tuple(
+                    tuple(a.shape) for a in args
+                    if isinstance(a, torch.Tensor))[-2:])
+            hit = collective_of(func, args)
+            if hit is not None:
+                self.collectives.append((hit[0], groups.get(hit[2]),
+                                         tuple(out.shape)))
+
+    def seen_step(model, p, tok, cache):
+        seen = Seen()
+        with seen:
+            lg = model.decode(p, tok, cache)[0]
+        return lg, {"flops": seen.flops, "products": seen.products,
+                    "collectives": seen.collectives}
+
+    res = {}
+    for arch, prompt, s_max, steps in B1_CASES:
+        cfg = smoke_config(arch).replace(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        toks = torch.from_numpy(np.random.default_rng(9).integers(
+            0, cfg.vocab, (1, prompt + steps))).long()
+        got = {}
+        for tag in ("whole", "sharded"):
+            p, b = params, {"tokens": toks[:, :prompt]}
+            if tag == "sharded":
+                p = distribute_tree(params, param_sharding(params, mesh))
+                b = distribute_tree(b, batch_sharding_tree(b, mesh))
+            logits, seen = [], None
+            with torch.no_grad(), implicit_replication():
+                lg, cache = model.prefill(p, b, s_max)
+                logits.append(_whole(lg))
+                for i in range(steps):
+                    tok = toks[:, prompt + i:prompt + i + 1]
+                    if tag == "sharded":
+                        tok = distribute_tree({"t": tok}, batch_sharding_tree(
+                            {"t": tok}, mesh))["t"]
+                    if i == 0:
+                        if cfg.family == "ssm" and tag == "sharded":
+                            # the same step from the reference's placement
+                            ref = type(cache)(*(
+                                t.clone().redistribute(mesh,
+                                                       list(sh.placements))
+                                for t, sh in zip(cache, cache_sharding(
+                                    cache, mesh))))
+                            got["rule_cache"] = seen_step(model, p, tok,
+                                                          ref)[1]
+                        lg, seen = seen_step(model, p, tok, cache)
+                    else:
+                        lg = model.decode(p, tok, cache)[0]
+                    logits.append(_whole(lg))
+            got[tag] = {"logits": logits, "seen": seen}
+            if cfg.family == "ssm":
+                got[tag]["state"] = (
+                    cache.ssm.to_local().clone()
+                    if isinstance(cache.ssm, DTensor) else cache.ssm.clone())
+                if tag == "sharded":
+                    got["placements"] = [str(q) for q in
+                                         cache.ssm.placements]
+        res[arch] = got
     return res
 
 
