@@ -57,6 +57,15 @@ Phases, in order; any failure exits non-zero before a result is printed:
    retried on a sibling, channel 1 stalled until the drift check
    quarantines it and back after the stall lifts and a probe passes, the
    48 MiB payload exact throughout, the fault ledger;
+5f. the ``stress`` line: ``python -m repro_torch.analysis`` over ``src``
+   in this process (no jax; exit 0, no new finding; its counts), then,
+   under validated locks, the reference's five stress hammers on card
+   engines (four classes on one runtime, coalescing, seeded faults on
+   channel groups, tenants, a mid-run plan swap) and the consumer-stream
+   hammer (8 threads TX, compute on a side stream of their own, drop the
+   TX result, RX the product, bitwise the host's; over an engine and a
+   striped two-channel group): transfers and bytes a hammer, 0
+   mismatches, 0 lock-order violations, the order graph's edges;
 6. the streamed-matmul path: the RoShamBo classifier head of the same
    frames through ``streamed_matmul`` under each policy's partitioning;
 7. the LM scoring path: qwen2.5-3b at full width (36 layers, weights from a
@@ -1150,6 +1159,60 @@ def faults_phase(np) -> None:
         "healthy_probe_s": healthy, "stall_s": stall_s,
         "steps": steps, "summary": summary,
         "events": [list(e) for e in inj.events]}))
+
+
+def stress_phase(dev) -> None:
+    """5f. the ``stress`` line: the port's concurrency analyzer over
+    ``src`` against the checked-in baseline (in this process, which has no
+    jax: exit 0, no new finding), then the reference's five stress hammers
+    on card engines and the card's consumer-stream hammer (a bare engine,
+    and a striped two-channel group) under validated locks: no mismatch,
+    no lock-order violation. A hammer's failed check raises."""
+    from repro_torch.analysis import (
+        extract_package, load_baseline, run_rules, split_new)
+    from repro_torch.analysis import stress
+    from repro_torch.analysis.cli import main as analyze
+
+    t0 = time.perf_counter()
+    baseline = ROOT / "analysis_baseline.json"
+    rc = analyze([str(ROOT / "src"), "--baseline", str(baseline),
+                  "--fail-on-new", "-q"])
+    if rc != 0:
+        fail(f"stress: python -m repro_torch.analysis exited {rc}")
+    loaded = sorted(m for m in sys.modules if m == "jax"
+                    or m.startswith(("jax.", "repro.")) or m == "repro")
+    if loaded:
+        fail(f"stress: the port loaded {loaded}")
+    pkg = extract_package(ROOT / "src")
+    findings = run_rules(pkg)
+    new, old = split_new(findings, load_baseline(baseline))
+    analysis = {
+        "modules": len(pkg.modules),
+        "skipped": sum(m.skipped for m in pkg.modules.values()),
+        "lock_classes": sum(len(c.locks) for c in pkg.all_classes())
+        + sum(len(m.module_locks) for m in pkg.modules.values()),
+        "new": len(new), "baselined": len(old),
+        "waived": sum(f.waived for f in findings)}
+    if new:
+        fail(f"stress: {len(new)} new analyzer findings")
+
+    hammers = {}
+    with stress.validated_locks() as graph:
+        for hammer in stress.HAMMERS:
+            hammers[hammer.__name__] = hammer(stress.port_stack(dev)).row()
+        for case in stress.CONSUMER_CASES:
+            got = stress.consumer_streams(stress.port_stack(dev), *case)
+            hammers[got.name] = got.row()
+        violations = list(graph.violations)
+        edges = sum(len(v) for v in graph.edges().values())
+    mismatches = sum(r.get("mismatches", 0) for r in hammers.values())
+    if mismatches or violations:
+        fail(f"stress: {mismatches} mismatches, lock-order violations "
+             f"{violations}")
+    print(json.dumps({"stress": {
+        "analysis": analysis, "hammers": hammers, "mismatches": mismatches,
+        "lock_order_violations": len(violations), "order_graph_edges": edges,
+        "seconds": time.perf_counter() - t0, "card": card_line()}}))
 
 
 def lm_paths(np, torch, dev, libs, flash_lib):
@@ -3304,6 +3367,7 @@ def main() -> None:
     frame_launches = channels_frame_phase(np, torch, libs, CONV2D, cnn,
                                           params, frames, oracle)
     faults_phase(np)
+    stress_phase(dev)
 
     # 6. the streamed-matmul path: the classifier head on the card
     feats = []

@@ -82,6 +82,8 @@ from repro_torch.core.transfer import (
     _nbytes,
     _sg_segment_views,
     carve_flat_out,
+    consumer_stream,
+    hand_over,
 )
 from repro_torch.device import default_device
 from repro_torch.dist.fault import TransferFaultState
@@ -899,6 +901,9 @@ class ChannelGroup:
         issue = [lambda eng, s=s: eng.tx_async(s, qos=spec)
                  for s in stripes]
         channels = active[:len(stripes)]
+        # the stripes are issued from joiner threads: the caller's stream
+        # is taken here, on the caller's thread
+        consumer = consumer_stream(self.device)
 
         def assemble(per_channel: list) -> list:
             # stripes are contiguous in stripe order: concatenating the
@@ -906,6 +911,7 @@ class ChannelGroup:
             out: list = []
             for chunks in per_channel:
                 out.extend(chunks)
+            hand_over(out, consumer)
             return out
 
         self._spawn_joiner(issue, channels, assemble, "tx", int(arr.nbytes),
@@ -1110,12 +1116,14 @@ class ChannelGroup:
             [views[i] for i in idxs], qos=spec)
             for _c, idxs in used]
         channels = [c for c, _idxs in used]
+        consumer = consumer_stream(self.device)
 
         def assemble(per_channel: list) -> list:
             results: list = [None] * len(views)
             for (_, idxs), ch_out in zip(used, per_channel):
                 for i, o in zip(idxs, ch_out):
                     results[i] = o
+            hand_over(results, consumer)
             return results
 
         self._spawn_joiner(issue, channels, assemble, "tx", total,

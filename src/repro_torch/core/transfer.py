@@ -815,6 +815,24 @@ def _flatten_chunk_results(results: list) -> list:
     return out
 
 
+def consumer_stream(device: torch.device) -> "torch.cuda.Stream | None":
+    """Called on the submitting thread: the stream on which the caller will
+    read a TX result (``None`` off the card)."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+
+def hand_over(results: Sequence[torch.Tensor],
+              stream: "torch.cuda.Stream | None") -> None:
+    """Record ``stream`` on each TX result before the caller gets it. A
+    result is allocated on the engine's TX stream and read on the caller's:
+    without the record, the caching allocator hands its block to the next
+    TX as soon as the caller drops the tensor, though a kernel the caller
+    queued on ``stream`` may not have read it yet."""
+    if stream is not None:
+        for t in results:
+            t.record_stream(stream)
+
+
 class TransferEngine:
     """Executes host->device (TX) and device->host (RX) transfers under a
     :class:`TransferPolicy`, recording measured :class:`TransferStats`.
@@ -1066,6 +1084,7 @@ class TransferEngine:
         out = self._run_chunks(
             [(c, "tx", None) for c in chunks], spec,
         )
+        hand_over(out, consumer_stream(self.device))
         wall = time.perf_counter() - t0
         self._record(
             TransferStats(host_array.nbytes, wall, len(chunks), "tx", self.policy.tag)
@@ -1339,7 +1358,8 @@ class TransferEngine:
                       callback: Callable[[list], None] | None,
                       layout: StagedLayout | None,
                       outs: Sequence[np.ndarray | None] | None = None,
-                      qos: QosSpec | None = None) -> Ticket:
+                      qos: QosSpec | None = None,
+                      consumer: "torch.cuda.Stream | None" = None) -> Ticket:
         """Stage ``payloads`` as ring descriptors, one per chunk.
 
         Ring slots are acquired on the *caller* thread, so a full ring
@@ -1348,7 +1368,9 @@ class TransferEngine:
         concurrent async callers — the completion workers themselves never
         wait on a slot, so slot hand-off always makes progress. The ticket's
         master event fires after the LAST chunk completes; any chunk error is
-        re-raised from ``Ticket.wait``.
+        re-raised from ``Ticket.wait``. TX results are handed over to
+        ``consumer`` (the submitting thread's stream, :func:`hand_over`)
+        before the ticket fires.
 
         ``callback`` runs ON a shared runtime worker. Like an IRQ handler,
         it must not issue transfers (acquisition can block the worker on a
@@ -1402,6 +1424,7 @@ class TransferEngine:
                 # preemptible chunks landed per-segment lists: splice them
                 # back into one flat, ordered chunk list for the caller.
                 flat_results = _flatten_chunk_results(results)
+                hand_over(flat_results, consumer)
                 ticket_out.append(flat_results)
                 if callback is not None:
                     try:
@@ -1516,7 +1539,8 @@ class TransferEngine:
         arr = np.asarray(host_array)
         chunks = _split(arr, self.policy)
         return self._submit_async(chunks, "tx", int(arr.nbytes), callback,
-                                  layout, qos=spec)
+                                  layout, qos=spec,
+                                  consumer=consumer_stream(self.device))
 
     def rx_async(self, device_arrays: Sequence[torch.Tensor],
                  callback: Callable[[list], None] | None = None,
@@ -1546,7 +1570,9 @@ class TransferEngine:
     def _submit_many(self, payloads: list, direction: str,
                      sizes: list[int],
                      outs: Sequence[np.ndarray] | None,
-                     qos: QosSpec) -> list[Ticket]:
+                     qos: QosSpec,
+                     consumer: "torch.cuda.Stream | None" = None
+                     ) -> list[Ticket]:
         """Submit a GROUP of small logical descriptors as ONE ring
         transaction: one slot, one runtime descriptor (``units=len``), one
         completion handoff — the paper's management-overhead amortization
@@ -1560,7 +1586,9 @@ class TransferEngine:
         ``chunk_samples`` — honest amortized per-descriptor costs for the
         online refit. Engines that override ``_one`` (fault injection,
         modelled timing) take the per-payload loop instead, so injection
-        seams and synthetic costs stay per-descriptor."""
+        seams and synthetic costs stay per-descriptor. TX results are
+        handed over to ``consumer`` (:func:`hand_over`) before their tickets
+        fire."""
         handle = self._runtime_handle()
         n = len(payloads)
         events = [threading.Event() for _ in range(n)]
@@ -1586,6 +1614,8 @@ class TransferEngine:
                     # grouped-transaction sample: the SG/batched crossover
                     # refits the per-segment walk cost from (k, total, wall)
                     self.sg_samples.append((direction, ok_n, ok_bytes, wall))
+                hand_over([r for r, e in zip(results, errs) if e is None],
+                          consumer)
             for i in range(n):
                 out_lists[i].append(
                     errs[i] if errs[i] is not None else results[i])
@@ -1688,7 +1718,8 @@ class TransferEngine:
         spec = self._resolve_qos("tx_many", qos, priority)
         arrays = [np.asarray(a) for a in host_arrays]
         sizes = [int(a.nbytes) for a in arrays]
-        return self._submit_many(arrays, "tx", sizes, None, spec)
+        return self._submit_many(arrays, "tx", sizes, None, spec,
+                                 consumer_stream(self.device))
 
     def rx_many(self, device_arrays: Sequence[torch.Tensor],
                 out: Sequence[np.ndarray] | None = None,
@@ -1724,7 +1755,8 @@ class TransferEngine:
             raise ValueError("tx_sg requires INTERRUPT management")
         spec = self._resolve_qos("tx_sg", qos, priority)
         views, sizes = _sg_segment_views(segments, "tx")
-        return SGTicket(self._submit_many(views, "tx", sizes, None, spec))
+        return SGTicket(self._submit_many(views, "tx", sizes, None, spec,
+                                          consumer_stream(self.device)))
 
     def rx_sg(self, segments: Sequence[Any],
               out: "np.ndarray | Sequence[np.ndarray] | None" = None,

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.accel.nullhop import NullHopExecutor
+from repro_torch.analysis import stress
 from repro_torch.accel.roshambo import RoShamBoCNN
 from repro_torch.core.channels import ChannelGroup, calibrate_transfer
 from repro_torch.core.faults import (
@@ -887,6 +888,32 @@ def test_channels_serving_settings_on_card(dev, kw):
         finally:
             eng.close()
     np.testing.assert_array_equal(got[0], got[1])
+
+
+# ---- the concurrency hammers on the card ------------------------------------
+
+@pytest.mark.parametrize("hammer", stress.HAMMERS, ids=lambda h: h.__name__)
+def test_stress_hammer_on_card(dev, hammer):
+    """The reference's five stress hammers (tests/test_torch_stress.py on the
+    CPU) with card engines, under validated locks: their own checks, no
+    lock-order violation."""
+    with stress.validated_locks() as graph:
+        got = hammer(stress.port_stack(dev))
+        assert graph.violations == []
+    assert got.transfers > 0 and got.bytes > 0
+
+
+@pytest.mark.parametrize("case", stress.CONSUMER_CASES,
+                         ids=lambda c: f"{c[0]}ch")
+def test_stress_consumer_streams_on_card(dev, case):
+    """8 threads, each on a side stream of its own, compute on a TX result,
+    drop it before that kernel ran, TX their next payload and RX the
+    product: every product bitwise the host's (F13: the TX result is
+    handed over to the submitting thread's stream)."""
+    with stress.validated_locks() as graph:
+        got = stress.consumer_streams(stress.port_stack(dev), *case)
+        assert graph.violations == []
+    assert got.extra["mismatches"] == 0
 
 
 # ---- continuous batching and the moe family ---------------------------------

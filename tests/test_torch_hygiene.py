@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor the reference package,
-and its copied concurrency annotations pass the reference's analyzer."""
+and its concurrency annotations pass its own analyzer (the reference's rules
+plus the card's waits) and, kept in step, the reference's."""
 
 import ast
 import os
@@ -9,8 +10,10 @@ from pathlib import Path
 
 import pytest
 
-from repro.analysis.model import extract_package
-from repro.analysis.rules import run_rules
+from repro.analysis.model import extract_package as jextract_package
+from repro.analysis.rules import run_rules as jrun_rules
+from repro_torch.analysis.model import extract_package
+from repro_torch.analysis.rules import run_rules
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -64,7 +67,10 @@ SLICE_MODULES = [
     "repro_torch.examples.elastic_restart",
     "repro_torch.examples.transfer_modes", "repro_torch.launch.dryrun",
     "repro_torch.launch.op_cost", "repro_torch.launch.collective_cost",
-    "repro_torch.launch.dryrun_compare",
+    "repro_torch.launch.dryrun_compare", "repro_torch.analysis",
+    "repro_torch.analysis.model", "repro_torch.analysis.rules",
+    "repro_torch.analysis.cli", "repro_torch.analysis.baseline",
+    "repro_torch.analysis.stress", "repro_torch.core.scheduler",
 ]
 
 
@@ -88,7 +94,9 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_importing_the_slice_loads_no_jax():
-    code = ("import importlib, sys\n"
+    code = ("import importlib, sys, warnings\n"
+            "warnings.filterwarnings('ignore', category=DeprecationWarning,\n"
+            "                        message='repro_torch.core.scheduler')\n"
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -103,13 +111,46 @@ def test_importing_the_slice_loads_no_jax():
 
 
 def test_concurrency_analyzer_is_clean_on_the_port():
-    """The reference's analyzer, unmodified, over the port's copies of the
-    annotated modules: nothing to report against an empty baseline."""
-    pkg = extract_package(ROOT / "src", package="repro_torch",
-                          exclude=("repro_torch/analysis",))
+    """The port's own analyzer (the card's waits in its blocking rule) over
+    the port: nothing to report against an empty baseline."""
+    pkg = extract_package(ROOT / "src")
     assert "repro_torch.core.transfer" in pkg.modules
     assert "repro_torch.core.runtime" in pkg.modules
     findings = [f for f in run_rules(pkg) if not f.waived]
     assert not findings, "\n".join(f.render() for f in findings)
     locks = sum(len(c.locks) for c in pkg.all_classes())
     assert locks > 0  # the annotations were seen, not skipped
+
+
+def test_reference_analyzer_is_clean_on_the_port():
+    """The reference's analyzer, unmodified, over the port, so the two stay
+    in step: the port's annotations are the reference's."""
+    pkg = jextract_package(ROOT / "src", package="repro_torch",
+                           exclude=("repro_torch/analysis",))
+    assert "repro_torch.core.runtime" in pkg.modules
+    findings = [f for f in jrun_rules(pkg) if not f.waived]
+    assert not findings, "\n".join(f.render() for f in findings)
+
+
+def test_analyzer_cli_runs_without_jax_or_the_reference():
+    """``python -m repro_torch.analysis`` over ``src`` against the checked-in
+    baseline: exit 0, 0 new findings, and neither jax nor ``repro`` loaded
+    (the card's machine has no jax)."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['repro_torch.analysis', 'src', '--baseline',\n"
+            "            'analysis_baseline.json', '--fail-on-new']\n"
+            "try:\n"
+            "    runpy.run_module('repro_torch.analysis', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith('jax.') or m == 'repro'\n"
+            "             or m.startswith('repro.'))\n"
+            "print('rc', rc, 'loaded', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    assert out.returncode == 0, out.stderr
+    assert lines[-1] == "rc 0 loaded []", out.stdout
+    assert " 0 new / 0 baselined / " in lines[-2], out.stdout
