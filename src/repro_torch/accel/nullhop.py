@@ -11,10 +11,17 @@ Also models NullHop's sparsity awareness: the accelerator skips zero
 activations (sparse feature-map encoding); we report the measured activation
 sparsity per layer (ReLU output) alongside timings, since it determines the
 effective RX payload on the real device.
+
+While a ``torch.profiler`` records, each call is a ``frame`` span (its id
+the executor's call number) holding a ``frame.layer`` span a layer (with
+the layer's ``frame.tx`` / ``frame.compute`` / ``frame.rx``), then
+``frame.sparsity`` (the oracle pass) and ``frame.head`` (the host FC);
+see :mod:`repro_torch.utils.trace`.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +30,7 @@ import torch
 from repro_torch.accel.roshambo import RoShamBoCNN
 from repro_torch.core.streaming import FrameTiming, HostStreamingExecutor
 from repro_torch.core.transfer import TransferEngine, TransferPolicy
+from repro_torch.utils import trace
 
 
 @dataclass
@@ -58,6 +66,7 @@ class NullHopExecutor:
         # (tensor._version counts in-place writes): the staged layouts see
         # the same array objects frame after frame and skip the pack copy
         self._host: dict[tuple[str, str], tuple[torch.Tensor, int, np.ndarray]] = {}
+        self.calls = 0  # run_frame calls so far
 
     def close(self) -> None:
         self.engine.close()
@@ -72,18 +81,30 @@ class NullHopExecutor:
 
     def run_frame(self, params: dict, frame: np.ndarray) -> NullHopResult:
         """frame: [B, H, W, C]. Per-layer streamed execution + final FC."""
+        self.calls += 1
         return _run_frame(self.cnn, self._streamer, params, frame,
-                          self._host_array, self.policy.tag)
+                          self._host_array, self.policy.tag, call=self.calls)
 
 
 def _run_frame(cnn: RoShamBoCNN, streamer: HostStreamingExecutor,
                params: dict, frame: np.ndarray, host_array,
-               policy_tag: str) -> NullHopResult:
+               policy_tag: str, call: int | None = None) -> NullHopResult:
     """One frame through ``streamer`` (over a single engine or a channel
     group): the layers streamed, the sparsity pass on the engine's device,
     the classifier head on the host. ``host_array(key, tensor)`` gives the
-    host array a layer's param is staged from."""
+    host array a layer's param is staged from; ``call`` numbers the
+    ``frame`` span. The timing's ``wall_s`` is the whole call's, entry to
+    logits."""
+    t0 = time.perf_counter()
+    with trace.span("frame", id=call):
+        res = _frame_body(cnn, streamer, params, frame, host_array,
+                          policy_tag)
+    res.timing.wall_s = time.perf_counter() - t0
+    return res
 
+
+def _frame_body(cnn, streamer, params, frame, host_array,
+                policy_tag) -> NullHopResult:
     def make_apply(spec):
         def apply_fn(dev_params, x):
             w, b = dev_params
@@ -100,16 +121,19 @@ def _run_frame(cnn: RoShamBoCNN, streamer: HostStreamingExecutor,
 
     out_host, timing = streamer.run(layers, np.asarray(frame))
 
-    sparsity = []  # recompute per-layer zero fractions (oracle pass)
-    device = streamer.engine.device
-    x = torch.as_tensor(np.asarray(frame)).to(device)
-    for spec in cnn.cfg.layers:
-        p = {k: v.to(device) for k, v in params[spec.name].items()}
-        x = cnn.layer_apply(spec, p, x)
-        sparsity.append(float((x == 0).float().mean()))
+    with trace.span("frame.sparsity"):
+        sparsity = []  # recompute per-layer zero fractions (oracle pass)
+        device = streamer.engine.device
+        x = torch.as_tensor(np.asarray(frame)).to(device)
+        for spec in cnn.cfg.layers:
+            p = {k: v.to(device) for k, v in params[spec.name].items()}
+            x = cnn.layer_apply(spec, p, x)
+            trace.count("wait.sparsity")
+            sparsity.append(float((x == 0).float().mean()))
 
-    # classifier head runs on the PS in the paper (host-side)
-    feats = out_host.reshape(out_host.shape[0], -1)
-    logits = (feats @ host_array(("fc", "w"), params["fc"]["w"])
-              + host_array(("fc", "b"), params["fc"]["b"]))
+    with trace.span("frame.head"):
+        # classifier head runs on the PS in the paper (host-side)
+        feats = out_host.reshape(out_host.shape[0], -1)
+        logits = (feats @ host_array(("fc", "w"), params["fc"]["w"])
+                  + host_array(("fc", "b"), params["fc"]["b"]))
     return NullHopResult(logits, timing, sparsity, policy_tag)

@@ -172,6 +172,14 @@ single runtime arbitrating PS/PL work is what makes heterogeneous CNN
 inference compose; ZynqNet (Gschwend, 2016) motivates the per-class
 bandwidth accounting and enforcement (:meth:`TransferRuntime.
 class_summary`, :meth:`TransferRuntime.set_class_cap`).
+
+While a ``torch.profiler`` records, each descriptor is tagged with a
+number, its class, ``interrupt`` and its bytes under the submitting
+thread's innermost span, and marks ``xfer.queue`` (submit until a worker
+takes it: the stamps of ``dispatch_lat_s``), ``xfer.service`` (its body's
+last stint) and ``xfer.deliver`` (completion until its done event is set:
+the coalescing delay); the waiter marks ``xfer.wake``
+(:mod:`repro_torch.utils.trace`).
 """
 
 from __future__ import annotations
@@ -188,6 +196,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 from repro_torch.analysis.validated import assert_held, make_condition, make_lock
+from repro_torch.utils import trace
 
 # Per-class rolling window of dispatch/service latencies (bytes/counters are
 # exact lifetime totals; latency percentiles come from this recent window).
@@ -746,7 +755,7 @@ class _Descriptor:
     __slots__ = ("fn", "done", "out", "cls", "nbytes", "handle",
                  "t_submit", "deadline", "on_cancel",
                  "started", "service_acc", "t_parked", "preemptions",
-                 "units", "tenant", "weight")
+                 "units", "tenant", "weight", "tag")
 
     def __init__(self, fn: Callable[[], Any], cls: PriorityClass,
                  nbytes: int, handle: "RuntimeHandle", deadline_s: float,
@@ -754,7 +763,7 @@ class _Descriptor:
                  units: int = 1, tenant: str = DEFAULT_TENANT,
                  weight: float = 1.0):
         self.fn = fn
-        self.done = threading.Event()
+        self.done = trace.Done()
         self.out: list = []
         self.cls = cls
         self.nbytes = max(int(nbytes), 0)
@@ -779,6 +788,9 @@ class _Descriptor:
         self.service_acc = 0.0
         self.t_parked: float | None = None
         self.preemptions = 0
+        # set while a profiler records: the descriptor's trace marks
+        # (xfer.queue / service / deliver) and its done event carry it
+        self.tag: trace.Tag | None = None
 
 
 class RuntimeHandle:
@@ -1116,6 +1128,10 @@ class TransferRuntime:
             t_burst = getattr(qos, "burst_s", None)
         d = _Descriptor(fn, cls, nbytes, handle, deadline_s, on_cancel,
                         units, tenant=tenant, weight=weight)
+        if trace.enabled():
+            d.tag = d.done.tag = trace.tag(cls=cls.value,
+                                           management="interrupt",
+                                           bytes=d.nbytes)
         with self._cond:
             if self._closed:
                 raise RuntimeError("submit() on a closed TransferRuntime")
@@ -1293,6 +1309,9 @@ class TransferRuntime:
                 self._queues[d.cls].charge_dispatch(d)
             st.dispatched += 1
             st.dispatch_lat_s.append(now - d.t_submit)
+            if d.tag is not None:
+                d.tag.mark("xfer.queue", trace.mono_ns(d.t_submit),
+                           trace.mono_ns(now))
             ts = st.tenant(d.tenant)
             ts.dispatched += 1
             ts.dispatch_lat_s.append(now - d.t_submit)
@@ -1447,7 +1466,10 @@ class TransferRuntime:
                     break
                 if not work.exhausted and self._park_locked_check(d, t0):
                     return False
-        d.service_acc += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        d.service_acc += t1 - t0
+        if d.tag is not None:  # the last stint of a parked descriptor
+            d.tag.mark("xfer.service", trace.perf_ns(t0), trace.perf_ns(t1))
         if work is not None and work.finalize is not None:
             try:
                 work.finalize(err)
@@ -1582,6 +1604,10 @@ class TransferRuntime:
                 st.coalesce_delay_s.append(t_flush - t_done)
         for d, _ in entries:
             d.done.set()
+        for d, t_done in entries:
+            if d.tag is not None and d.done.t_set_ns:
+                d.tag.mark("xfer.deliver", trace.mono_ns(t_done),
+                           d.done.t_set_ns)
         with self._cond:
             for d, _ in entries:
                 d.handle._outstanding -= 1

@@ -48,6 +48,7 @@ from repro_torch.core.transfer import (
     _numpy_dtype,
     reassemble_chunks,
 )
+from repro_torch.utils import trace
 from repro_torch.utils.pytree import tree_leaves, unstack
 
 
@@ -67,12 +68,22 @@ class LayerTiming:
 
 @dataclass
 class FrameTiming:
-    """Timing of one full multi-layer execution (one 'frame' in the paper)."""
+    """Timing of one full multi-layer execution (one 'frame' in the paper).
+
+    ``wall_s`` is the call's wall time, from entry until the result is on
+    the host (a frame call's: until its logits are); ``layers_s`` sums
+    the layers' TX, compute and RX, which leaves out whatever the call
+    does around them."""
 
     layers: list[LayerTiming] = field(default_factory=list)
+    wall_s: float = 0.0
 
     @property
     def frame_s(self) -> float:
+        return self.wall_s
+
+    @property
+    def layers_s(self) -> float:
         return sum(l.total_s for l in self.layers)
 
     @property
@@ -163,8 +174,11 @@ class HostStreamingExecutor:
             if self._compute_stream is not None:
                 done = torch.cuda.Event()
                 done.record()
+                trace.count("wait.compute")
                 done.synchronize()
-        return y, time.perf_counter() - t0
+        t1 = time.perf_counter()
+        _mark("frame.compute", t0, t1)
+        return y, t1 - t0
 
     def _rx_out(self, key: Any, y: torch.Tensor, *,
                 last: bool) -> list[np.ndarray] | None:
@@ -226,16 +240,19 @@ class HostStreamingExecutor:
         overlapped = (
             policy.management is Management.INTERRUPT and policy.depth >= 2
         )
+        t0 = time.perf_counter()
         unregister_sensor = self._register_sensor()
         try:
             if overlapped and self.staged:
-                out = self._run_overlapped(layers, x)
+                host_out, timing = self._run_overlapped(layers, x)
             else:
-                out = self._run_basic(layers, x, prefetch=overlapped)
+                host_out, timing = self._run_basic(layers, x,
+                                                   prefetch=overlapped)
         finally:
             unregister_sensor()
         self._frame_end()
-        return out
+        timing.wall_s = time.perf_counter() - t0
+        return host_out, timing
 
     # -- shared input staging ----------------------------------------------
     def _tx_input(self, x: np.ndarray) -> tuple[torch.Tensor, float, int]:
@@ -245,7 +262,9 @@ class HostStreamingExecutor:
         self._adopt(dev_chunks)
         with self._on_compute():
             x_dev = reassemble_chunks(dev_chunks).reshape(xa.shape)
-        return x_dev, time.perf_counter() - t0, xa.nbytes
+        t1 = time.perf_counter()
+        _mark("frame.tx", t0, t1)
+        return x_dev, t1 - t0, xa.nbytes
 
     def _params_from(self, chunks: list, unpack: Callable[[list], list]) -> list:
         self._adopt(chunks)
@@ -309,44 +328,49 @@ class HostStreamingExecutor:
             j, ticket = pending_rx
             t0 = time.perf_counter()
             host_out = ticket.wait()[0]
-            timing.layers[j].rx_s += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            _mark("frame.rx", t0, t1)
+            timing.layers[j].rx_s += t1 - t0
             pending_rx = None
 
         for i, (name, params_host, apply_fn) in enumerate(layers):
-            # --- TX: wait for this layer's in-flight params, then refill the
-            # ring window (layers i+1 .. i+depth-1 stream during compute)
-            t0 = time.perf_counter()
-            kind, ticket = pending_tx.pop(0)
-            if kind == "sg":
-                # SG segments are whole arrays: results arrive shaped, no
-                # staging unpack (and no staging buffer was ever touched).
-                params_dev = self._params_from(ticket.wait(), list)
-            else:
-                params_dev = self._params_from(ticket.wait(),
-                                               layouts[i].unpack)
-            issue_tx()
-            tx_s = time.perf_counter() - t0
-            tx_bytes = layouts[i].nbytes
-            if i == 0:
-                tx_s += input_tx_s
-                tx_bytes += input_bytes
+            with trace.span("frame.layer"):
+                # --- TX: wait for this layer's in-flight params, then refill the
+                # ring window (layers i+1 .. i+depth-1 stream during compute)
+                t0 = time.perf_counter()
+                kind, ticket = pending_tx.pop(0)
+                if kind == "sg":
+                    # SG segments are whole arrays: results arrive shaped, no
+                    # staging unpack (and no staging buffer was ever touched).
+                    params_dev = self._params_from(ticket.wait(), list)
+                else:
+                    params_dev = self._params_from(ticket.wait(),
+                                                   layouts[i].unpack)
+                issue_tx()
+                t1 = time.perf_counter()
+                _mark("frame.tx", t0, t1)
+                tx_s = t1 - t0
+                tx_bytes = layouts[i].nbytes
+                if i == 0:
+                    tx_s += input_tx_s
+                    tx_bytes += input_bytes
 
-            # --- compute (layer k-1's RX and layer k+1's TX are in flight)
-            y, compute_s = self._compute(apply_fn, params_dev, x_dev)
+                # --- compute (layer k-1's RX and layer k+1's TX are in flight)
+                y, compute_s = self._compute(apply_fn, params_dev, x_dev)
 
-            rx_bytes = _nbytes(y)
-            timing.layers.append(
-                LayerTiming(name, tx_s, compute_s, 0.0, tx_bytes, rx_bytes)
-            )
-            # --- RX: retire layer k-1's ticket, launch layer k's — an
-            # interior fmap streams back into its reused host buffer; the
-            # final layer's (the caller's frame result) gets a fresh one.
-            # Submitted from the compute stream, which the RX stream waits on.
-            drain_rx()
-            with self._on_compute():
-                pending_rx = (i, engine.rx_async(
-                    [y], out=self._rx_out(i, y, last=i == len(layers) - 1)))
-            x_dev = y  # next layer consumes device-resident output
+                rx_bytes = _nbytes(y)
+                timing.layers.append(
+                    LayerTiming(name, tx_s, compute_s, 0.0, tx_bytes, rx_bytes)
+                )
+                # --- RX: retire layer k-1's ticket, launch layer k's — an
+                # interior fmap streams back into its reused host buffer; the
+                # final layer's (the caller's frame result) gets a fresh one.
+                # Submitted from the compute stream, which the RX stream waits on.
+                drain_rx()
+                with self._on_compute():
+                    pending_rx = (i, engine.rx_async(
+                        [y], out=self._rx_out(i, y, last=i == len(layers) - 1)))
+                x_dev = y  # next layer consumes device-resident output
         drain_rx()
         return host_out, timing
 
@@ -364,40 +388,51 @@ class HostStreamingExecutor:
 
         host_out: np.ndarray | None = None
         for i, (name, params_host, apply_fn) in enumerate(layers):
-            # --- TX params for this layer
-            t0 = time.perf_counter()
-            if prefetch:
-                chunks = pending.wait()
-                params_dev = self._params_from(
-                    chunks, lambda c: _unpack(c, params_host))
-                # issue next layer's TX immediately (overlaps compute below)
-                if i + 1 < len(layers):
-                    pending = self.engine.tx_async(_pack(layers[i + 1][1]))
-            else:
-                chunks = self.engine.tx(_pack(params_host))
-                params_dev = self._params_from(
-                    chunks, lambda c: _unpack(c, params_host))
-            tx_s = time.perf_counter() - t0
-            tx_bytes = sum(np.asarray(p).nbytes for p in params_host)
-            if i == 0:
-                tx_s += input_tx_s
-                tx_bytes += input_bytes
+            with trace.span("frame.layer"):
+                # --- TX params for this layer
+                t0 = time.perf_counter()
+                if prefetch:
+                    chunks = pending.wait()
+                    params_dev = self._params_from(
+                        chunks, lambda c: _unpack(c, params_host))
+                    # issue next layer's TX immediately (overlaps compute below)
+                    if i + 1 < len(layers):
+                        pending = self.engine.tx_async(_pack(layers[i + 1][1]))
+                else:
+                    chunks = self.engine.tx(_pack(params_host))
+                    params_dev = self._params_from(
+                        chunks, lambda c: _unpack(c, params_host))
+                t1 = time.perf_counter()
+                _mark("frame.tx", t0, t1)
+                tx_s = t1 - t0
+                tx_bytes = sum(np.asarray(p).nbytes for p in params_host)
+                if i == 0:
+                    tx_s += input_tx_s
+                    tx_bytes += input_bytes
 
-            # --- compute
-            y, compute_s = self._compute(apply_fn, params_dev, x_dev)
+                # --- compute
+                y, compute_s = self._compute(apply_fn, params_dev, x_dev)
 
-            # --- RX (per the paper, each layer's output returns to the PS)
-            t0 = time.perf_counter()
-            with self._on_compute():
-                host_out = self.engine.rx(
-                    [y], out=self._rx_out(i, y, last=i == len(layers) - 1))[0]
-            rx_s = time.perf_counter() - t0
+                # --- RX (per the paper, each layer's output returns to the PS)
+                t0 = time.perf_counter()
+                with self._on_compute():
+                    host_out = self.engine.rx(
+                        [y], out=self._rx_out(i, y, last=i == len(layers) - 1))[0]
+                t1 = time.perf_counter()
+                _mark("frame.rx", t0, t1)
+                rx_s = t1 - t0
 
-            timing.layers.append(
-                LayerTiming(name, tx_s, compute_s, rx_s, tx_bytes, host_out.nbytes)
-            )
-            x_dev = y  # next layer consumes device-resident output
+                timing.layers.append(
+                    LayerTiming(name, tx_s, compute_s, rx_s, tx_bytes, host_out.nbytes)
+                )
+                x_dev = y  # next layer consumes device-resident output
         return host_out, timing
+
+
+def _mark(name: str, t0: float, t1: float) -> None:
+    """A layer phase, from the ``perf_counter`` stamps its timing took."""
+    if trace.enabled():
+        trace.mark(name, trace.perf_ns(t0), trace.perf_ns(t1))
 
 
 def _pack(arrays: list[np.ndarray]) -> np.ndarray:

@@ -58,6 +58,14 @@ buffer. A chunk's ticket completes only after its copy's CUDA event has
 completed. On the CPU (``device="cpu"``, the tests) every TX and RX is a
 real byte copy, so a transferred result never aliases the staging buffer
 it came from.
+
+While a ``torch.profiler`` records, a transfer call is an ``xfer.tx`` or
+``xfer.rx`` span (for the async calls: the submission), a ticket's wait an
+``xfer.wait`` mark ending in its ``xfer.wake`` mark, and each descriptor
+marks the phases its management has: the runtime's four under INTERRUPT,
+``xfer.queue`` and ``xfer.service`` under SCHEDULED, ``xfer.service``
+under POLLING. Each wait on the card counts ``wait.ticket`` or
+``wait.copy`` (:mod:`repro_torch.utils.trace`).
 """
 
 from __future__ import annotations
@@ -89,6 +97,7 @@ from repro_torch.core.runtime import (
 )
 from repro_torch.core.qos import QosSpec, resolve_submit_qos
 from repro_torch.device import default_device
+from repro_torch.utils import trace
 
 __all__ = [  # re-exports: the fault taxonomy lives in runtime (no cycle)
     "Management", "Buffering", "Partitioning", "TransferPolicy",
@@ -312,6 +321,10 @@ class Ticket:
         self._on_timeout = on_timeout
 
     def wait(self, timeout: float | None = None) -> Any:
+        # a leaf, and many to a serving step: marked from its own stamps,
+        # not a profiler range
+        t_wait = time.time_ns() if trace.enabled() else 0
+        trace.count("wait.ticket")
         if not self._done.wait(timeout):
             if self._on_timeout is not None:
                 try:
@@ -324,6 +337,9 @@ class Ticket:
                 raise TransferTimeoutError(
                     f"ticket not complete after {timeout:.3f}s (descriptor "
                     "in service or completion dropped)")
+        if t_wait:
+            trace.mark("xfer.wait", t_wait, time.time_ns())
+            trace.woke(self._done, t_wait)
         result = self._out[0]
         if isinstance(result, BaseException):
             raise result
@@ -1081,10 +1097,11 @@ class TransferEngine:
         spec = self._resolve_qos("tx", qos, priority)
         chunks = _split(np.asarray(host_array), self.policy)
         t0 = time.perf_counter()
-        out = self._run_chunks(
-            [(c, "tx", None) for c in chunks], spec,
-        )
-        hand_over(out, consumer_stream(self.device))
+        with trace.span("xfer.tx"):
+            out = self._run_chunks(
+                [(c, "tx", None) for c in chunks], spec,
+            )
+            hand_over(out, consumer_stream(self.device))
         wall = time.perf_counter() - t0
         self._record(
             TransferStats(host_array.nbytes, wall, len(chunks), "tx", self.policy.tag)
@@ -1108,8 +1125,9 @@ class TransferEngine:
         nbytes = sum(_nbytes(a) for a in arrays)
         self._order_rx_after_caller()
         t0 = time.perf_counter()
-        result = self._run_chunks(
-            [(a, "rx", o) for a, o in zip(arrays, outs)], spec)
+        with trace.span("xfer.rx"):
+            result = self._run_chunks(
+                [(a, "rx", o) for a, o in zip(arrays, outs)], spec)
         wall = time.perf_counter() - t0
         self._record(
             TransferStats(nbytes, wall, len(arrays), "rx", self.policy.tag)
@@ -1142,6 +1160,7 @@ class TransferEngine:
     def _await(self, ev: "torch.cuda.Event") -> None:
         """Complete one copy: POLLING spins on the event, the other
         managements (runtime worker, cooperative task) block on it."""
+        trace.count("wait.copy")
         if self.policy.management is Management.POLLING:
             while not ev.query():
                 pass
@@ -1239,18 +1258,34 @@ class TransferEngine:
                 "payload corrupted in flight")
         return r
 
+    def _tag(self, cls: PriorityClass, payload) -> "trace.Tag | None":
+        """The trace tag of a descriptor the caller moves itself (POLLING,
+        SCHEDULED), or None while no profiler records; the runtime tags
+        the INTERRUPT ones."""
+        if not trace.enabled():
+            return None
+        return trace.tag(cls=cls.value,
+                         management=self.policy.management.value,
+                         bytes=_nbytes(payload))
+
     def _run_chunks(self, items: list[tuple[Any, str, Any]],
                     qos: QosSpec) -> list:
         mgmt = self.policy.management
+        cls = qos.priority or self.priority
         if mgmt is Management.POLLING:
             # user-level polling: issue, then spin until ready, per chunk.
+            # No queue and no hand-off: the caller's own service is all.
             results = []
             for payload, direction, dst in items:
+                tag = self._tag(cls, payload)
+                t0 = time.time_ns() if tag else 0
                 idx, release = self._acquire_buffer()
                 try:
                     r = self._one_timed(payload, direction, dst)
                 finally:
                     self._release_buffer(idx, release)
+                if tag:
+                    tag.mark("xfer.service", t0, time.time_ns())
                 results.append(r)
             return results
 
@@ -1260,12 +1295,19 @@ class TransferEngine:
             results: list = [None] * len(items)
 
             def make_task(i, payload, direction, dst):
+                tag = self._tag(cls, payload)
+                t_submit = time.time_ns() if tag else 0
+
                 def task():
+                    t0 = time.time_ns() if tag else 0
                     idx, release = self._acquire_buffer()
                     try:
                         results[i] = self._one_timed(payload, direction, dst)
                     finally:
                         self._release_buffer(idx, release)
+                    if tag:
+                        tag.mark("xfer.queue", t_submit, t0)
+                        tag.mark("xfer.service", t0, time.time_ns())
 
                 return task
 
@@ -1286,7 +1328,6 @@ class TransferEngine:
         # list below (contiguous order — reassembly is unchanged).
         handle = self._runtime_handle()
         depth = self.policy.depth
-        cls = qos.priority or self.priority
         wait_s = (qos.timeout_s if qos.timeout_s is not None
                   else self.policy.descriptor_timeout_s)
         tickets: list[Ticket | None] = [None] * len(items)
@@ -1377,7 +1418,7 @@ class TransferEngine:
         slot only this runtime can release — self-deadlock); hand follow-up
         transfers to another thread via the ticket instead."""
         handle = self._runtime_handle()
-        master = threading.Event()
+        master = trace.Done()  # tagged as the first chunk's descriptor
         ticket_out: list = []
         results: list = [None] * len(payloads)
         # t0 is stamped when the FIRST chunk starts executing on a worker,
@@ -1511,9 +1552,11 @@ class TransferEngine:
                 submit_obj = work
 
             try:
-                handle.submit(submit_obj,
-                              nbytes=_nbytes(payload),
-                              qos=qos, on_cancel=cancelled)
+                done, _ = handle.submit(submit_obj,
+                                        nbytes=_nbytes(payload),
+                                        qos=qos, on_cancel=cancelled)
+                if i == 0:
+                    master.tag = getattr(done, "tag", None)
             except BaseException as e:
                 # engine/runtime closed mid-loop: this chunk and every
                 # unsubmitted one after it must still be accounted on the
@@ -1538,9 +1581,10 @@ class TransferEngine:
         spec = self._resolve_qos("tx_async", qos, priority)
         arr = np.asarray(host_array)
         chunks = _split(arr, self.policy)
-        return self._submit_async(chunks, "tx", int(arr.nbytes), callback,
-                                  layout, qos=spec,
-                                  consumer=consumer_stream(self.device))
+        with trace.span("xfer.tx"):
+            return self._submit_async(chunks, "tx", int(arr.nbytes), callback,
+                                      layout, qos=spec,
+                                      consumer=consumer_stream(self.device))
 
     def rx_async(self, device_arrays: Sequence[torch.Tensor],
                  callback: Callable[[list], None] | None = None,
@@ -1562,9 +1606,10 @@ class TransferEngine:
         outs = _check_out(arrays, out)
         nbytes = sum(_nbytes(a) for a in arrays)
         self._order_rx_after_caller()
-        return self._submit_async(arrays, "rx", nbytes, callback, None,
-                                  outs=outs if out is not None else None,
-                                  qos=spec)
+        with trace.span("xfer.rx"):
+            return self._submit_async(arrays, "rx", nbytes, callback, None,
+                                      outs=outs if out is not None else None,
+                                      qos=spec)
 
     # -- batched descriptor submission (one ring transaction, many tickets) --
     def _submit_many(self, payloads: list, direction: str,
@@ -1591,7 +1636,8 @@ class TransferEngine:
         fire."""
         handle = self._runtime_handle()
         n = len(payloads)
-        events = [threading.Event() for _ in range(n)]
+        # each tagged as the group's one descriptor
+        events = [trace.Done() for _ in range(n)]
         out_lists: list[list] = [[] for _ in range(n)]
         tickets = [Ticket(events[i], out_lists[i],
                           on_timeout=self._escalate_timeout)
@@ -1670,8 +1716,10 @@ class TransferEngine:
             resolve([err] * n, [None] * n, 0.0)
 
         try:
-            handle.submit(work, nbytes=total, qos=qos,
-                          on_cancel=cancelled, units=n)
+            done, _ = handle.submit(work, nbytes=total, qos=qos,
+                                    on_cancel=cancelled, units=n)
+            for ev in events:
+                ev.tag = getattr(done, "tag", None)
         except BaseException as e:
             # engine/runtime closed concurrently: free the slot and error
             # every ticket (uniform with the async API — errors surface at
@@ -1718,8 +1766,9 @@ class TransferEngine:
         spec = self._resolve_qos("tx_many", qos, priority)
         arrays = [np.asarray(a) for a in host_arrays]
         sizes = [int(a.nbytes) for a in arrays]
-        return self._submit_many(arrays, "tx", sizes, None, spec,
-                                 consumer_stream(self.device))
+        with trace.span("xfer.tx"):
+            return self._submit_many(arrays, "tx", sizes, None, spec,
+                                     consumer_stream(self.device))
 
     def rx_many(self, device_arrays: Sequence[torch.Tensor],
                 out: Sequence[np.ndarray] | None = None,
@@ -1736,8 +1785,9 @@ class TransferEngine:
         outs = _check_out(arrays, out)
         sizes = [_nbytes(a) for a in arrays]
         self._order_rx_after_caller()
-        return self._submit_many(arrays, "rx", sizes,
-                                 outs if out is not None else None, spec)
+        with trace.span("xfer.rx"):
+            return self._submit_many(arrays, "rx", sizes,
+                                     outs if out is not None else None, spec)
 
     # -- scatter-gather descriptors (one slot, K segments, zero staging copy)
     def tx_sg(self, segments: Sequence[Any],
@@ -1755,8 +1805,9 @@ class TransferEngine:
             raise ValueError("tx_sg requires INTERRUPT management")
         spec = self._resolve_qos("tx_sg", qos, priority)
         views, sizes = _sg_segment_views(segments, "tx")
-        return SGTicket(self._submit_many(views, "tx", sizes, None, spec,
-                                          consumer_stream(self.device)))
+        with trace.span("xfer.tx"):
+            return SGTicket(self._submit_many(views, "tx", sizes, None, spec,
+                                              consumer_stream(self.device)))
 
     def rx_sg(self, segments: Sequence[Any],
               out: "np.ndarray | Sequence[np.ndarray] | None" = None,
@@ -1775,7 +1826,8 @@ class TransferEngine:
         if out is not None:
             outs = (carve_flat_out(out, views) if isinstance(out, np.ndarray)
                     else _check_out(views, out))
-        return SGTicket(self._submit_many(views, "rx", sizes, outs, spec))
+        with trace.span("xfer.rx"):
+            return SGTicket(self._submit_many(views, "rx", sizes, outs, spec))
 
     def _sg_fit(self) -> Any | None:
         """Fit ``t(n) = t0 + n/BW`` from this engine's own recent TX chunk

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist.sharding import contract_on_data, is_dtensor
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.utils import trace
 
 NEG_INF = -2.0**30  # large-but-finite; avoids NaN from (-inf) - (-inf)
 _INV_LN2 = 1.4426950408889634
@@ -157,14 +158,17 @@ def attention_unique(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Unique-mode attention: one [S_q, S_kv] score block.
 
     q: [B, S_q, H, Dh]; k, v: [B, S_kv, Hkv, Dh] (Hkv divides H).
-    kv_valid: kv positions >= kv_valid are masked (cache)."""
+    kv_valid: kv positions >= kv_valid are masked (cache). While a
+    profiler records, the repeat of K / V over each head group and K's
+    cast to f32 are a span named ``attn.cache``."""
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     dev = q.device
-    k = repeat_kv(k, h // hkv)
-    v = repeat_kv(v, h // hkv)
+    with trace.span("attn.cache"):  # K / V to every head of a group; K in f32
+        k = repeat_kv(k, h // hkv).float()
+        v = repeat_kv(v, h // hkv)
     scale = 1.0 / math.sqrt(dh)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k)
     if _all_scalar(q_offset, kv_offset, kv_valid):
         bias = _mask_bias(sq, k.shape[1], q_offset, causal=causal,
                           window=window, kv_start=kv_offset, device=dev)

@@ -23,12 +23,12 @@ While a ``torch.profiler`` records, the layer's phases are ranges named
 ``moe.dispatch`` (routing, seats, the dispatch writes), ``moe.experts``
 (the expert products), ``moe.combine`` (the weighted gathers) and
 ``moe.shared`` (the shared experts), so a trace splits the layer's device
-time between them; with no profiler they cost nothing.
+time between them (spans of :mod:`repro_torch.utils.trace`); with no
+profiler they cost a flag read.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple
 
@@ -36,19 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import column_halves, is_dtensor
+from repro_torch.utils import trace
 
 
 class MoEMetrics(NamedTuple):
     aux_loss: torch.Tensor  # load-balance loss (Switch)
     dropped_frac: torch.Tensor  # fraction of (token, slot) pairs over capacity
-
-
-def _span(name: str):
-    """A profiler range while a profiler records; otherwise nothing (the
-    decode step runs this layer once a layer)."""
-    if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def _shard_experts(x: torch.Tensor, spec) -> torch.Tensor:
@@ -119,7 +112,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
                             ep_sharding=ep_sharding)
     xt = x.reshape(t, d)
 
-    with _span("moe.dispatch"):
+    with trace.span("moe.dispatch"):
         probs, gate_vals, gate_idx = _gates(xt, p["router"], top_k)
         seats = _seats(gate_idx, e, capacity)
         slot_k = seats.slot.reshape(top_k, t)  # [K, T]
@@ -134,7 +127,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
         if ep_sharding:
             xe = _shard_experts(xe, ep)
 
-    with _span("moe.experts"):  # gated silu, batched over experts
+    with trace.span("moe.experts"):  # gated silu, batched over experts
         h = torch.bmm(xe, p["we_up"])
         if ep_sharding:
             h = _shard_experts(h, ep)
@@ -143,7 +136,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
         if ep_sharding:
             ye = _shard_experts(ye, ep)
 
-    with _span("moe.combine"):  # a gather per k-slot, summed k by k
+    with trace.span("moe.combine"):  # a gather per k-slot, summed k by k
         yflat = ye.reshape(e * capacity, d)
         w_k = _gate_weights(seats, gate_vals, x.dtype).reshape(top_k, t)
         out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
@@ -232,7 +225,7 @@ def _shared_experts(p: dict, xt: torch.Tensor,
     """``out`` plus the shared experts' output (always on), if any."""
     if "ws_up" not in p:
         return out
-    with _span("moe.shared"):
+    with trace.span("moe.shared"):
         if is_dtensor(p["ws_up"]):
             gs, us = (xt @ w for w in column_halves(p["ws_up"]))
         else:
@@ -315,7 +308,7 @@ def _sharded_moe(p: dict, x, *, top_k: int, capacity: int,
     t_l = xl.shape[0]
     ep = ("model", None, None)
 
-    with _span("moe.dispatch"):
+    with trace.span("moe.dispatch"):
         router = p["router"]
         if is_dtensor(router):  # a rank's gradient: its own tokens'
             router = router.full_tensor(grad_placements=dp(Partial()))
@@ -354,7 +347,7 @@ def _sharded_moe(p: dict, x, *, top_k: int, capacity: int,
         if ep_sharding:
             xe = _shard_experts(xe, ep)
 
-    with _span("moe.experts"):
+    with trace.span("moe.experts"):
         if in_place:  # this data rank's experts, the columns it holds
             e_r = e // blocks
 
@@ -401,7 +394,7 @@ def _sharded_moe(p: dict, x, *, top_k: int, capacity: int,
             if ep_sharding:
                 ye = _shard_experts(ye, ep)
 
-    with _span("moe.combine"):
+    with trace.span("moe.combine"):
         # the expert outputs gathered (whole, or this "model" rank's
         # experts); a data rank's gradient: its own tokens' rows
         keep_on = Replicate() if in_place else Shard(0)

@@ -47,6 +47,7 @@ from repro_torch.models.layers.ssm import (
     mamba2_params,
     ssm_state_zeros,
 )
+from repro_torch.utils import trace
 from repro_torch.utils.pytree import tree_leaves, tree_map, unstack
 
 
@@ -370,13 +371,15 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, s_max: int,
             *, prefix_embeds: torch.Tensor | None = None):
-    """Fill the cache from a prompt; returns (last_logits, cache)."""
-    x = embed_tokens(cfg, params, tokens, prefix_embeds)
-    caches = cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
-                                                 dev))
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, new_caches, _ = _stack_scan(cfg, params, x, caches, positions)
-    return logits_from_hidden(cfg, params, x[:, -1:]), new_caches
+    """Fill the cache from a prompt; returns (last_logits, cache). While a
+    profiler records, the call is a span named ``lm.prefill``."""
+    with trace.span("lm.prefill"):
+        x = embed_tokens(cfg, params, tokens, prefix_embeds)
+        caches = cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
+                                                     dev))
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, new_caches, _ = _stack_scan(cfg, params, x, caches, positions)
+        return logits_from_hidden(cfg, params, x[:, -1:]), new_caches
 
 
 def cache_for(x: torch.Tensor, make: Callable):
@@ -400,25 +403,30 @@ def prefill_chunked(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                     prefix_embeds: torch.Tensor | None = None):
     """Blocks-mode prefill: run the prompt through the stack in sequence
     chunks, carrying the KV cache between chunks. Semantically identical to
-    :func:`prefill` (causal attention never looks ahead)."""
-    x = embed_tokens(cfg, params, tokens, prefix_embeds)
-    s = x.shape[1]
-    caches = cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
-                                                 dev))
-    if s % chunk:
-        raise ValueError(f"prompt length {s} not divisible by chunk {chunk}")
-    last = None
-    for c0 in range(0, s, chunk):
-        xc = x[:, c0:c0 + chunk]
-        xc, caches, _ = _stack_scan(cfg, params, xc, caches, None)
-        last = xc[:, -1:]
-    return logits_from_hidden(cfg, params, last), caches
+    :func:`prefill` (causal attention never looks ahead), and the same
+    ``lm.prefill`` span."""
+    with trace.span("lm.prefill"):
+        x = embed_tokens(cfg, params, tokens, prefix_embeds)
+        s = x.shape[1]
+        caches = cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
+                                                     dev))
+        if s % chunk:
+            raise ValueError(
+                f"prompt length {s} not divisible by chunk {chunk}")
+        last = None
+        for c0 in range(0, s, chunk):
+            xc = x[:, c0:c0 + chunk]
+            xc, caches, _ = _stack_scan(cfg, params, xc, caches, None)
+            last = xc[:, -1:]
+        return logits_from_hidden(cfg, params, last), caches
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 caches: "KVCache | SSMState"):
     """One decode step. token: [B, 1]; caches from prefill/init_cache
-    (updated in place and returned)."""
-    x = embed_tokens(cfg, params, token)
-    x, new_caches, _ = _stack_scan(cfg, params, x, caches, None)
-    return logits_from_hidden(cfg, params, x), new_caches
+    (updated in place and returned). While a profiler records, the call
+    is a span named ``lm.decode``."""
+    with trace.span("lm.decode"):
+        x = embed_tokens(cfg, params, token)
+        x, new_caches, _ = _stack_scan(cfg, params, x, caches, None)
+        return logits_from_hidden(cfg, params, x), new_caches

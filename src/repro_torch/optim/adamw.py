@@ -21,6 +21,7 @@ from typing import Any
 import torch
 
 from repro_torch.dist.sharding import is_dtensor
+from repro_torch.utils import trace
 from repro_torch.utils.pytree import (
     chunks,
     global_norm,
@@ -61,9 +62,9 @@ def adamw_update(cfg: AdamWConfig, grads: Any, opt_state: dict, params: Any,
                  lr_scale: "torch.Tensor | float" = 1.0
                  ) -> tuple[Any, dict, dict]:
     """Returns (params, opt_state, metrics): ``params`` and ``opt_state``
-    are the objects given, updated in place. The update runs in a
-    ``torch.profiler`` range named ``optim.adamw``."""
-    with torch.profiler.record_function("optim.adamw"):
+    are the objects given, updated in place. While a ``torch.profiler``
+    records, the update is a span named ``optim.adamw``."""
+    with trace.span("optim.adamw"):
         return _update(cfg, grads, opt_state, params, lr_scale)
 
 

@@ -30,11 +30,20 @@ slot's length keeps growing, and its writes past ``max_seq`` are dropped
 (``_cache_write``). Skipping idle slots would change the other requests'
 tokens in the moe family, where an idle slot's token still takes an
 expert seat.
+
+While a ``torch.profiler`` records, a step is a ``serve.step`` span
+holding ``serve.admit`` (``serve.admit.tx``, then for each admitted
+request ``serve.prefill``, ``serve.first_token`` and ``serve.splice``
+with its ``rid``), ``serve.decode``, ``serve.token_rx`` (the RX
+submission until the last ticket returns) and ``serve.retire``; each
+request marks ``serve.queue`` (submit to its slot) and ``serve.request``
+(submit to done). See :mod:`repro_torch.utils.trace`.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -58,6 +67,7 @@ from repro_torch.core.transfer import (
 from repro_torch.models.api import Model
 from repro_torch.models.layers.attention import KVCache
 from repro_torch.serve.engine import transfer_fault_summary
+from repro_torch.utils import trace
 
 
 @dataclass
@@ -70,6 +80,9 @@ class Request:
     # submit context for this request's transfers (tenant, weight, caps);
     # merges over the engine's base qos. None = engine defaults.
     qos: QosSpec | None = None
+    # when submit() queued it, on the tracer's clock (0 where no profiler
+    # recorded then)
+    t_submit_ns: int = field(default=0, repr=False, compare=False)
 
 
 def _splice_slot(batch_cache: KVCache, one_cache: KVCache,
@@ -80,6 +93,12 @@ def _splice_slot(batch_cache: KVCache, one_cache: KVCache,
     batch_cache.k[:, slot].copy_(one_cache.k[:, 0])
     batch_cache.v[:, slot].copy_(one_cache.v[:, 0])
     batch_cache.length[slot] = one_cache.length
+
+
+def _mark_request(name: str, req: Request) -> None:
+    """``name`` from the request's submission until now."""
+    if req.t_submit_ns and trace.enabled():
+        trace.mark(name, req.t_submit_ns, time.time_ns(), id=req.rid)
 
 
 class ContinuousBatchingEngine:
@@ -168,6 +187,7 @@ class ContinuousBatchingEngine:
             tenant, cls=self._tok_qos.priority, extra_depth=backlog)
         if decision.admitted:
             self.queue.append(req)
+            req.t_submit_ns = time.time_ns() if trace.enabled() else 0
         return decision
 
     def _admit(self) -> None:
@@ -184,27 +204,33 @@ class ContinuousBatchingEngine:
         # scatter-gather transaction (each ragged prompt its own segment);
         # mixed specs fall back to one TX a prompt, keeping tenant
         # attribution exact.
-        if (len(admits) > 1 and all(s == specs[0] for s in specs)
-                and self.transfer.policy.management is Management.INTERRUPT
-                and hasattr(self.transfer, "tx_sg")):
-            devs = self.transfer.tx_sg(prompts, qos=specs[0]).wait()
-            prompt_devs = [d.reshape(p.shape)
-                           for d, p in zip(devs, prompts)]
-        else:
-            prompt_devs = [
-                reassemble_chunks(
-                    self.transfer.tx(p, qos=s)).reshape(p.shape)
-                for p, s in zip(prompts, specs)]
+        with trace.span("serve.admit.tx"):
+            if (len(admits) > 1 and all(s == specs[0] for s in specs)
+                    and self.transfer.policy.management is Management.INTERRUPT
+                    and hasattr(self.transfer, "tx_sg")):
+                devs = self.transfer.tx_sg(prompts, qos=specs[0]).wait()
+                prompt_devs = [d.reshape(p.shape)
+                               for d, p in zip(devs, prompts)]
+            else:
+                prompt_devs = [
+                    reassemble_chunks(
+                        self.transfer.tx(p, qos=s)).reshape(p.shape)
+                    for p, s in zip(prompts, specs)]
         vocab = self.model.cfg.vocab
         for (slot, req), prompt_dev in zip(admits, prompt_devs):
-            logits, one_cache = self.model.prefill(
-                self.params, {"tokens": prompt_dev}, self.max_seq)
-            first = int(logits[0, -1, :vocab].argmax(-1))
-            req.tokens.append(first)
-            _splice_slot(self.cache, one_cache, slot)
-            self.tokens[slot, 0] = first
-            self.lengths[slot] = len(req.prompt) + 1
-            self.slots[slot] = req
+            with trace.span("serve.prefill", id=req.rid):
+                logits, one_cache = self.model.prefill(
+                    self.params, {"tokens": prompt_dev}, self.max_seq)
+            with trace.span("serve.first_token", id=req.rid):
+                trace.count("wait.first_token")
+                first = int(logits[0, -1, :vocab].argmax(-1))
+            with trace.span("serve.splice", id=req.rid):
+                req.tokens.append(first)
+                _splice_slot(self.cache, one_cache, slot)
+                self.tokens[slot, 0] = first
+                self.lengths[slot] = len(req.prompt) + 1
+                self.slots[slot] = req
+            _mark_request("serve.queue", req)
 
     def _retire(self) -> None:
         for slot, req in enumerate(self.slots):
@@ -216,24 +242,48 @@ class ContinuousBatchingEngine:
                 req.done = True
                 self.completed.append(req)
                 self.slots[slot] = None
+                _mark_request("serve.request", req)
 
     @torch.no_grad()
     def step(self) -> int:
         """Admit, decode one token for every slot, retire. Returns the
         number of active slots served."""
-        self._admit()
+        with trace.span("serve.step"):
+            return self._step()
+
+    def _step(self) -> int:
+        with trace.span("serve.admit"):
+            self._admit()
         active = [s for s, r in enumerate(self.slots) if r is not None]
         if not active:
             return 0
-        logits, self.cache = self.model.decode(self.params, self.tokens,
-                                               self.cache)
-        tok_dev = logits[:, -1, : self.model.cfg.vocab].argmax(-1).to(
-            torch.int32)
+        with trace.span("serve.decode"):
+            logits, self.cache = self.model.decode(self.params, self.tokens,
+                                                   self.cache)
+            tok_dev = logits[:, -1, : self.model.cfg.vocab].argmax(-1).to(
+                torch.int32)
         # the next step's input stays on the device; only the bookkeeping
         # copy crosses back to the host, as a measured RX. Under INTERRUPT
         # it rides a runtime worker at TOKEN priority; with more than one
         # active slot the per-request tokens go as ONE rx_many transaction
         # (per-slot tickets, one completion hand-off).
+        with trace.span("serve.token_rx"):
+            nxt = self._token_rx(active, tok_dev)
+        with trace.span("serve.retire"):
+            nxt = np.asarray(nxt).reshape(-1)
+            for slot in active:
+                self.slots[slot].tokens.append(int(nxt[slot]))
+                self.lengths[slot] += 1
+            self.steps += 1
+            self._retire()
+            # the step's RX is retired: a drained-ring safe point for an
+            # online-adaptive transfer engine to swap plans (no-op otherwise)
+            self.transfer.maybe_adapt()
+        return len(active)
+
+    def _token_rx(self, active: list[int], tok_dev: torch.Tensor):
+        """The step's tokens on the host; ``self.tokens`` becomes the next
+        step's input, which stays on the device."""
         interrupt = (
             self.transfer.policy.management is Management.INTERRUPT)
         if (interrupt and len(active) > 1
@@ -247,26 +297,15 @@ class ContinuousBatchingEngine:
                 t.wait(self.rx_timeout_s)
             # per-slot landings wrote _tok_host in place (inactive slots
             # keep stale values and are never read below)
-            nxt = self._tok_host
-        else:
-            out = [self._tok_host]  # reused every step: zero-copy detok
-            ticket = (self.transfer.rx_async([tok_dev], out=out,
-                                             qos=self._tok_qos)
-                      if interrupt else None)
-            self.tokens = tok_dev[:, None]
-            nxt = (ticket.wait(self.rx_timeout_s)[0] if ticket
-                   else self.transfer.rx([tok_dev], out=out,
-                                         qos=self._tok_qos)[0])
-        nxt = np.asarray(nxt).reshape(-1)
-        for slot in active:
-            self.slots[slot].tokens.append(int(nxt[slot]))
-            self.lengths[slot] += 1
-        self.steps += 1
-        self._retire()
-        # the step's RX is retired: a drained-ring safe point for an
-        # online-adaptive transfer engine to swap plans (no-op otherwise)
-        self.transfer.maybe_adapt()
-        return len(active)
+            return self._tok_host
+        out = [self._tok_host]  # reused every step: zero-copy detok
+        ticket = (self.transfer.rx_async([tok_dev], out=out,
+                                         qos=self._tok_qos)
+                  if interrupt else None)
+        self.tokens = tok_dev[:, None]
+        return (ticket.wait(self.rx_timeout_s)[0] if ticket
+                else self.transfer.rx([tok_dev], out=out,
+                                      qos=self._tok_qos)[0])
 
     def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:
         while (self.queue or any(s is not None for s in self.slots)):

@@ -46,7 +46,8 @@ SLICE_MODULES = [
     "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.layers.ssm",
     "repro_torch.models.hybrid", "repro_torch.configs.mamba2_780m",
     "repro_torch.configs.zamba2_1_2b", "repro_torch.utils",
-    "repro_torch.utils.timing", "repro_torch.dist", "repro_torch.dist.fault",
+    "repro_torch.utils.timing", "repro_torch.utils.trace", "repro_torch.dist",
+    "repro_torch.dist.fault",
     "repro_torch.core.faults", "repro_torch.core.channels",
     "repro_torch.core.adaptive", "repro_torch.models.layers.moe",
     "repro_torch.models.encdec", "repro_torch.serve.continuous",
