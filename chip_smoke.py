@@ -33,8 +33,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
    conv on the card); a Table-I row per policy, with the median per-chunk
    copy time and, from one more frame under ``torch.profiler`` (after a
    warm-up step of small kernels), the device time a frame holds; the conv
-   kernel's launch count must rise by 10 per frame (5 layers + the 5-layer
-   sparsity pass);
+   kernel's launch count must rise by 5 per frame (one a layer: the
+   zeros are counted on the streamed fmaps);
 5b. the ``channels`` line: ``calibrate_transfer()`` on the card (t0 and
    GB/s from the host-felt time of pinned H2D copies, the CUDA-event time
    of the same copies beside it), ``plan_channels`` for 48 MiB and for the
@@ -49,7 +49,7 @@ Phases, in order; any failure exits non-zero before a result is printed:
    ``matmul_blocks`` kernel): within the f32 limits of plain products,
    bitwise equal across the transports, per-layer TX / compute / RX ms;
 5d. the ``channels_frame`` line: the same RoShamBo frames over a
-   two-channel group and an adaptive group, 10 conv launches a frame,
+   two-channel group and an adaptive group, 5 conv launches a frame,
    logits bitwise the single engine's and within ``LOGIT_TOL`` of the
    plain forward, each channel's descriptors;
 5e. the ``faults`` line: a seeded ``FaultInjector`` over three card
@@ -197,7 +197,7 @@ Phases, in order; any failure exits non-zero before a result is printed:
    at step 10 (``restarts == 1``), the plan of 384 of 512 devices and its
    ``reshard_plan``;
 12k. ``repro_torch.examples.transfer_modes`` on the card (a
-   ``transfer_modes`` line): the paper's four Table-I policies, 10 conv
+   ``transfer_modes`` line): the paper's four Table-I policies, 5 conv
    launches a frame, their logits bitwise equal; the unified runtime's
    TOKEN class at 51 completions / 1632 bytes; the fault demo's channel 0
    quarantined after two drops and back after the probe; the Table-I rows,
@@ -990,7 +990,7 @@ def channels_frame_phase(np, torch, libs, conv_lib, cnn, params, frames,
                          oracle) -> int:
     """5d. the ``channels_frame`` line: RoShamBo frames through
     ``HostStreamingExecutor`` over a two-channel group and an adaptive
-    group, built as ``NullHopExecutor.run_frame`` builds them: 10 conv
+    group, built as ``NullHopExecutor.run_frame`` builds them: 5 conv
     launches a frame, logits bitwise the single engine's frame and within
     ``LOGIT_TOL`` of ``RoShamBoCNN.apply``; the payloads are sub-stripe,
     so each channel's descriptor count shows both carried traffic.
@@ -1030,9 +1030,9 @@ def channels_frame_phase(np, torch, libs, conv_lib, cnn, params, frames,
                 res = _run_frame(cnn, streamer, params, frame, host_array,
                                  eng.policy.tag)
                 step = conv_lib.launches[sym] - before
-                if step != 10:
+                if step != 5:
                     fail(f"channels_frame {name}: {step} conv launches in "
-                         f"a frame, expected 10")
+                         f"a frame, expected 5")
                 if not np.array_equal(res.logits, ref[i]):
                     fail(f"channels_frame {name}: logits not bitwise the "
                          f"single engine's frame")
@@ -1055,7 +1055,7 @@ def channels_frame_phase(np, torch, libs, conv_lib, cnn, params, frames,
             eng.close()
     torch.cuda.synchronize()
     launches = dict(conv_lib.launches)
-    if launches[sym] != 10 * len(frames) * 3:
+    if launches[sym] != 5 * len(frames) * 3:
         fail(f"channels_frame: conv launches {launches}")
     print("channels_frame " + json.dumps({
         "frames": len(frames), "largest_layer_bytes": largest,
@@ -2822,7 +2822,7 @@ def elastic_phase() -> dict:
 def transfer_modes_phase(np, torch, dev, libs, conv_lib) -> dict:
     """12k. ``repro_torch.examples.transfer_modes`` on the card (a
     ``transfer_modes`` line): the four Table-I policies' logits bitwise
-    equal to each other and within ``LOGIT_TOL`` of the plain forward, 10
+    equal to each other and within ``LOGIT_TOL`` of the plain forward, 5
     conv launches a frame (4 policies x 4 frames),
     the fault demo quarantining channel 0 after its two drops and
     rejoining it after the probe with faults == retries ==
@@ -2838,7 +2838,7 @@ def transfer_modes_phase(np, torch, dev, libs, conv_lib) -> dict:
     launches = {lib.name: dict(lib.launches) for lib in libs}
     rows = out["table_i"]["rows"]
     frames = 4 * len(rows)  # a warm-up frame and 3 timed a policy
-    if conv_lib.launches["conv2d_bias_act"] != 10 * frames:
+    if conv_lib.launches["conv2d_bias_act"] != 5 * frames:
         fail(f"transfer_modes: {conv_lib.launches} over {frames} frames")
     first = rows[0]["logits"]
     if not np.isfinite(first).all() or not all(
@@ -3279,9 +3279,9 @@ def main() -> None:
             res = ex.run_frame(params, frames[i])
             n_frames += 1
             step = CONV2D.launches["conv2d_bias_act"] - before
-            if step != 10:
+            if step != 5:
                 fail(f"{policy.tag}: conv kernel launched {step} times "
-                     f"in one frame, expected 10")
+                     f"in one frame, expected 5")
             if not np.isfinite(res.logits).all() or res.logits.shape != (1, 4):
                 fail(f"{policy.tag}: bad logits {res.logits}")
             np.testing.assert_allclose(res.logits, oracle[i],
@@ -3305,7 +3305,7 @@ def main() -> None:
             # holds (kernels + copies); its wall time is not used. As in
             # device_ms_per_call, the traced frame is a schedule's second
             # step (the first a few small kernels), and a trace without the
-            # frame's 10 conv kernels is taken again
+            # frame's 5 conv kernels is taken again
             for _ in range(3):
                 with torch.profiler.profile(
                         activities=[torch.profiler.ProfilerActivity.CPU,
@@ -3320,7 +3320,7 @@ def main() -> None:
                     torch.cuda.synchronize()
                     prof.step()
                 ev = device_events(torch, prof)
-                if sum(c for k, _, c in ev if "conv2d_igemm" in k) == 10:
+                if sum(c for k, _, c in ev if "conv2d_igemm" in k) == 5:
                     break
             else:
                 fail(f"{policy.tag}: three traces of a frame lost conv "
@@ -3348,7 +3348,7 @@ def main() -> None:
                      "device_busy_share": (device_ms / (t.frame_s * 1e3)
                                            if device_ms else None)})
     main_launches = dict(CONV2D.launches)
-    if main_launches["conv2d_bias_act"] != 10 * n_frames:
+    if main_launches["conv2d_bias_act"] != 5 * n_frames:
         fail(f"conv launches {main_launches} over {n_frames} frames")
     print(f"main path: {n_frames} frames, launches {main_launches}")
     print(f"{'mode':28s} {'TX us/B':>10s} {'RX us/B':>10s} {'frame ms':>10s} "

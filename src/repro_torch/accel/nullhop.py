@@ -10,13 +10,15 @@ compute is the port's conv2d kernel on the engine's device.
 Also models NullHop's sparsity awareness: the accelerator skips zero
 activations (sparse feature-map encoding); we report the measured activation
 sparsity per layer (ReLU output) alongside timings, since it determines the
-effective RX payload on the real device.
+effective RX payload on the real device. Each streamed layer counts its
+output fmap's nonzeros on the compute stream, where the fmap already is,
+and the call reads the counts back once.
 
 While a ``torch.profiler`` records, each call is a ``frame`` span (its id
 the executor's call number) holding a ``frame.layer`` span a layer (with
 the layer's ``frame.tx`` / ``frame.compute`` / ``frame.rx``), then
-``frame.sparsity`` (the oracle pass) and ``frame.head`` (the host FC);
-see :mod:`repro_torch.utils.trace`.
+``frame.sparsity`` (the one read of the layers' zero counts) and
+``frame.head`` (the host FC); see :mod:`repro_torch.utils.trace`.
 """
 
 from __future__ import annotations
@@ -37,7 +39,9 @@ from repro_torch.utils import trace
 class NullHopResult:
     logits: np.ndarray
     timing: FrameTiming
-    sparsity: list[float]  # per-layer zero fraction of the output fmap
+    # per-layer zero fraction of the output fmap, counted on the fmap the
+    # streamed layer produced
+    sparsity: list[float]
     policy_tag: str
 
 
@@ -90,10 +94,10 @@ def _run_frame(cnn: RoShamBoCNN, streamer: HostStreamingExecutor,
                params: dict, frame: np.ndarray, host_array,
                policy_tag: str, call: int | None = None) -> NullHopResult:
     """One frame through ``streamer`` (over a single engine or a channel
-    group): the layers streamed, the sparsity pass on the engine's device,
-    the classifier head on the host. ``host_array(key, tensor)`` gives the
-    host array a layer's param is staged from; ``call`` numbers the
-    ``frame`` span. The timing's ``wall_s`` is the whole call's, entry to
+    group): the layers streamed, each counting its fmap's zeros on the
+    engine's device, the classifier head on the host. ``host_array(key,
+    tensor)`` gives the host array a layer's param is staged from;
+    ``call`` numbers the ``frame`` span. The timing's ``wall_s`` is the whole call's, entry to
     logits."""
     t0 = time.perf_counter()
     with trace.span("frame", id=call):
@@ -105,10 +109,19 @@ def _run_frame(cnn: RoShamBoCNN, streamer: HostStreamingExecutor,
 
 def _frame_body(cnn, streamer, params, frame, host_array,
                 policy_tag) -> NullHopResult:
+    nnz: list[torch.Tensor] = []  # each layer's nonzeros, 0-d on the device
+    numel: list[int] = []
+
     def make_apply(spec):
         def apply_fn(dev_params, x):
             w, b = dev_params
-            return cnn.layer_apply(spec, {"w": w, "b": b}, x)
+            y = cnn.layer_apply(spec, {"w": w, "b": b}, x)
+            # queued after y on the stream that computed it; the executor
+            # waits for an event recorded after apply_fn, so the count is
+            # ready once the layer's compute is
+            nnz.append(torch.count_nonzero(y))
+            numel.append(y.numel())
+            return y
         return apply_fn
 
     layers = []
@@ -122,14 +135,10 @@ def _frame_body(cnn, streamer, params, frame, host_array,
     out_host, timing = streamer.run(layers, np.asarray(frame))
 
     with trace.span("frame.sparsity"):
-        sparsity = []  # recompute per-layer zero fractions (oracle pass)
-        device = streamer.engine.device
-        x = torch.as_tensor(np.asarray(frame)).to(device)
-        for spec in cnn.cfg.layers:
-            p = {k: v.to(device) for k, v in params[spec.name].items()}
-            x = cnn.layer_apply(spec, p, x)
-            trace.count("wait.sparsity")
-            sparsity.append(float((x == 0).float().mean()))
+        trace.count("sparsity.fmaps", len(nnz))
+        trace.count("wait.sparsity")
+        counts = torch.stack(nnz).tolist()  # the call's one read
+        sparsity = [1.0 - c / n for c, n in zip(counts, numel)]
 
     with trace.span("frame.head"):
         # classifier head runs on the PS in the paper (host-side)

@@ -86,6 +86,57 @@ def test_nullhop_frame_matches_reference(slice_inputs, i):
     assert res.timing.frame_s > 0
 
 
+# the executor's two paths: kernel_level() is SINGLE buffering (the serial
+# _run_basic); INTERRUPT with DOUBLE buffering takes _run_overlapped
+_EXECUTOR_PATHS = {
+    "kernel-level-basic": lambda: ttransfer.TransferPolicy.kernel_level(),
+    "interrupt-double-overlapped": lambda: _policies(ttransfer)[1],
+}
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("path", list(_EXECUTOR_PATHS))
+def test_sparsity_counts_the_streamed_fmaps(slice_inputs, path, batch):
+    _, _, params, _, _ = slice_inputs
+    frames = np.random.default_rng(batch).standard_normal(
+        (batch, 64, 64, 1)).astype(np.float32)
+    cnn = RoShamBoCNN()
+    ex = NullHopExecutor(cnn, _EXECUTOR_PATHS[path](), device="cpu")
+    try:
+        res = ex.run_frame(params, frames)
+    finally:
+        ex.close()
+    assert len(res.sparsity) == len(cnn.cfg.layers)
+    x = torch.from_numpy(frames)
+    for spec, got in zip(cnn.cfg.layers, res.sparsity):
+        x = cnn.layer_apply(spec, params[spec.name], x)
+        zeros = int((x == 0).sum())
+        assert round(got * x.numel()) == zeros, spec.name
+        assert abs(got - zeros / x.numel()) <= 1e-12, spec.name
+
+
+@pytest.mark.parametrize("path", list(_EXECUTOR_PATHS))
+def test_frame_applies_each_layer_once(slice_inputs, path):
+    _, _, params, frame, _ = slice_inputs
+    cnn = RoShamBoCNN()
+    applied = []
+    layer_apply = cnn.layer_apply
+
+    def counted(spec, *args, **kwargs):
+        applied.append(spec.name)
+        return layer_apply(spec, *args, **kwargs)
+
+    cnn.layer_apply = counted
+    ex = NullHopExecutor(cnn, _EXECUTOR_PATHS[path](), device="cpu")
+    try:
+        for _ in range(2):
+            applied.clear()
+            ex.run_frame(params, frame)
+            assert applied == [spec.name for spec in cnn.cfg.layers]
+    finally:
+        ex.close()
+
+
 def test_layer_transfer_bytes_match_reference(slice_inputs):
     jcnn, jparams, params, _, _ = slice_inputs
     assert RoShamBoCNN().layer_transfer_bytes(params, batch=3) == \

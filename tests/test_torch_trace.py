@@ -176,7 +176,10 @@ def test_frame_call_spans_layers_descriptors_and_sparsity(smoke_cnn):
     assert set(queue) == set(wake)
     assert all(queue[i].t1_ns <= wake[i].t1_ns for i in queue)
     assert all(r.id == f.id for r in recs if r.name.startswith("frame."))
-    assert trace.counters()["wait.sparsity"] == n_layers
+    # one read of the call's zero counts, taken where each streamed layer
+    # left its fmap
+    assert trace.counters()["wait.sparsity"] == 1
+    assert trace.counters()["sparsity.fmaps"] == n_layers
     assert trace.counters()["wait.ticket"] == n_transfers
     # the call's wall is taken around the whole call, span and all
     assert res.timing.frame_s * 1e9 >= f.dur_ns
