@@ -1,5 +1,6 @@
 """Registry mapping --arch ids to ModelConfig builders: the reference's
-arch ids, all of them, and the paper's RoShamBo CNN."""
+arch ids, all of them (``ARCHS``), the paper's RoShamBo CNN, and
+granite-4.0-h-small (the hybrid_moe family, which the reference lacks)."""
 
 from __future__ import annotations
 
@@ -19,9 +20,12 @@ _ARCH_MODULES = {
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
     "roshambo-nullhop": "repro_torch.configs.roshambo",
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
 }
 
-ARCHS = tuple(k for k in _ARCH_MODULES if k != "roshambo-nullhop")
+# the port's own: the paper's CNN, and a family the reference lacks
+PORT_ONLY = ("roshambo-nullhop", "granite-4.0-h-small")
+ARCHS = tuple(k for k in _ARCH_MODULES if k not in PORT_ONLY)
 
 
 def _module(name: str):

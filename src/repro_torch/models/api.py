@@ -11,12 +11,14 @@ functions, as the reference's does:
 
 Batches are dicts of tensors. Keys by family, as the reference's:
 
-- dense / moe / ssm / hybrid: ``tokens`` [B,S], ``labels`` [B,S]
+- dense / moe / ssm / hybrid / hybrid_moe: ``tokens`` [B,S], ``labels``
+  [B,S]
 - vlm: ``tokens`` [B,S_text], ``patch_embeds`` [B,n_prefix,D],
   ``labels`` [B,S_text] (the loss is taken over the text positions only)
 - audio: ``frames`` [B,S_enc,D], ``tokens`` [B,S_dec], ``labels`` [B,S_dec]
 
-The dense, vlm, moe and ssm families run through ``models/lm.py``, the
+The dense, vlm, moe, ssm and hybrid_moe families run through
+``models/lm.py``, the
 hybrid family through ``models/hybrid.py`` and the audio family through
 ``models/encdec.py``. For the dry run (``launch/dryrun.py``),
 :func:`input_specs` and :func:`cache_specs` give every input of a shape
@@ -102,7 +104,8 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio",
+                          "hybrid_moe"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)

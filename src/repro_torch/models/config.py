@@ -13,6 +13,13 @@ Families:
 - ``moe``    : mixture-of-experts FFN (deepseek-moe, granite-moe)
 - ``ssm``    : attention-free Mamba2 / SSD (mamba2-780m)
 - ``hybrid`` : Mamba2 backbone + shared attention blocks (zamba2)
+- ``hybrid_moe``: Mamba2 and GQA mixers in a per-layer pattern
+  (``layer_types``), each followed by a routed MoE with a shared expert
+  (granite-4.0-h-small)
+
+The fields below ``layer_types`` (the published scalar multipliers and
+the norms' eps) are set by the ``hybrid_moe`` configs alone; at their
+defaults every other family computes what it computed without them.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm | audio | moe | ssm | hybrid
+    family: str  # dense | vlm | audio | moe | ssm | hybrid | hybrid_moe
     n_layers: int
     d_model: int
     vocab: int
@@ -68,6 +75,14 @@ class ModelConfig:
     # -- hybrid (zamba2): shared attention block every k mamba layers --
     hybrid_attn_every: int = 6
     hybrid_lora_rank: int = 128
+    # -- hybrid_moe (granite-4.0-h): each layer's mixer, "mamba" or
+    # "attention"; the published scalar multipliers and norm eps --
+    layer_types: tuple[str, ...] = ()
+    embedding_multiplier: float = 1.0  # embeddings times this
+    residual_multiplier: float = 1.0  # each mixer's and MoE's output times this
+    attention_multiplier: float = 0.0  # scores' scale; 0 -> 1/sqrt(head dim)
+    logits_scaling: float = 1.0  # logits divided by this
+    norm_eps: float = 1e-6  # the RMS norms' and the gated norm's eps
     # -- enc-dec (seamless) --
     n_enc_layers: int = 0
     # -- modality frontend stubs --
@@ -125,6 +140,18 @@ class ModelConfig:
         return self.d_inner + 2 * self.ssm_groups * self.ssm_state
 
     @property
+    def attn_layers(self) -> tuple[int, ...]:
+        """``hybrid_moe``: the layers whose mixer is attention."""
+        return tuple(i for i, t in enumerate(self.layer_types)
+                     if t == "attention")
+
+    @property
+    def mamba_layers(self) -> tuple[int, ...]:
+        """``hybrid_moe``: the layers whose mixer is Mamba2."""
+        return tuple(i for i, t in enumerate(self.layer_types)
+                     if t == "mamba")
+
+    @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
@@ -151,13 +178,17 @@ class ModelConfig:
         attn = D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D
         if self.qkv_bias:
             attn += (H + 2 * Hkv) * Dh
-        if self.family == "moe":
+        if self.family in ("moe", "hybrid_moe"):
             E, Fe, S = self.n_experts, self.d_expert or F, self.n_shared_experts
             ff = E * (3 * D * Fe) + S * (3 * D * Fe) + D * E
         elif self.mlp == "gated_silu":
             ff = 3 * D * F
         else:
             ff = 2 * D * F
+        if self.family == "hybrid_moe":
+            n_attn = len(self.attn_layers)
+            return (emb + L * (ff + 2 * D) + n_attn * attn
+                    + (L - n_attn) * self._ssm_params() + D)
         per = attn + ff + 2 * D
         total = emb + L * per + D
         if self.family == "audio":
@@ -182,7 +213,7 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: shared + top_k experts only)."""
-        if self.family != "moe":
+        if self.family not in ("moe", "hybrid_moe"):
             return self.param_count()
         D, L = self.d_model, self.n_layers
         E, Fe, S, K = (self.n_experts, self.d_expert or self.d_ff,

@@ -154,11 +154,13 @@ def _mask_bias(s_q: int, s_kv: int, q_offset, *, causal: bool, window: int,
 def attention_unique(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True, window: int = 0,
                      q_offset: Length = 0, kv_valid: Length | None = None,
-                     kv_offset: Length = 0) -> torch.Tensor:
+                     kv_offset: Length = 0,
+                     scale: float | None = None) -> torch.Tensor:
     """Unique-mode attention: one [S_q, S_kv] score block.
 
     q: [B, S_q, H, Dh]; k, v: [B, S_kv, Hkv, Dh] (Hkv divides H).
-    kv_valid: kv positions >= kv_valid are masked (cache). While a
+    kv_valid: kv positions >= kv_valid are masked (cache). ``scale``
+    multiplies the scores (None: 1/sqrt(Dh)). While a
     profiler records, the repeat of K / V over each head group and K's
     cast to f32 are a span named ``attn.cache``."""
     b, sq, h, dh = q.shape
@@ -167,7 +169,7 @@ def attention_unique(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with trace.span("attn.cache"):  # K / V to every head of a group; K in f32
         k = repeat_kv(k, h // hkv).float()
         v = repeat_kv(v, h // hkv)
-    scale = 1.0 / math.sqrt(dh)
+    scale = _scale(scale, dh)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k)
     if _all_scalar(q_offset, kv_offset, kv_valid):
         bias = _mask_bias(sq, k.shape[1], q_offset, causal=causal,
@@ -189,7 +191,8 @@ def attention_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True, window: int = 0,
                      q_offset: Length = 0, kv_valid: Length | None = None,
                      kv_chunk: int = 1024,
-                     kv_offset: Length = 0) -> torch.Tensor:
+                     kv_offset: Length = 0,
+                     scale: float | None = None) -> torch.Tensor:
     """Blocks-mode attention: stream KV in chunks with online softmax.
 
     Same semantics as :func:`attention_unique`; working set O(S_q * kv_chunk).
@@ -206,7 +209,7 @@ def attention_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_valid = s_kv if kv_valid is None else kv_valid
         s_kv = k.shape[1]
     n_chunks = s_kv // kv_chunk
-    scale = 1.0 / math.sqrt(dh)
+    scale = _scale(scale, dh)
     n_rep = h // hkv
     qf = q.float()
 
@@ -240,7 +243,8 @@ def attention_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention(q, k, v, *, causal=True, window=0, q_offset=0, kv_valid=None,
               kv_chunk: int = 1024, blocks_threshold: int = 4096,
-              kv_offset: Length = 0) -> torch.Tensor:
+              kv_offset: Length = 0, scale: float | None = None
+              ) -> torch.Tensor:
     """Policy dispatch: Unique mode below the threshold, Blocks above.
 
     kv_offset: absolute position of k[:, 0] (nonzero when the cache read was
@@ -248,10 +252,16 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0, kv_valid=None,
     if k.shape[1] <= blocks_threshold:
         return attention_unique(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, kv_valid=kv_valid,
-                                kv_offset=kv_offset)
+                                kv_offset=kv_offset, scale=scale)
     return attention_blocks(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, kv_valid=kv_valid,
-                            kv_chunk=kv_chunk, kv_offset=kv_offset)
+                            kv_chunk=kv_chunk, kv_offset=kv_offset,
+                            scale=scale)
+
+
+def _scale(scale: float | None, dh: int) -> float:
+    """The scores' scale: the configuration's, else 1/sqrt(Dh)."""
+    return 1.0 / math.sqrt(dh) if scale is None else scale
 
 
 # ---------------------------------------------------------------------------
@@ -290,14 +300,19 @@ def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                cache: KVCache | None = None,
                positions: torch.Tensor | None = None,
                xk: torch.Tensor | None = None,
-               causal: bool = True) -> tuple[torch.Tensor, KVCache | None]:
+               causal: bool = True,
+               scale: float | None = None
+               ) -> tuple[torch.Tensor, KVCache | None]:
     """Self- (xk=None) or cross- (xk=encoder output) attention.
 
     With a cache: writes this call's K/V at cache.length (in place) and
     attends over the valid prefix (decode path). positions: [S] absolute
     positions for RoPE (defaults to arange, offset by cache.length when
-    decoding). ``use_pallas`` sends self-attention without a cache to the
-    flash kernel; ``pallas_interpret`` is accepted and means nothing here.
+    decoding). ``scale`` multiplies the scores on every route (None:
+    1/sqrt(head_dim)). ``use_pallas`` sends self-attention without a cache
+    to the flash kernel, which scales by 1/sqrt(head_dim): another
+    ``scale`` is folded into q first; ``pallas_interpret`` is accepted and
+    means nothing here.
     Projections that come out as ``DTensor``s take :func:`_sharded_attn`;
     rows replicated on the data axes (B = 1) split each projection's
     contraction over them (``contract_on_data``)."""
@@ -309,7 +324,7 @@ def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     kw = dict(rope_theta=rope_theta, window=window, kv_chunk=kv_chunk,
               blocks_threshold=blocks_threshold, use_pallas=use_pallas,
               cache=cache, positions=positions, cross=xk is not None,
-              causal=causal)
+              causal=causal, scale=scale)
     o, new_cache = attend_projected(qf, kf, vf, n_heads=n_heads, n_kv=n_kv,
                                     head_dim=head_dim, **kw)
     return contract_on_data(o.reshape(b, s, n_heads * head_dim),
@@ -342,7 +357,8 @@ def _positions(offset: Length, s: int, device) -> torch.Tensor:
 def _attend(q, k, v, *, rope_theta: float, window: int, kv_chunk: int,
             blocks_threshold: int, use_pallas: bool, cache: KVCache | None,
             positions, cross: bool, causal: bool,
-            kv_heads: torch.Tensor | None = None):
+            kv_heads: torch.Tensor | None = None,
+            scale: float | None = None):
     """``attn_apply`` after the projections: q [B, S, H, Dh], k / v [B,
     S_kv, Hkv, Dh] -> (out [B, S, H, Dh], new cache). ``kv_heads``, where
     given, is the K/V head each q head reads (a head-sharded q against
@@ -360,6 +376,8 @@ def _attend(q, k, v, *, rope_theta: float, window: int, kv_chunk: int,
 
     if use_pallas and cache is None and not cross and s == k.shape[1]:
         from repro_torch.kernels.flash_attention.ops import flash_attention
+        if scale is not None:  # the kernel takes 1/sqrt(Dh); the rest in q
+            q = q * (scale * math.sqrt(q.shape[-1]))
         return flash_attention(q, k, v, causal=causal, window=window), None
 
     def select(k, v):
@@ -391,17 +409,19 @@ def _attend(q, k, v, *, rope_theta: float, window: int, kv_chunk: int,
         k, v = select(k, v)
         out = attention(q, k, v, causal=causal, window=window, q_offset=offset,
                         kv_valid=cache.length + s, kv_chunk=kv_chunk,
-                        blocks_threshold=blocks_threshold, kv_offset=kv_off)
+                        blocks_threshold=blocks_threshold, kv_offset=kv_off,
+                        scale=scale)
     elif cache is not None:  # cross-attn with precomputed encoder cache
         k, v = select(cache.k, cache.v)
         out = attention(q, k, v, causal=False,
                         kv_valid=cache.length, kv_chunk=kv_chunk,
-                        blocks_threshold=blocks_threshold)
+                        blocks_threshold=blocks_threshold, scale=scale)
         new_cache = cache
     else:
         k, v = select(k, v)
         out = attention(q, k, v, causal=causal, window=window,
-                        kv_chunk=kv_chunk, blocks_threshold=blocks_threshold)
+                        kv_chunk=kv_chunk, blocks_threshold=blocks_threshold,
+                        scale=scale)
     return out, new_cache
 
 
@@ -534,7 +554,7 @@ def _prefill_seq_cache(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int,
 
 
 def _block_attention(q, k, v, *, causal: bool, window: int, q_offset,
-                     kv_offset, kv_valid):
+                     kv_offset, kv_valid, scale: float | None = None):
     """Attention of q [B, s, H, Dh] over one block of the keys [B,
     S_blk, Hkv, Dh] whose first position is ``kv_offset``, as
     :func:`attention_unique` takes it: (the output normalised over the
@@ -544,7 +564,7 @@ def _block_attention(q, k, v, *, causal: bool, window: int, q_offset,
     k = repeat_kv(k, h // k.shape[2])
     v = repeat_kv(v, h // v.shape[2])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          k.float()) * (1.0 / math.sqrt(dh))
+                          k.float()) * _scale(scale, dh)
     ok = _ok_mask(q.shape[1], k.shape[1], q_offset, causal=causal,
                   window=window, kv_start=kv_offset, kv_valid=kv_valid,
                   device=q.device)
@@ -558,7 +578,8 @@ def _block_attention(q, k, v, *, causal: bool, window: int, q_offset,
 
 def _seq_sharded_attn(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int,
                       *, cache: KVCache, positions, rope_theta: float,
-                      window: int, causal: bool, **kw):
+                      window: int, causal: bool, scale: float | None = None,
+                      **kw):
     """Attention against a cache the rules shard on its sequence (S_max on
     the data axes, replicated over "model"), read where it lies: each rank
     attends its slice of the positions for every row, for the heads its
@@ -620,7 +641,7 @@ def _seq_sharded_attn(qf, kf, vf, n_heads: int, n_kv: int, head_dim: int,
         kk, vv = ck.index_select(2, idx), cv.index_select(2, idx)
     out, lse = _block_attention(q, kk, vv, causal=causal, window=window,
                                 q_offset=length, kv_offset=s0,
-                                kv_valid=length + s)
+                                kv_valid=length + s, scale=scale)
     seq = [i for i, pl in enumerate(cache.k.placements) if pl.is_shard(1)]
     on_model = [Shard(3) if i == m and split else Replicate()
                 for i in range(nd)]

@@ -33,10 +33,12 @@ def norm_params(kind: str, d: int, device=None) -> dict:
             "bias": torch.zeros((d,), device=device)}
 
 
-def apply_norm(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(kind: str, params: dict, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
     """A ``DTensor`` result is made batch-sharded again (``batch_sharded``):
     the rules shard a [D] scale over "model", which would leave the
-    activations split over their features into the products that follow."""
+    activations split over their features into the products that follow.
+    ``eps`` is the RMS norm's (the layer norm keeps its 1e-5)."""
     if kind == "rms":
-        return batch_sharded(rms_norm(x, params["scale"]))
+        return batch_sharded(rms_norm(x, params["scale"], eps))
     return batch_sharded(layer_norm(x, params["scale"], params["bias"]))

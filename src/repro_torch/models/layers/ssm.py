@@ -22,6 +22,12 @@ stays as the plain full-SSD oracle of the tests and ``chip_smoke.py``.
 The decode state is carried as tensors that the caller updates in place
 (``models/lm.py``, ``models/hybrid.py``); this module returns new state
 tensors and never writes into the ones it was given.
+
+While a ``torch.profiler`` records, a layer's mixer between its
+projections is a span (:mod:`repro_torch.utils.trace`): ``ssm.scan`` over
+a sequence (the conv, the SSD and the gated norm), ``ssm.step`` for a
+decode's one-token update; the counter ``ssm.scan_tokens`` adds the
+padded tokens each scan sends through the SSD (batch x padded length).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist.sharding import is_dtensor
 from repro_torch.kernels.ssd_scan.ops import ssd_full
+from repro_torch.utils import trace
 
 
 class SSMState(NamedTuple):
@@ -203,7 +210,9 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
     din, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
     z, xbc, dt = torch.split(x @ p["in_proj"], [din, din + 2 * gn,
                                                 cfg.n_ssm_heads], dim=-1)
-    y, new_state = _mamba2_core(p, z, xbc, dt, cfg, state)
+    step = state is not None and x.shape[1] == 1
+    with trace.span("ssm.step" if step else "ssm.scan"):
+        y, new_state = _mamba2_core(p, z, xbc, dt, cfg, state)
     return y.to(x.dtype) @ p["out_proj"], new_state
 
 
@@ -349,6 +358,7 @@ def _mamba2_core(p: dict, z: torch.Tensor, xbc: torch.Tensor,
             bb = F.pad(bb, (0, 0, 0, 0, 0, pad))
             cc = F.pad(cc, (0, 0, 0, 0, 0, pad))
         init = state.ssm if state is not None else None
+        trace.count("ssm.scan_tokens", bsz * (s + pad))
         y, final = ssd_full(xh, dt, a, bb, cc, chunk=cfg.ssm_chunk,
                             initial_state=init)
         y = y[:, :s] + xh[:, :s] * p["d_skip"][None, None, :, None]
@@ -370,7 +380,7 @@ def _mamba2_core(p: dict, z: torch.Tensor, xbc: torch.Tensor,
         var = yf.square().mean(-1, keepdim=True)
     else:
         var = sum_sq(yf.square().sum(-1, keepdim=True)) / cfg.d_inner
-    return yf * torch.rsqrt(var + 1e-6) * p["norm_scale"], new_state
+    return yf * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"], new_state
 
 
 def ssm_state_zeros(cfg, batch: int, dtype: torch.dtype,

@@ -1,4 +1,4 @@
-"""Decoder-only LM: the dense, vlm, moe and ssm families.
+"""Decoder-only LM: the dense, vlm, moe, ssm and hybrid_moe families.
 
 Params keep the reference's pytree layout: a dict of tensors whose
 ``blocks`` subtree is stacked over layers (leading [L] axis), so the port's
@@ -17,13 +17,24 @@ for the ssm family; the vlm family puts its patch embeddings before the
 text (``prefix_embeds``). The decode cache is a stacked ``KVCache`` or
 ``SSMState``; each layer's new entries are written into the stacked
 [L, ...] tensors in place (the reference scans a fresh cache out).
+
+The hybrid_moe family (granite-4.0-h) has no JAX counterpart. Its block is
+(norm -> Mamba2 or attention mixer, as ``cfg.layer_types`` says -> scaled
+residual -> norm -> routed MoE plus the shared expert -> scaled residual),
+with the published scalar multipliers (``embedding_multiplier``,
+``residual_multiplier``, ``attention_multiplier``, ``logits_scaling``) and
+``norm_eps``. Its params stack the norms and the MoE over every layer
+(``blocks``) and each mixer kind over its own layers (``mamba``,
+``attn``); its decode cache, a :class:`HybridCache`, holds the attention
+layers' K/V and the Mamba2 layers' state side by side, advanced together
+by one step.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -37,7 +48,8 @@ from repro_torch.device import default_device
 from repro_torch.dist.sharding import (
     batch_sharded, contract_on_data, is_dtensor, layer_at)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers.attention import KVCache, attn_apply, attn_params
+from repro_torch.models.layers.attention import (
+    KVCache, Length, attn_apply, attn_params)
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
 from repro_torch.models.layers.moe import moe_apply, moe_params
 from repro_torch.models.layers.norm import apply_norm, norm_params
@@ -93,19 +105,17 @@ def make_remat(cfg: ModelConfig) -> Callable:
 
 def init_block_params(generator: torch.Generator, cfg: ModelConfig,
                       device=None) -> dict:
-    """Params for ONE block (``init_params`` stacks them)."""
+    """Params for ONE block (``init_params`` stacks them); a hybrid_moe
+    block's mixer is drawn with its kind's stack."""
     dt = _dtype(cfg)
     if cfg.family == "ssm":
         return {"ln1": norm_params(cfg.norm, cfg.d_model, device),
                 "mixer": mamba2_params(generator, cfg, dt, device)}
-    p = {
-        "ln1": norm_params(cfg.norm, cfg.d_model, device),
-        "attn": attn_params(generator, cfg.d_model, cfg.n_heads,
-                            cfg.n_kv_heads, cfg.head_dim_, bias=cfg.qkv_bias,
-                            dtype=dt, device=device),
-        "ln2": norm_params(cfg.norm, cfg.d_model, device),
-    }
-    if cfg.family == "moe":
+    p = {"ln1": norm_params(cfg.norm, cfg.d_model, device)}
+    if cfg.family != "hybrid_moe":
+        p["attn"] = _attn_params(generator, cfg, device)
+    p["ln2"] = norm_params(cfg.norm, cfg.d_model, device)
+    if cfg.family in ("moe", "hybrid_moe"):
         p["moe"] = moe_params(generator, cfg.d_model, cfg.n_experts,
                               cfg.d_expert or cfg.d_ff, cfg.n_shared_experts,
                               dt, device)
@@ -133,10 +143,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params["blocks"] = stack_blocks(
         lambda: init_block_params(generator, cfg, device), cfg.n_layers,
         device)
+    if cfg.family == "hybrid_moe":  # each mixer kind over its own layers
+        params["mamba"] = stack_blocks(
+            lambda: mamba2_params(generator, cfg, dt, device),
+            len(cfg.mamba_layers), device)
+        params["attn"] = stack_blocks(
+            lambda: _attn_params(generator, cfg, device),
+            len(cfg.attn_layers), device)
     params["final_norm"] = norm_params(cfg.norm, cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = draw((cfg.d_model, cfg.vocab_padded))
     return params
+
+
+def _attn_params(generator: torch.Generator, cfg: ModelConfig,
+                 device) -> dict:
+    return attn_params(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim_, bias=cfg.qkv_bias, dtype=_dtype(cfg),
+                       device=device)
 
 
 def stack_blocks(make_block: Callable[[], dict], n: int, device) -> dict:
@@ -217,6 +241,8 @@ def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
     """Run the blocks in order over the stacked [L, ...] params (and the
     stacked cache, whose tensors each layer updates in place). The aux
     loss is the sum of the layers' (an f32 scalar on ``x``'s device)."""
+    if cfg.family == "hybrid_moe":
+        return _hybrid_moe_scan(cfg, params, x, caches, positions)
     blocks = unstack(params["blocks"])
     aux = 0.0
     if isinstance(caches, SSMState):
@@ -254,6 +280,8 @@ def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                  prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
     x = lookup(params["embed"], tokens)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if prefix_embeds is not None:  # vlm: image patches before text
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -297,10 +325,14 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
     ``allow_bf16_reduced_precision_reduction`` says, which governs bf16
     outputs only. On the CPU, which has no such product, the operands are
     cast up, which is exact for bf16. A bf16 result would round the logits
-    and move the greedy argmax."""
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+    and move the greedy argmax. The logits are divided by
+    ``cfg.logits_scaling`` (1: as they are)."""
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return head_product(x, head)
+    out = head_product(x, head)
+    if cfg.logits_scaling != 1.0:
+        out = out / cfg.logits_scaling
+    return out
 
 
 def head_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -354,19 +386,29 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               device=None) -> "KVCache | SSMState":
+               device=None) -> "KVCache | SSMState | HybridCache":
     """Stacked [L, ...] decode cache: for the dense family K/V with one
     length for every layer (they advance together), a Python int; for the
-    ssm family the recurrent state (``s_max`` unused: it is O(1))."""
+    ssm family the recurrent state (``s_max`` unused: it is O(1)); for the
+    hybrid_moe family both, each over its own layers (:class:`HybridCache`)."""
     device = default_device(device)
-    if cfg.family == "ssm":
-        st = ssm_state_zeros(cfg, batch, _dtype(cfg), device)
-        return SSMState(*(t[None].repeat(cfg.n_layers, *([1] * t.dim()))
-                          for t in st))
-    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
     dt = _dtype(cfg)
-    return KVCache(torch.zeros(shape, dtype=dt, device=device),
-                   torch.zeros(shape, dtype=dt, device=device), 0)
+
+    def states(n: int) -> SSMState:
+        return SSMState(*(t[None].repeat(n, *([1] * t.dim())) for t in
+                          ssm_state_zeros(cfg, batch, dt, device)))
+
+    def kv(n: int) -> KVCache:
+        shape = (n, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+        return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                       torch.zeros(shape, dtype=dt, device=device), 0)
+
+    if cfg.family == "ssm":
+        return states(cfg.n_layers)
+    if cfg.family == "hybrid_moe":
+        return HybridCache(*kv(len(cfg.attn_layers)),
+                           *states(len(cfg.mamba_layers)))
+    return kv(cfg.n_layers)
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, s_max: int,
@@ -430,3 +472,82 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         x = embed_tokens(cfg, params, token)
         x, new_caches, _ = _stack_scan(cfg, params, x, caches, None)
         return logits_from_hidden(cfg, params, x), new_caches
+
+
+# ---------------------------------------------------------------------------
+# hybrid_moe: Mamba2 and attention mixers, each followed by a MoE
+# ---------------------------------------------------------------------------
+
+class HybridCache(NamedTuple):
+    """The hybrid_moe decode cache. ``k`` / ``v`` [La, B, S_max, Hkv, Dh]
+    and ``length`` as a stacked ``KVCache``'s, over the attention layers;
+    ``ssm`` [Lm, B, H, P, N] (f32) and ``conv`` [Lm, B, W-1, conv_dim] as
+    a stacked ``SSMState``'s, over the Mamba2 layers. Every layer takes
+    the same tokens, so one length serves them all."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: Length
+    ssm: torch.Tensor
+    conv: torch.Tensor
+
+
+def _hybrid_moe_layer(cfg: ModelConfig, kind: str, p: dict, mixer: dict,
+                      x: torch.Tensor, cache, positions):
+    """One hybrid_moe block: (x, the mixer's new cache or state, aux)."""
+    r = cfg.residual_multiplier
+    h = apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        h, new = mamba2_apply(mixer, h, cfg, state=cache)
+    else:
+        h, new = attn_apply(
+            mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+            kv_chunk=cfg.attn_kv_chunk,
+            blocks_threshold=cfg.attn_blocks_threshold,
+            use_pallas=cfg.use_pallas_attention,
+            scale=cfg.attention_multiplier or None, cache=cache,
+            positions=positions)
+    x = batch_sharded(x + h * r)
+    h2, metrics = moe_apply(p["moe"], apply_norm(cfg.norm, p["ln2"], x,
+                                                 cfg.norm_eps),
+                            top_k=cfg.top_k,
+                            capacity_factor=cfg.capacity_factor,
+                            ep_sharding=cfg.moe_ep_sharding)
+    return batch_sharded(x + h2 * r), new, metrics.aux_loss
+
+
+def _hybrid_moe_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                     caches: "HybridCache | None", positions):
+    """:func:`_stack_scan` for the hybrid_moe family: the layers in the
+    order of ``cfg.layer_types``, each mixer from its kind's stack (and
+    its kind's part of the cache, updated in place)."""
+    blocks = unstack(params["blocks"])
+    mixers = {"mamba": unstack(params["mamba"]),
+              "attention": unstack(params["attn"])}
+    seen = {"mamba": 0, "attention": 0}
+    layer = make_remat(cfg)(
+        lambda kind, p, m, h: _hybrid_moe_layer(cfg, kind, p, m, h, None,
+                                                positions))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(cfg.layer_types):
+        j = seen[kind]
+        seen[kind] += 1
+        if caches is None:
+            x, _, a = layer(kind, blocks[i], mixers[kind][j], x)
+        elif kind == "mamba":
+            x, st, a = _hybrid_moe_layer(
+                cfg, kind, blocks[i], mixers[kind][j], x,
+                SSMState(layer_at(caches.ssm, j), layer_at(caches.conv, j)),
+                positions)
+            layer_at(caches.ssm, j).copy_(st.ssm)
+            layer_at(caches.conv, j).copy_(st.conv)
+        else:
+            x, _, a = _hybrid_moe_layer(
+                cfg, kind, blocks[i], mixers[kind][j], x,
+                KVCache(layer_at(caches.k, j), layer_at(caches.v, j),
+                        caches.length), positions)
+        aux = aux + a
+    if caches is None:
+        return x, None, aux
+    return x, caches._replace(length=caches.length + x.shape[1]), aux

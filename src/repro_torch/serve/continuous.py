@@ -14,16 +14,19 @@ a measured RX (``rx_async`` under INTERRUPT, so the device-to-host copy
 overlaps the host's slot bookkeeping), with per-transfer stats in
 ``engine.stats``.
 
-Serves the KV-cache families (dense / moe / vlm). The port runs the
-model eagerly under ``torch.no_grad()`` (no ``jit``) and differs from the
-reference in two ways:
+Serves the KV-cache families (dense / moe / vlm) and hybrid_moe, whose
+cache holds its attention layers' K/V beside its Mamba2 layers' state
+(``models.lm.HybridCache``). The port runs the model eagerly under
+``torch.no_grad()`` (no ``jit``) and differs from the reference in two
+ways:
 
 - the per-slot length is ONE [B] int tensor on the device, shared by
   every layer (the port's cache has one length for all layers), not the
   reference's [L, B];
 - ``_splice_slot`` copies a prefilled batch-1 cache into slot ``slot`` in
   place, along the stacked cache's explicit batch axis (1), where the
-  reference guesses the axis from the shapes.
+  reference guesses the axis from the shapes (the reference has no
+  hybrid_moe family).
 
 Every slot decodes every step, idle ones too, as in the reference: an idle
 slot's length keeps growing, and its writes past ``max_seq`` are dropped
@@ -66,6 +69,7 @@ from repro_torch.core.transfer import (
 )
 from repro_torch.models.api import Model
 from repro_torch.models.layers.attention import KVCache
+from repro_torch.models.lm import HybridCache
 from repro_torch.serve.engine import transfer_fault_summary
 from repro_torch.utils import trace
 
@@ -85,13 +89,17 @@ class Request:
     t_submit_ns: int = field(default=0, repr=False, compare=False)
 
 
-def _splice_slot(batch_cache: KVCache, one_cache: KVCache,
-                 slot: int) -> None:
+def _splice_slot(batch_cache: "KVCache | HybridCache",
+                 one_cache: "KVCache | HybridCache", slot: int) -> None:
     """Copy a batch-1 stacked cache ([L, 1, S_max, ...], one int length)
     into slot ``slot`` of the batched one ([L, B, S_max, ...], [B]
-    lengths), in place."""
-    batch_cache.k[:, slot].copy_(one_cache.k[:, 0])
-    batch_cache.v[:, slot].copy_(one_cache.v[:, 0])
+    lengths), in place; a ``HybridCache``'s SSM state and conv tail too.
+    Each row is copied whole: an idle slot keeps decoding, so nothing of
+    the slot's last request may be left in it."""
+    for name in batch_cache._fields:
+        if name != "length":
+            getattr(batch_cache, name)[:, slot].copy_(
+                getattr(one_cache, name)[:, 0])
     batch_cache.length[slot] = one_cache.length
 
 
@@ -112,13 +120,14 @@ class ContinuousBatchingEngine:
                  rx_timeout_s: float | None = 60.0,
                  qos: QosSpec | None = None,
                  admission: AdmissionPolicy | None = None):
-        if model.cfg.family not in ("dense", "moe", "vlm"):
-            # the ssm / hybrid state and the audio family's dict cache are
-            # not a KV cache with per-slot lengths (the reference raises
-            # for the first two and cannot splice the third)
+        if model.cfg.family not in ("dense", "moe", "vlm", "hybrid_moe"):
+            # the ssm and hybrid states carry no per-slot length, and the
+            # audio family's dict cache cannot be spliced (the reference
+            # raises for the first two and cannot splice the third)
             raise NotImplementedError(
                 "continuous batching currently supports KV-cache families "
-                f"(dense / moe / vlm), not {model.cfg.family!r}")
+                "(dense / moe / vlm / hybrid_moe, whose cache holds its "
+                f"Mamba2 state too), not {model.cfg.family!r}")
         self.model = model
         self.params = params
         self.n_slots = n_slots

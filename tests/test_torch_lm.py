@@ -54,7 +54,12 @@ def test_configs_match_reference(arch):
         get = "get_config" if full else "smoke_config"
         ours = getattr(registry, get)(arch)
         ref = getattr(jregistry, get)(arch)
-        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        mine, theirs = dataclasses.asdict(ours), dataclasses.asdict(ref)
+        assert {k: mine[k] for k in theirs} == theirs
+        # the port's own fields (the hybrid_moe family's) at their defaults
+        extra = {f.name: f.default for f in dataclasses.fields(ours)
+                 if f.name not in theirs}
+        assert {k: mine[k] for k in extra} == extra
         assert ours.param_count() == ref.param_count()
         assert ours.vocab_padded == ref.vocab_padded
     assert registry.get_config(arch, dtype="float32").dtype == "float32"
