@@ -13,7 +13,14 @@ Phases, in order; any failure exits non-zero before a result is printed:
 4. each kernel against its plain PyTorch version on the card: conv2d at the
    five RoShamBo layer shapes for B = 1 and B = 32, ReLU on and off, f32 and
    bf16, one launch a call, two calls bitwise equal and within ``CONV_TOL``
-   of the split-order plain version of its plan as well; the streamed
+   of the split-order plain version of its plan as well (a
+   ``conv2d_split_order_bitwise`` line counts the cases where it is equal
+   bit for bit); the launch the frame path runs at the same shapes (the
+   2x2 max pool for conv1-4 and the zero count in its epilogue): one
+   launch, bitwise ``maxpool2`` of the unpooled launch, within
+   ``CONV_TOL`` of ``maxpool2`` of the split-order plain version, its
+   count ``count_nonzero`` of what it wrote, two calls equal in bytes and
+   counts (a ``conv2d_pooled`` line); the streamed
    matmul under UNIQUE and BLOCKS, f32 and bf16 (UNIQUE's two calls bitwise
    equal, and its single block within ``MATMUL_TOL`` of its order); flash
    attention at qwen2.5-3b's heads (16/2, D 128, causal, S 128 and 2048,
@@ -34,7 +41,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
    copy time and, from one more frame under ``torch.profiler`` (after a
    warm-up step of small kernels), the device time a frame holds; the conv
    kernel's launch count must rise by 5 per frame (one a layer: the
-   zeros are counted on the streamed fmaps);
+   pool and the zero count are in its epilogue), and each frame's
+   sparsity must equal, float for float, that of the unpooled launches'
+   fmaps pooled by ``maxpool2``;
 5b. the ``channels`` line: ``calibrate_transfer()`` on the card (t0 and
    GB/s from the host-felt time of pinned H2D copies, the CUDA-event time
    of the same copies beside it), ``plan_channels`` for 48 MiB and for the
@@ -211,9 +220,11 @@ Phases, in order; any failure exits non-zero before a result is printed:
    ``fake`` backend, ``ok``;
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
-   never calls it); conv2d per RoShamBo layer at batch 1 (events and
-   device ms of the kernel and of ``F.conv2d``, and the layer's plan) and
-   the five-layer sum in alternating rounds with ``F.conv2d``; the
+   never calls it); conv2d per RoShamBo layer at batch 1 as the frame
+   path launches it, pooled (conv1-4) and counted (events and device ms
+   of the kernel and of ``F.conv2d`` with ``F.max_pool2d`` where the
+   layer pools, the layer's plan, and the bound with the pooled write)
+   and the five-layer sum in alternating rounds with the library pair; the
    classifier head's BLOCKS and UNIQUE matmuls in alternating rounds with
    ``torch.matmul`` (all host-bound there), with the device time of each
    and BLOCKS's one-split schedule beside them; the SSD kernel in bf16
@@ -3087,7 +3098,7 @@ def main() -> None:
         CONV2D, conv_plan, conv_ranges)
     from repro_torch.kernels.conv2d.ops import conv2d_relu
     from repro_torch.kernels.conv2d.ref import (
-        conv2d_relu_ref, conv2d_split_ref)
+        conv2d_relu_ref, conv2d_split_ref, maxpool2)
     from repro_torch.kernels.streamed_matmul.kernel import (
         MATMUL, blocks_plan, matmul_blocks, matmul_unique, sm_count,
         split_k_ranges, TILES, unique_fits, unique_one_block, unique_plan)
@@ -3127,24 +3138,31 @@ def main() -> None:
 
     cnn = RoShamBoCNN()
     layer_shapes = []  # (H, W, Cin, Cout) of each RoShamBo conv
+    layer_pools = []  # whether the layer pools (conv1-4)
     hw = cnn.cfg.input_hw
     for spec in cnn.cfg.layers:
         layer_shapes.append((hw, hw, spec.c_in, spec.c_out))
+        layer_pools.append(spec.pool)
         hw = hw // 2 if spec.pool else hw
 
     # 4. kernels against their plain versions
     # max |kernel - plain| per kernel and dtype
     errs = {(kern, dt): 0.0 for kern in ("conv2d", "conv2d_split_order",
+                                         "conv2d_pooled_split_order",
                                          "matmul_blocks", "matmul_unique",
                                          "matmul_unique_order",
                                          "flash_attention")
             for dt in ("float32", "bfloat16")}
     sms = sm_count(0)
+    split_bitwise = [0, 0]  # unpooled launches equal to split order; cases
+    pooled_cases = []
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    count_again = torch.zeros_like(count)
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[1]
         tol = CONV_TOL[dt]
         for bsz in (1, 32):
-            for h, w, cin, cout in layer_shapes:
+            for (h, w, cin, cout), pool in zip(layer_shapes, layer_pools):
                 x = torch.randn((bsz, h, w, cin), generator=gen).to(dev, dtype)
                 wt = (torch.randn((3, 3, cin, cout), generator=gen)
                       * (2.0 / (9 * cin)) ** 0.5).to(dev, dtype)
@@ -3164,10 +3182,41 @@ def main() -> None:
                     if not torch.equal(got, conv2d_relu(x, wt, b, relu=relu)):
                         fail(f"conv2d {dt} B {bsz} {(h, w, cin, cout)} "
                              f"relu {relu}: two calls differ")
+                    split = conv2d_split_ref(x, wt, b, ranges, relu=relu)
                     errs["conv2d_split_order", dt] = max(
                         errs["conv2d_split_order", dt],
-                        max_err(torch, got, conv2d_split_ref(
-                            x, wt, b, ranges, relu=relu), tol))
+                        max_err(torch, got, split, tol))
+                    split_bitwise[0] += int(torch.equal(got, split))
+                    split_bitwise[1] += 1
+                    # the launch the frame path runs: the pool (conv1-4)
+                    # and the count in the epilogue, over the same plan
+                    what = (f"conv2d pooled {dt} B {bsz} "
+                            f"{(h, w, cin, cout)} pool {pool} relu {relu}")
+                    count.zero_()
+                    pooled = launched(
+                        torch, CONV2D, "conv2d_bias_act", 1,
+                        lambda: conv2d_relu(x, wt, b, relu=relu, pool=pool,
+                                            counts=count), what)
+                    want = maxpool2(got) if pool else got
+                    if (pooled.shape != want.shape
+                            or not torch.equal(pooled, want)):
+                        fail(f"{what}: not bitwise maxpool2 of the unpooled "
+                             f"launch")
+                    errs["conv2d_pooled_split_order", dt] = max(
+                        errs["conv2d_pooled_split_order", dt],
+                        max_err(torch, pooled,
+                                maxpool2(split) if pool else split, tol))
+                    nz = int(torch.count_nonzero(pooled))
+                    if int(count) != nz:
+                        fail(f"{what}: counted {int(count)} nonzeros, "
+                             f"count_nonzero {nz}")
+                    count_again.zero_()
+                    again = conv2d_relu(x, wt, b, relu=relu, pool=pool,
+                                        counts=count_again)
+                    if not (torch.equal(again, pooled)
+                            and int(count_again) == nz):
+                        fail(f"{what}: two calls differ")
+                    pooled_cases.append(nz)
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[1]
         tol = MATMUL_TOL[dt]
@@ -3242,6 +3291,14 @@ def main() -> None:
         fail(f"flash kernel disagrees with its plain version in {flash_bad} "
              f"(tol {FLASH_TOL}, bf16 atol {FLASH_BF16_ATOL_ROW_RMS} x the "
              f"row's RMS)")
+    print(f"conv2d_split_order_bitwise {split_bitwise[0]} of "
+          f"{split_bitwise[1]} unpooled launches equal the split-order "
+          f"plain version bit for bit")
+    print(f"conv2d_pooled {len(pooled_cases)} launches (conv1-4 pooled, "
+          f"conv5 counted only; B 1 and 32, f32 and bf16, relu on and off): "
+          f"bitwise maxpool2 of the unpooled launch, counts equal "
+          f"count_nonzero, max abs err against maxpool2 of the split order "
+          f"{ {d: errs['conv2d_pooled_split_order', d] for d in ('float32', 'bfloat16')} }")
     print(f"kernels vs plain: max abs err "
           f"{ {f'{k}/{d}': e for (k, d), e in errs.items()} } "
           f"(conv tol {CONV_TOL}, matmul tol {MATMUL_TOL}, "
@@ -3263,6 +3320,16 @@ def main() -> None:
               for _ in range(FRAMES_PER_POLICY)]
     oracle = [cnn.apply(params, torch.from_numpy(f).to(dev)).cpu().numpy()
               for f in frames]
+    # each frame's sparsity from the unpooled launches' fmaps pooled by
+    # maxpool2: what the fused epilogue must count, float for float
+    sparsity_want = []
+    for f in frames:
+        x = torch.from_numpy(f).to(dev)
+        want = []
+        for spec in cnn.cfg.layers:
+            x = cnn.layer_apply(spec, params[spec.name], x, conv=conv2d_relu)
+            want.append(1.0 - int(torch.count_nonzero(x)) / x.numel())
+        sparsity_want.append(want)
     rows, logits_seen = [], []
     n_frames = 0
     warm = torch.zeros(1, device=dev)  # the profiler's warm-up kernels
@@ -3288,8 +3355,9 @@ def main() -> None:
                                        rtol=LOGIT_TOL[0], atol=LOGIT_TOL[1])
             if len(res.timing.layers) != 5:
                 fail(f"{policy.tag}: {len(res.timing.layers)} layer timings")
-            if not all(0.0 <= s <= 1.0 for s in res.sparsity):
-                fail(f"{policy.tag}: sparsity {res.sparsity}")
+            if res.sparsity != sparsity_want[i]:
+                fail(f"{policy.tag}: sparsity {res.sparsity}, the unpooled "
+                     f"launches' fmaps pooled give {sparsity_want[i]}")
             logits_seen.append((policy, frames[i], res.logits))
             return res
 
@@ -3426,32 +3494,38 @@ def main() -> None:
             torch.zeros(cout).to(dev)))
     conv_plain_ms = conv_bound = conv_dev = conv_lib_dev = 0.0
     per_layer, conv_calls, lib_calls = [], [], []
-    for (x, w, b), (h, wd, cin, cout) in zip(conv_in, layer_shapes):
+    # the frame path's launch: conv1-4 pool in the epilogue, every layer
+    # counts its zeros; the library pair pools where the layer does
+    counts = torch.zeros(len(layer_shapes), dtype=torch.int32, device=dev)
+    for i, ((x, w, b), (h, wd, cin, cout), pool) in enumerate(
+            zip(conv_in, layer_shapes, layer_pools)):
         xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
 
-        def kern(x=x, w=w, b=b):
-            return conv2d_relu(x, w, b)
+        def kern(x=x, w=w, b=b, pool=pool, cnt=counts[i]):
+            return conv2d_relu(x, w, b, pool=pool, counts=cnt)
 
-        def lib_conv(xn=xn, wn=wn, b=b):  # NCHW view of the same input
-            return F.conv2d(xn, wn, b, padding=1)
+        def lib_conv(xn=xn, wn=wn, b=b, pool=pool):  # NCHW view of x
+            y = F.conv2d(xn, wn, b, padding=1)
+            return F.max_pool2d(y, 2) if pool else y
 
         k_ms = time_ms(torch, kern)
-        p_ms = time_ms(torch, lambda: conv2d_relu_ref(x, w, b))
+        p_ms = time_ms(torch, lambda: conv2d_relu_ref(x, w, b, pool=pool))
         l_ms = time_ms(torch, lib_conv)
         k_dev = device_ms_per_call(torch, kern)
         l_dev = device_ms_per_call(torch, lib_conv)
-        nbytes = (x.numel() + w.numel() + b.numel() + h * wd * cout) * 4
+        out_px = (h // 2) * (wd // 2) if pool else h * wd
+        nbytes = (x.numel() + w.numel() + b.numel() + out_px * cout) * 4
         b_ms, _ = bound_ms(nbytes, 2 * h * wd * cout * 9 * cin)
         tile, splits, per = conv_plan(1, h, wd, cin, cout, 3, 3, sms)
-        per_layer.append([h, wd, cin, cout, k_ms, p_ms, l_ms, k_dev, l_dev,
-                          b_ms, list(tile), splits, per])
+        per_layer.append([h, wd, cin, cout, pool, k_ms, p_ms, l_ms, k_dev,
+                          l_dev, b_ms, list(tile), splits, per])
         conv_calls.append(kern)
         lib_calls.append(lib_conv)
         conv_plain_ms += p_ms
         conv_bound += b_ms
         conv_dev += k_dev
         conv_lib_dev += l_dev
-    print("conv2d per layer [H, W, Cin, Cout, kernel_ms, plain_ms, "
+    print("conv2d per layer [H, W, Cin, Cout, pool, kernel_ms, plain_ms, "
           "library_ms, kernel_device_ms, library_device_ms, bound_ms, "
           "tile, splits, chunks_per_split]: " + json.dumps(per_layer))
 
@@ -3464,14 +3538,17 @@ def main() -> None:
     # The five layers at batch 1 are ~20 us calls bound by the host, whose
     # time moves by tens of percent from one timing to the next: so the
     # five-layer sum is timed in alternating rounds against F.conv2d (bias,
-    # no ReLU; TF32 off) and compared by the median and the rounds won.
+    # no ReLU; TF32 off; F.max_pool2d after it where the layer pools) and
+    # compared by the median and the rounds won.
     conv_rounds = [(time_ms(torch, five(conv_calls)),
                     time_ms(torch, five(lib_calls))) for _ in range(ROUNDS)]
     conv_k_rounds, conv_l_rounds = (sorted(r) for r in zip(*conv_rounds))
     print(f"conv2d five layers, {ROUNDS} alternating rounds (kernel ms, "
-          f"F.conv2d ms): {json.dumps(conv_rounds)}")
-    conv_bytes = sum((h * wd * cin + 9 * cin * cout + cout + h * wd * cout) * 4
-                     for h, wd, cin, cout in layer_shapes)
+          f"library ms): {json.dumps(conv_rounds)}")
+    conv_bytes = sum((h * wd * cin + 9 * cin * cout + cout
+                      + ((h // 2) * (wd // 2) if pool else h * wd) * cout) * 4
+                     for (h, wd, cin, cout), pool in zip(layer_shapes,
+                                                         layer_pools))
     conv_flops = sum(2 * h * wd * cout * 9 * cin
                      for h, wd, cin, cout in layer_shapes)
     conv_by = bound_ms(conv_bytes, conv_flops)[1]
@@ -3537,8 +3614,11 @@ def main() -> None:
         "max_abs_err": errs["conv2d", "float32"],
         "max_abs_err_bf16": errs["conv2d", "bfloat16"],
         "max_abs_err_split_order": errs["conv2d_split_order", "float32"],
-        # the five RoShamBo layers at batch 1: medians of the alternating
-        # rounds; device ms summed over the layers
+        "max_abs_err_pooled_split_order": errs["conv2d_pooled_split_order",
+                                               "float32"],
+        # the five RoShamBo layers at batch 1 as the frame path launches
+        # them (pooled, counted): medians of the alternating rounds; device
+        # ms summed over the layers
         "ms": conv_k_rounds[ROUNDS // 2], "plain_ms": conv_plain_ms,
         "bound_ms": conv_bound, "bound_by": conv_by,
         "library_ms": conv_l_rounds[ROUNDS // 2],

@@ -10,9 +10,10 @@ compute is the port's conv2d kernel on the engine's device.
 Also models NullHop's sparsity awareness: the accelerator skips zero
 activations (sparse feature-map encoding); we report the measured activation
 sparsity per layer (ReLU output) alongside timings, since it determines the
-effective RX payload on the real device. Each streamed layer counts its
-output fmap's nonzeros on the compute stream, where the fmap already is,
-and the call reads the counts back once.
+effective RX payload on the real device. Each streamed layer's zeros are
+counted in the conv kernel's epilogue, as it writes the (pooled) fmap,
+into the layer's element of one int32 buffer on the device; the call
+zeroes that buffer once and reads it back once.
 
 While a ``torch.profiler`` records, each call is a ``frame`` span (its id
 the executor's call number) holding a ``frame.layer`` span a layer (with
@@ -94,8 +95,8 @@ def _run_frame(cnn: RoShamBoCNN, streamer: HostStreamingExecutor,
                params: dict, frame: np.ndarray, host_array,
                policy_tag: str, call: int | None = None) -> NullHopResult:
     """One frame through ``streamer`` (over a single engine or a channel
-    group): the layers streamed, each counting its fmap's zeros on the
-    engine's device, the classifier head on the host. ``host_array(key,
+    group): the layers streamed, each counting its fmap's zeros in the
+    conv kernel's epilogue, the classifier head on the host. ``host_array(key,
     tensor)`` gives the host array a layer's param is staged from;
     ``call`` numbers the ``frame`` span. The timing's ``wall_s`` is the whole call's, entry to
     logits."""
@@ -109,35 +110,39 @@ def _run_frame(cnn: RoShamBoCNN, streamer: HostStreamingExecutor,
 
 def _frame_body(cnn, streamer, params, frame, host_array,
                 policy_tag) -> NullHopResult:
-    nnz: list[torch.Tensor] = []  # each layer's nonzeros, 0-d on the device
+    n_layers = len(cnn.cfg.layers)
+    nnz: list[torch.Tensor] = []  # the call's int32 [layers] buffer
     numel: list[int] = []
 
-    def make_apply(spec):
+    def make_apply(i, spec):
         def apply_fn(dev_params, x):
             w, b = dev_params
-            y = cnn.layer_apply(spec, {"w": w, "b": b}, x)
-            # queued after y on the stream that computed it; the executor
-            # waits for an event recorded after apply_fn, so the count is
-            # ready once the layer's compute is
-            nnz.append(torch.count_nonzero(y))
+            if not nnz:  # zeroed once a call, on the compute stream
+                nnz.append(torch.zeros(n_layers, dtype=torch.int32,
+                                       device=x.device))
+            # the layer's launch adds its fmap's nonzeros to element i; the
+            # executor waits for an event recorded after apply_fn, so the
+            # count is ready once the layer's compute is
+            y = cnn.layer_apply(spec, {"w": w, "b": b}, x,
+                                counts=nnz[0][i])
             numel.append(y.numel())
             return y
         return apply_fn
 
     layers = []
-    for spec in cnn.cfg.layers:
+    for i, spec in enumerate(cnn.cfg.layers):
         p = params[spec.name]
         layers.append((spec.name,
                        [host_array((spec.name, "w"), p["w"]),
                         host_array((spec.name, "b"), p["b"])],
-                       make_apply(spec)))
+                       make_apply(i, spec)))
 
     out_host, timing = streamer.run(layers, np.asarray(frame))
 
     with trace.span("frame.sparsity"):
-        trace.count("sparsity.fmaps", len(nnz))
+        trace.count("sparsity.fmaps", len(numel))
         trace.count("wait.sparsity")
-        counts = torch.stack(nnz).tolist()  # the call's one read
+        counts = nnz[0].tolist() if nnz else []  # the call's one read
         sparsity = [1.0 - c / n for c, n in zip(counts, numel)]
 
     with trace.span("frame.head"):

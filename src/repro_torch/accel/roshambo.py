@@ -10,7 +10,10 @@ results").
 PyTorch definition in the reference's layouts (NHWC activations, HWIO
 weights), executed per-layer by :mod:`repro_torch.accel.nullhop` through the
 port's conv2d kernel, or monolithically via :meth:`RoShamBoCNN.apply` with
-the plain conv (the oracle).
+the plain conv and ``maxpool2`` (the oracle). On the card a layer is one
+kernel launch: the conv's epilogue takes the layer's max pool and counts
+the zeros of the fmap it writes, as NullHop's output pipeline pools and
+encodes zeros on the way out.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.conv2d.ops import conv2d_relu
-from repro_torch.kernels.conv2d.ref import conv2d_relu_ref
+from repro_torch.kernels.conv2d.ref import conv2d_relu_ref, maxpool2
 
 
 @dataclass(frozen=True)
@@ -51,14 +54,6 @@ class RoShamBoConfig:
 
 def roshambo_config() -> RoShamBoConfig:
     return RoShamBoConfig()
-
-
-def maxpool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 / stride-2 max pool on NHWC (VALID: an odd last row or column is
-    dropped, as ``lax.reduce_window`` does)."""
-    b, h, w, c = x.shape
-    x = x[:, : h // 2 * 2, : w // 2 * 2, :]
-    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
 def params_from_jax(params_np: dict, device: "torch.device | str") -> dict:
@@ -100,10 +95,16 @@ class RoShamBoCNN:
         return params
 
     def layer_apply(self, spec: ConvSpec, p: dict, x: torch.Tensor, *,
-                    conv: Callable[..., torch.Tensor] = conv2d_relu
-                    ) -> torch.Tensor:
-        """One layer: conv + bias + ReLU (the port's kernel on a CUDA
-        tensor), then the 2x2 max pool where the spec has one."""
+                    conv: Callable[..., torch.Tensor] | None = None,
+                    counts: torch.Tensor | None = None) -> torch.Tensor:
+        """One layer: conv + bias + ReLU, then the 2x2 max pool where the
+        spec has one. By default ``conv2d_relu``: on a CUDA tensor one
+        kernel launch that pools in its epilogue and adds the fmap's
+        nonzeros to ``counts`` (one int32 element) where it is given. With
+        ``conv``: that conv, then ``maxpool2`` (no count)."""
+        if conv is None:
+            return conv2d_relu(x, p["w"], p["b"], relu=True, pool=spec.pool,
+                               counts=counts)
         y = conv(x, p["w"], p["b"], relu=True)
         return maxpool2(y) if spec.pool else y
 

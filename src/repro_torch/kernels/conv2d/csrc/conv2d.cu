@@ -1,8 +1,11 @@
 // Implicit-GEMM conv2d + bias + optional ReLU, NHWC / HWIO, SAME padding,
-// stride 1 — NullHop's MAC array on Hopper.
+// stride 1, with an optional 2x2 / stride-2 max pool and a count of the
+// nonzero outputs in the epilogue — NullHop's MAC array and its output
+// pipeline (pooling, zero encoding) on Hopper.
 //
 // Replaces: src/repro/kernels/conv2d/kernel.py `_conv_kernel` / `conv2d_slabs`
-// (the Pallas TPU kernel, wrapper ops.py `conv2d_relu`).
+// (the Pallas TPU kernel, wrapper ops.py `conv2d_relu`), and the pool and
+// zero count that followed it as launches of their own.
 //
 // What bounds it on an H100: at the RoShamBo shapes (64x64x1->16 down to
 // 4x4x128->128) each layer moves at most ~0.6 MB and does at most ~10 MFLOP
@@ -11,7 +14,10 @@
 // launch keeps busy and how long each block's dependent chain is. The first
 // port gave a block one output row, so at batch 1 conv4 (8x8x64->128) ran
 // on 8 SMs of 132 and conv5 (4x4x128->128) on 4, each thread walking 2,304
-// FMAs in a row, each FMA loading its weight from L2.
+// FMAs in a row, each FMA loading its weight from L2. Latency bounds the
+// layer's other steps too: a max pool and a zero count of their own cost
+// three to four microseconds a launch at batch 1, for a few kilobytes, to
+// read again an fmap the conv had in registers.
 //
 // Design: the conv is a GEMM, M = B*H*W output pixels, N = Cout, K =
 // KH*KW*Cin (k = (dy*KW + dx)*Cin + ci, the HWIO order, so row k of the
@@ -35,6 +41,22 @@
 // No float atomics: two calls give bitwise-equal results. A grid that fills
 // the card takes one split and writes y directly, bias and ReLU in the
 // epilogue. One launch a call either way.
+//
+// A pooled launch (template kPool) numbers M quad-major: four consecutive
+// pixels are one 2x2 window of the output, so a 64-pixel tile holds 16
+// whole windows, and the pixels past the last whole window (the odd last
+// row or column, which the VALID pool drops) are masked and never summed.
+// M, the grid and the plan stay B*H*W's, so each pixel's sum is the one an
+// unpooled launch takes. In the direct epilogue the four pixels of a window
+// sit in lanes 8 apart of one warp (thread rows tr .. tr + 3), and two
+// shuffles take their max; in the split-K epilogue a thread sums the four
+// pixels of its windows itself. Only the pooled fmap is written. Bias and
+// ReLU come before the max, and the max of the rounded values is the
+// rounded max, so the pooled fmap is bitwise the max pool of the unpooled
+// launch's output. Where a count pointer is given, the epilogue counts the
+// nonzero values it wrote, sums them over the block, and adds them to the
+// count with one integer atomicAdd a block: an integer sum in any order is
+// the same, so two calls give the same count.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -96,15 +118,36 @@ struct Stage {
 
 struct Shape {
   int B, H, W, Cin, Cout, KH, KW;
-  int M, K;  // B*H*W, KH*KW*Cin
+  int M, K;   // B*H*W, KH*KW*Cin
+  int Mv;     // the pixels summed: M, or 4*B*(H/2)*(W/2) when pooled
+  int Hp, Wp; // H/2, W/2
 };
+
+// output pixel p of M as (b, h, w): row-major, or quad-major when pooled
+// (p = 4 * window + 2 * dy + dx, windows row-major over [B, H/2, W/2])
+template <bool kPool>
+__device__ __forceinline__ void pixel(const Shape& sh, int p, int& b, int& h,
+                                      int& w) {
+  if (kPool) {
+    const int q = p >> 2, j = p & 3, hw = sh.Hp * sh.Wp;
+    const int r = q % hw;
+    b = q / hw;
+    h = (r / sh.Wp) * 2 + (j >> 1);
+    w = (r % sh.Wp) * 2 + (j & 1);
+  } else {
+    const int hw = sh.H * sh.W, r = p % hw;
+    b = p / hw;
+    h = r / sh.W;
+    w = r % sh.W;
+  }
+}
 
 // stage chunk `c` (k in [c*BK, c*BK + BK)) of the block's tile into ring
 // slot `st`: 16-byte cp.async where `vec_a` / `vec_b` (every 16-byte group
 // lies inside one (dy, dx) / one weight row, and the base is aligned),
-// element loads otherwise; masked elements (past M, K or Cout, or in the
+// element loads otherwise; masked elements (past Mv, K or Cout, or in the
 // padding halo) are zeros
-template <typename T>
+template <typename T, bool kPool>
 __device__ __forceinline__ void load_chunk(Stage<T>& s, int st, int c,
                                            const T* __restrict__ x,
                                            const T* __restrict__ w,
@@ -112,15 +155,16 @@ __device__ __forceinline__ void load_chunk(Stage<T>& s, int st, int c,
                                            bool vec_a, bool vec_b) {
   constexpr int V = 16 / sizeof(T);
   const int tid = threadIdx.x, k0 = c * BK;
-  const int ph = sh.KH / 2, pw = sh.KW / 2, hw = sh.H * sh.W;
+  const int ph = sh.KH / 2, pw = sh.KW / 2;
   auto src_a = [&](int r, int kk, bool& valid) -> const T* {
     const int p = m0 + r;
-    valid = p < sh.M && kk < sh.K;
+    valid = p < sh.Mv && kk < sh.K;
     if (!valid) return x;
     const int ci = kk % sh.Cin, t = kk / sh.Cin;
     const int dx = t % sh.KW, dy = t / sh.KW;
-    const int b = p / hw, rem = p % hw;
-    const int hy = rem / sh.W + dy - ph, wx = rem % sh.W + dx - pw;
+    int b, oh, ow;
+    pixel<kPool>(sh, p, b, oh, ow);
+    const int hy = oh + dy - ph, wx = ow + dx - pw;
     valid = hy >= 0 && hy < sh.H && wx >= 0 && wx < sh.W;
     if (!valid) return x;
     return x + ((static_cast<long long>(b) * sh.H + hy) * sh.W + wx) * sh.Cin + ci;
@@ -173,16 +217,42 @@ __device__ __forceinline__ void load_chunk(Stage<T>& s, int st, int c,
   }
 }
 
+// y[o] = v as T; nz counts the stored value where it is not zero
+template <typename T>
+__device__ __forceinline__ void put(float v, T* y, int& nz) {
+  T o;
+  from_f32(v, &o);
+  *y = o;
+  nz += to_f32(o) != 0.f;
+}
+
+// the block's nonzero outputs (`nz`, a thread's) added to *count: a warp
+// sum, then one atomicAdd a block. Every thread of the block calls it.
+__device__ __forceinline__ void add_count(int nz, int* count) {
+  __shared__ int warp_nz[kThreads / 32];
+  nz = __reduce_add_sync(0xffffffffu, nz);
+  if ((threadIdx.x & 31) == 0) warp_nz[threadIdx.x >> 5] = nz;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) s += warp_nz[i];
+    if (s) atomicAdd(count, s);
+  }
+}
+
 // grid (M tiles, N tiles, splits); block z takes chunks [z*per, z*per + per).
 // One split: y = act(acc + bias). More: the f32 partial to part[z], and the
 // last block of the tile sums part[0..splits) in slice order, then bias and
-// ReLU (counters: one per output tile, 0 between launches).
-template <typename T>
+// ReLU (counters: one per output tile, 0 between launches). kPool: M is
+// quad-major and y is the 2x2 max pool of the output. count (or null): the
+// launch adds the number of nonzero values it wrote to *count.
+template <typename T, bool kPool>
 __global__ void __launch_bounds__(kThreads)
 conv2d_igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const T* __restrict__ bias, T* __restrict__ y,
-                    float* __restrict__ part, int* counters, Shape sh,
-                    int per, int relu, int vec_a, int vec_b) {
+                    float* __restrict__ part, int* counters, int* count,
+                    Shape sh, int per, int relu, int vec_a, int vec_b) {
   __shared__ __align__(16) unsigned char raw[sizeof(Stage<T>)];
   Stage<T>& s = *reinterpret_cast<Stage<T>*>(raw);
   const int tid = threadIdx.x, tr = tid / 8, tc = tid % 8;
@@ -197,13 +267,13 @@ conv2d_igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
 
   if (c_begin < c_end) {
-    load_chunk(s, 0, c_begin, x, w, sh, m0, n0, vec_a, vec_b);
+    load_chunk<T, kPool>(s, 0, c_begin, x, w, sh, m0, n0, vec_a, vec_b);
     cp_async_commit();
   }
   for (int c = c_begin; c < c_end; ++c) {
     const int st = (c - c_begin) & 1;
     if (c + 1 < c_end) {
-      load_chunk(s, st ^ 1, c + 1, x, w, sh, m0, n0, vec_a, vec_b);
+      load_chunk<T, kPool>(s, st ^ 1, c + 1, x, w, sh, m0, n0, vec_a, vec_b);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -225,33 +295,52 @@ conv2d_igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 
   const int N = sh.Cout;
+  if (gridDim.z == 1) {
+    int nz = 0;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int p = m0 + tr + 32 * i;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int co = n0 + tc * kTN + j;
+        float v = acc[i][j] + (co < N ? to_f32(bias[co]) : 0.f);
+        if (relu) v = fmaxf(v, 0.f);
+        if (kPool) {
+          // pixel p & 3 of window p >> 2: the window's four pixels are
+          // thread rows (tr & ~3) .. (tr | 3), lanes 8 apart, same channels
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+          if ((tr & 3) == 0 && p < sh.Mv && co < N)
+            put(v, &y[static_cast<long long>(p >> 2) * N + co], nz);
+        } else if (p < sh.M && co < N) {
+          put(v, &y[static_cast<long long>(p) * N + co], nz);
+        }
+      }
+    }
+    if (count) add_count(nz, count);
+    return;
+  }
+
   const long long mn = static_cast<long long>(sh.M) * N;
-  float* pz = gridDim.z > 1 ? part + blockIdx.z * mn : nullptr;
+  float* pz = part + blockIdx.z * mn;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int p = m0 + tr + 32 * i;
-    if (p >= sh.M) continue;
+    if (p >= sh.Mv) continue;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int co = n0 + tc * kTN + j;
-      if (co >= N) continue;
-      const long long o = static_cast<long long>(p) * N + co;
-      if (pz) {
-        pz[o] = acc[i][j];
-      } else {
-        float v = acc[i][j] + to_f32(bias[co]);
-        if (relu) v = fmaxf(v, 0.f);
-        from_f32(v, &y[o]);
-      }
+      if (co < N) pz[static_cast<long long>(p) * N + co] = acc[i][j];
     }
   }
-  if (!pz) return;
 
   // split-K epilogue: the last block to arrive sums the tile's partials in
-  // slice order. A thread holds kOuts outputs of the tile and reads the
+  // slice order. A thread holds kOuts / kG outputs of the tile, each kG
+  // pixels by one channel (kG = 4 when pooled: a window), and reads the
   // slices kZ at a time, all kOuts x kZ loads issued before the first sum
   // (clamped to valid addresses, the extra ones unused)
-  constexpr int kOuts = BM * BN / kThreads, kZ = 4;
+  constexpr int kOuts = BM * BN / kThreads, kZ = 4, kG = kPool ? 4 : 1;
+  static_assert(kOuts % 4 == 0 && BM % 4 == 0, "whole windows a thread");
   __shared__ int last;
   int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
   const int splits = gridDim.z;
@@ -261,53 +350,75 @@ conv2d_igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const int mt = min(BM, sh.M - m0), nt = min(BN, N - n0);
-  long long off[kOuts];
-  int co[kOuts];
-  float v[kOuts];
+  const int mt = max(0, min(BM, sh.Mv - m0)), nt = min(BN, N - n0);
+  const int outs = mt / kG * nt;  // the tile's outputs
+  int nz = 0;
+  if (outs > 0) {
+    long long off[kOuts];
+    int co[kOuts];
+    float v[kOuts];
 #pragma unroll
-  for (int q = 0; q < kOuts; ++q) {
-    const int oi = min(tid + kThreads * q, mt * nt - 1);
-    co[q] = n0 + oi % nt;
-    off[q] = static_cast<long long>(m0 + oi / nt) * N + co[q];
-    v[q] = 0.f;
-  }
-  for (int z0 = 0; z0 < splits; z0 += kZ) {
-    float pv[kZ][kOuts];
+    for (int q = 0; q < kOuts; ++q) {
+      const int oi = min(tid + kThreads * (q / kG), outs - 1);
+      co[q] = n0 + oi % nt;
+      off[q] = static_cast<long long>(m0 + (oi / nt) * kG + q % kG) * N + co[q];
+      v[q] = 0.f;
+    }
+    for (int z0 = 0; z0 < splits; z0 += kZ) {
+      float pv[kZ][kOuts];
 #pragma unroll
-    for (int j = 0; j < kZ; ++j) {
-      const float* pj = part + min(z0 + j, splits - 1) * mn;
+      for (int j = 0; j < kZ; ++j) {
+        const float* pj = part + min(z0 + j, splits - 1) * mn;
 #pragma unroll
-      for (int q = 0; q < kOuts; ++q) pv[j][q] = __ldcg(pj + off[q]);
+        for (int q = 0; q < kOuts; ++q) pv[j][q] = __ldcg(pj + off[q]);
+      }
+#pragma unroll
+      for (int j = 0; j < kZ; ++j)
+#pragma unroll
+        for (int q = 0; q < kOuts; ++q)
+          if (z0 + j < splits) v[q] = z0 + j == 0 ? pv[j][q] : v[q] + pv[j][q];
     }
 #pragma unroll
-    for (int j = 0; j < kZ; ++j)
+    for (int r = 0; r < kOuts / kG; ++r) {
+      const int oi = tid + kThreads * r;
+      if (oi >= outs) continue;
+      float o = 0.f;
 #pragma unroll
-      for (int q = 0; q < kOuts; ++q)
-        if (z0 + j < splits) v[q] = z0 + j == 0 ? pv[j][q] : v[q] + pv[j][q];
+      for (int g = 0; g < kG; ++g) {
+        float u = v[r * kG + g] + to_f32(bias[co[r * kG]]);
+        if (relu) u = fmaxf(u, 0.f);
+        o = g == 0 ? u : fmaxf(o, u);
+      }
+      put(o, &y[static_cast<long long>(m0 / kG + oi / nt) * N + co[r * kG]],
+            nz);
+    }
   }
-#pragma unroll
-  for (int q = 0; q < kOuts; ++q) {
-    if (tid + kThreads * q >= mt * nt) continue;
-    float o = v[q] + to_f32(bias[co[q]]);
-    if (relu) o = fmaxf(o, 0.f);
-    from_f32(o, &y[off[q]]);
-  }
+  if (count) add_count(nz, count);
   if (tid == 0) *counter = 0;
 }
 
-template <typename T>
+template <typename T, bool kPool>
 int launch(const void* x, const void* w, const void* b, void* y, float* part,
-           int* counters, const Shape& sh, int splits, int per, int relu,
-           cudaStream_t s) {
+           int* counters, int* count, const Shape& sh, int splits, int per,
+           int relu, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const bool vec_a = sh.Cin % V == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool vec_b = sh.Cout % V == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   dim3 grid((sh.M + BM - 1) / BM, (sh.Cout + BN - 1) / BN, splits);
-  conv2d_igemm_kernel<T><<<grid, kThreads, 0, s>>>(
+  conv2d_igemm_kernel<T, kPool><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(y), part, counters, sh, per, relu, vec_a, vec_b);
+      static_cast<T*>(y), part, counters, count, sh, per, relu, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* b, void* y, float* part,
+           int* counters, int* count, const Shape& sh, int splits, int per,
+           int relu, int pool, cudaStream_t s) {
+  return pool ? launch<T, true>(x, w, b, y, part, counters, count, sh, splits,
+                                per, relu, s)
+              : launch<T, false>(x, w, b, y, part, counters, count, sh, splits,
+                                 per, relu, s);
 }
 
 }  // namespace
@@ -316,22 +427,31 @@ int launch(const void* x, const void* w, const void* b, void* y, float* part,
 // be the one compiled here (64, 32, 32); splits and per: grid z and the K
 // chunks each split takes. When splits > 1, part: an f32 scratch of at least
 // splits * B*H*W * Cout, and counters: one int per output tile, all 0 (the
-// kernel leaves them 0 again). dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch.
+// kernel leaves them 0 again). pool: y is the 2x2 / stride-2 VALID max pool
+// of the output, [B, H/2, W/2, Cout]; else [B, H, W, Cout]. count: null, or
+// one int the launch adds the number of nonzero values of y to. dtype: 0 =
+// float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
 extern "C" int conv2d_bias_act(const void* x, const void* w, const void* b,
-                               void* y, void* part, void* counters, int B,
-                               int H, int W, int Cin, int Cout, int KH, int KW,
-                               int tile_m, int tile_n, int chunk, int splits,
-                               int per, int relu, int dtype, void* stream) {
+                               void* y, void* part, void* counters,
+                               void* count, int B, int H, int W, int Cin,
+                               int Cout, int KH, int KW, int tile_m,
+                               int tile_n, int chunk, int splits, int per,
+                               int relu, int pool, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
   int* cf = static_cast<int*>(counters);
+  int* nz = static_cast<int*>(count);
   if (tile_m != BM || tile_n != BN || chunk != BK || splits < 1 ||
       splits > 65535 || per < 1 ||
       (splits > 1 && (pf == nullptr || cf == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape sh{B, H, W, Cin, Cout, KH, KW, B * H * W, KH * KW * Cin};
-  if (dtype == 0) return launch<float>(x, w, b, y, pf, cf, sh, splits, per, relu, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, b, y, pf, cf, sh, splits, per, relu, s);
+  const int M = B * H * W;
+  const Shape sh{B, H, W, Cin, Cout, KH, KW, M, KH * KW * Cin,
+                 pool ? 4 * B * (H / 2) * (W / 2) : M, H / 2, W / 2};
+  if (dtype == 0)
+    return launch<float>(x, w, b, y, pf, cf, nz, sh, splits, per, relu, pool, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, w, b, y, pf, cf, nz, sh, splits, per, relu,
+                                 pool, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,7 +8,11 @@ The kernel is an implicit GEMM (M = B*H*W output pixels, N = Cout, K =
 KH*KW*Cin) over ``CONV_TILE`` output tiles. ``conv_plan`` splits K over
 the SMs when the tiles do not fill the card (the split-K scheme of
 ``repro_torch.kernels._split``, shared with the BLOCKS matmul);
-``ref.conv2d_split_ref`` is the plain version in the plan's K ranges."""
+``ref.conv2d_split_ref`` is the plain version in the plan's K ranges.
+The epilogue can take the 2x2 max pool and add the count of the nonzero
+values it wrote to an int32 counter (``ref.conv2d_relu_ref`` with ``pool``
+and ``counts`` is the plain version); the plan is the unpooled launch's
+either way."""
 
 from __future__ import annotations
 
@@ -25,11 +29,12 @@ from repro_torch.kernels._split import (
     split_plan,
     split_ranges,
 )
+from repro_torch.utils import trace
 
 CONV2D = CudaLibrary(
     "conv2d", Path(__file__).with_name("csrc") / "conv2d.cu",
-    {"conv2d_bias_act": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
-                         I, I, I, P]})
+    {"conv2d_bias_act": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                         I, I, I, I, I, P]})
 
 # (output pixels, output channels, K chunk) of a block: the tile the
 # kernel is compiled for (csrc/conv2d.cu BM, BN, BK)
@@ -58,10 +63,15 @@ def conv_ranges(kh: int, kw: int, cin: int, splits: int,
 
 
 def conv2d_igemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                 relu: bool = True) -> torch.Tensor:
+                 relu: bool = True, pool: bool = False,
+                 counts: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; raise on anything it does
     not take (``NotImplementedError`` where autograd would need its
-    gradient). x: [B, H, W, Cin]; w: [KH, KW, Cin, Cout]; b: [Cout]."""
+    gradient). x: [B, H, W, Cin]; w: [KH, KW, Cin, Cout]; b: [Cout].
+    ``pool``: the epilogue takes the 2x2 / stride-2 VALID max pool and
+    writes [B, H // 2, W // 2, Cout]. ``counts``: a one-element int32
+    tensor on x's device (a view into a larger buffer will do); the launch
+    adds the number of nonzero values it wrote to it."""
     refuse_dtensor("the conv2d kernel", x, w, b)
     dev = x.device
     if dev.type != "cuda":
@@ -86,7 +96,16 @@ def conv2d_igemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
             raise ValueError(f"{name} is not contiguous")
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported dtype {x.dtype}")
-    y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=dev)
+    count_ptr = None
+    if counts is not None:
+        if (counts.device != dev or counts.dtype != torch.int32
+                or counts.numel() != 1):
+            raise ValueError(
+                f"counts must be one int32 element on {dev}, got "
+                f"{counts.dtype} {tuple(counts.shape)} on {counts.device}")
+        count_ptr = counts.data_ptr()
+    out_hw = (h // 2, wd // 2) if pool else (h, wd)
+    y = torch.empty((bsz, *out_hw, cout), dtype=x.dtype, device=dev)
     if y.numel() == 0:
         return y
     idx = dev.index  # a tensor's device always has its index
@@ -101,7 +120,9 @@ def conv2d_igemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
             cdiv(m, bm) * cdiv(cout, bn))
         part_ptr, cnt_ptr = part.data_ptr(), cnt.data_ptr()
     CONV2D.launch("conv2d_bias_act", x.data_ptr(), w.data_ptr(),
-                  b.data_ptr(), y.data_ptr(), part_ptr, cnt_ptr, bsz, h, wd,
-                  cin, cout, kh, kw, bm, bn, bk, splits, per, int(relu),
-                  _DTYPE_CODE[x.dtype], device=dev)
+                  b.data_ptr(), y.data_ptr(), part_ptr, cnt_ptr, count_ptr,
+                  bsz, h, wd, cin, cout, kh, kw, bm, bn, bk, splits, per,
+                  int(relu), int(pool), _DTYPE_CODE[x.dtype], device=dev)
+    if pool:
+        trace.count("conv.pool_fused")
     return y

@@ -1,5 +1,6 @@
 """The conv2d kernel's plan and its split-order plain version against the
-reference's Pallas conv (interpret mode) on the same numpy inputs. The
+reference's Pallas conv (interpret mode) on the same numpy inputs; the
+plain pooled and counted version against the pool of the plain conv. The
 CUDA kernel itself is held against both on the card
 (tests/test_torch_cuda.py and ``chip_smoke.py``)."""
 
@@ -8,11 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.accel.roshambo import maxpool2 as jax_maxpool2
 from repro.kernels.conv2d.ops import conv2d_relu as jax_conv2d_relu
 from repro_torch.kernels import _split
 from repro_torch.kernels.conv2d import kernel as conv_kernel
 from repro_torch.kernels.conv2d.kernel import CONV_TILE, conv_plan, conv_ranges
-from repro_torch.kernels.conv2d.ref import conv2d_relu_ref, conv2d_split_ref
+from repro_torch.kernels.conv2d.ops import conv2d_relu
+from repro_torch.kernels.conv2d.ref import (
+    conv2d_relu_ref,
+    conv2d_split_ref,
+    maxpool2,
+)
 from repro_torch.kernels.streamed_matmul import kernel as mm_kernel
 
 # one intra-op thread a worker process (see tests/test_torch_kernels.py)
@@ -146,3 +153,36 @@ def test_conv2d_split_ref_ragged_matches_plain(bsz, h, w, cin, cout, kh, kw):
             got.float().numpy(),
             conv2d_relu_ref(*args, relu=False).float().numpy(),
             rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("bsz,h,w,cin,cout", [
+    *[(2, 8, 8, cin, cout) for _, cin, cout in ROSHAMBO],
+    (2, 7, 9, 3, 5),   # odd H and W: the pool drops the last row and column
+    (1, 5, 6, 4, 7),   # odd H only
+])
+def test_conv2d_relu_pool_ref_is_the_pool_of_the_conv(bsz, h, w, cin, cout,
+                                                      pool, relu):
+    """The plain pooled and counted version: ``maxpool2`` of
+    ``conv2d_relu_ref`` (and the reference package's ``maxpool2`` of the
+    same output), its nonzeros added to the element of the buffer that it
+    is given a view of and to no other; the CPU path of ``conv2d_relu``
+    takes it and adds again."""
+    x, wt, b = (torch.from_numpy(a)
+                for a in _inputs(bsz, h, w, cin, cout, seed=h + cin))
+    full = conv2d_relu_ref(x, wt, b, relu=relu)
+    want = maxpool2(full) if pool else full
+    counts = torch.zeros(3, dtype=torch.int32)
+    got = conv2d_relu_ref(x, wt, b, relu=relu, pool=pool, counts=counts[1])
+    assert torch.equal(got, want)
+    if pool:
+        assert got.shape == (bsz, h // 2, w // 2, cout)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax_maxpool2(jnp.asarray(full.numpy()))))
+    nz = int(torch.count_nonzero(want))
+    assert 0 < nz < want.numel() or not relu
+    assert counts.tolist() == [0, nz, 0]
+    again = conv2d_relu(x, wt, b, relu=relu, pool=pool, counts=counts[1])
+    assert torch.equal(again, want)
+    assert counts.tolist() == [0, 2 * nz, 0]

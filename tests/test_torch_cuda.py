@@ -43,7 +43,11 @@ from repro_torch.configs.registry import smoke_config
 from repro_torch.kernels._split import SPLIT_WORKSPACE
 from repro_torch.kernels.conv2d.kernel import CONV2D, conv_plan, conv_ranges
 from repro_torch.kernels.conv2d.ops import conv2d_relu
-from repro_torch.kernels.conv2d.ref import conv2d_relu_ref, conv2d_split_ref
+from repro_torch.kernels.conv2d.ref import (
+    conv2d_relu_ref,
+    conv2d_split_ref,
+    maxpool2,
+)
 from repro_torch.kernels.streamed_matmul.kernel import (
     MATMUL,
     TILES,
@@ -82,6 +86,7 @@ from repro_torch.models.layers.norm import apply_norm
 from repro_torch.models.layers.ssm import ssd_chunked
 from repro_torch.serve.continuous import ContinuousBatchingEngine, Request
 from repro_torch.serve.engine import ServeConfig, ServingEngine
+from repro_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -160,6 +165,53 @@ def test_conv2d_kernel_ragged_shapes(dev, bsz, h, w, cin, cout, kh, kw,
     x, wt, b = _conv_case(dev, dtype, bsz, h, w, cin, cout, kh, kw, seed=7)
     for relu in (True, False):
         _conv_checked(x, wt, b, relu, tol)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bsz", [1, 32])
+@pytest.mark.parametrize("h,w,cin,cout,pool", [
+    *[(hw, hw, cin, cout, i < 4) for i, (hw, cin, cout) in
+      enumerate(ROSHAMBO)],  # the layers: conv1-4 pool, conv5 does not
+    (7, 9, 3, 5, True),      # odd H and W: the last row and column dropped
+    (11, 13, 24, 40, True),  # the same with 16-byte copies in f32
+])
+def test_conv2d_pooled_counted_launch(dev, h, w, cin, cout, pool, bsz, dtype,
+                                      tol, relu):
+    """The pooled and counted epilogue: one launch, bitwise the max pool of
+    the unpooled launch (the same plan, so the same sums), its nonzeros
+    added to the buffer's element it is given a view of, two calls equal in
+    bytes and counts, within
+    ``tol`` of the pool of the split-order plain version, and one
+    ``conv.pool_fused`` where it pools."""
+    x, wt, b = _conv_case(dev, dtype, bsz, h, w, cin, cout, seed=h + cin)
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = CONV2D.launches["conv2d_bias_act"]
+    trace.enabled()  # the profiler below starts a fresh tracer session
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        trace.count("test.session")  # the session's first record
+        got = conv2d_relu(x, wt, b, relu=relu, pool=pool, counts=counts[1])
+    assert CONV2D.launches["conv2d_bias_act"] == before + 1
+    assert trace.counters().get("conv.pool_fused", 0) == int(pool)
+    full = conv2d_relu(x, wt, b, relu=relu)
+    want = maxpool2(full) if pool else full
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert counts.tolist() == [0, int(torch.count_nonzero(want)), 0]
+    again_counts = torch.zeros_like(counts)
+    again = conv2d_relu(x, wt, b, relu=relu, pool=pool,
+                        counts=again_counts[1])
+    assert torch.equal(again, got) and torch.equal(again_counts, counts)
+    _, splits, per = conv_plan(bsz, h, w, cin, cout, 3, 3,
+                               sm_count(torch.cuda.current_device()))
+    split = conv2d_split_ref(x, wt, b, conv_ranges(3, 3, cin, splits, per),
+                             relu=relu)
+    torch.testing.assert_close(
+        got.float(), (maxpool2(split) if pool else split).float(), rtol=tol,
+        atol=tol)
+    for _part, cnt in SPLIT_WORKSPACE._bufs.values():
+        assert int(cnt.abs().sum()) == 0
 
 
 def test_conv2d_survives_scratch_growth_by_another_thread(dev, monkeypatch):
@@ -312,11 +364,25 @@ def test_nullhop_frame_on_card(dev):
     ex = NullHopExecutor(cnn, TransferPolicy.kernel_level_ring())
     try:
         before = CONV2D.launches["conv2d_bias_act"]
-        res = ex.run_frame(params, frame)
+        trace.enabled()  # a fresh tracer session with the profiler
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            res = ex.run_frame(params, frame)
     finally:
         ex.close()
     assert CONV2D.launches["conv2d_bias_act"] == before + 5
+    counters = trace.counters()
+    assert counters.get("conv.pool_fused") == 4  # conv1-4 pool in the kernel
+    assert counters.get("wait.sparsity") == 1
     np.testing.assert_allclose(res.logits, ref, rtol=1e-4, atol=1e-4)
+    # the sparsity the epilogue counted is, float for float, that of the
+    # unpooled launches' fmaps pooled by maxpool2
+    x = torch.from_numpy(frame).to(dev)
+    want = []
+    for spec in cnn.cfg.layers:
+        x = cnn.layer_apply(spec, params[spec.name], x, conv=conv2d_relu)
+        want.append(1.0 - int(torch.count_nonzero(x)) / x.numel())
+    assert res.sparsity == want
 
 
 def test_matmul_unique_grid_path_matches_plain(dev):

@@ -22,6 +22,7 @@ import repro_torch.core.transfer as ttransfer
 from repro_torch.accel.nullhop import NullHopExecutor
 from repro_torch.accel.roshambo import RoShamBoCNN, maxpool2, params_from_jax
 from repro_torch.configs import roshambo as roshambo_configs
+from repro_torch.kernels.conv2d.ref import conv2d_relu_ref
 
 # the suite runs in several worker processes on one host: one intra-op
 # thread each keeps torch from oversubscribing the cores that the
@@ -113,6 +114,32 @@ def test_sparsity_counts_the_streamed_fmaps(slice_inputs, path, batch):
         zeros = int((x == 0).sum())
         assert round(got * x.numel()) == zeros, spec.name
         assert abs(got - zeros / x.numel()) <= 1e-12, spec.name
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("path", list(_EXECUTOR_PATHS))
+def test_frame_matches_the_oracle_fmaps(slice_inputs, path, batch):
+    """A CPU-engine frame, whose layers pool and count through the plain
+    pooled and counted conv, against the oracle's fmaps (the plain conv,
+    then ``maxpool2``): the same per-layer sparsity, float for float, and
+    the same logits."""
+    _, _, params, _, _ = slice_inputs
+    frames = np.random.default_rng(10 + batch).standard_normal(
+        (batch, 64, 64, 1)).astype(np.float32)
+    cnn = RoShamBoCNN()
+    ex = NullHopExecutor(cnn, _EXECUTOR_PATHS[path](), device="cpu")
+    try:
+        res = ex.run_frame(params, frames)
+    finally:
+        ex.close()
+    x = torch.from_numpy(frames)
+    want = []
+    for spec in cnn.cfg.layers:
+        x = cnn.layer_apply(spec, params[spec.name], x, conv=conv2d_relu_ref)
+        want.append(1.0 - int(torch.count_nonzero(x)) / x.numel())
+    assert res.sparsity == want
+    oracle = cnn.apply(params, torch.from_numpy(frames)).numpy()
+    np.testing.assert_allclose(res.logits, oracle, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("path", list(_EXECUTOR_PATHS))
