@@ -198,7 +198,7 @@ Phases, in order; any failure exits non-zero before a result is printed:
    host batch, TX us a batch), and ``device_streamed_scan`` over
    qwen2.5-3b's 36 layers in bf16 at B 2 x S 2048, the stacked layers in
    pinned host memory (~5.55 GB) copied to the card a layer ahead: the
-   hidden states bitwise the resident ``_stack_scan``'s, exactly 36
+   hidden states bitwise the resident ``stack_apply``'s, exactly 36
    tensor-core flash launches, the resident, streamed and copy ms and the
    overlap share (copy + compute - streamed) / min(copy, compute);
 12j. ``repro_torch.examples.elastic_restart`` on the card (an ``elastic``
@@ -2622,7 +2622,7 @@ def dist_phase(np, torch, dev, libs, flash_lib) -> dict:
     qwen batches staged as DTensors under the three managements (bitwise
     the host batch, TX us a batch), and ``device_streamed_scan`` over the
     36 layers in bf16 from pinned host memory, bitwise the resident
-    ``_stack_scan``, 36 tensor-core flash launches, with the resident,
+    ``stack_apply``, 36 tensor-core flash launches, with the resident,
     streamed and copy ms and the overlap share. Returns the streamed
     run's flash launches, by C symbol."""
     import torch.distributed as dist
@@ -2742,13 +2742,14 @@ def dist_phase(np, torch, dev, libs, flash_lib) -> dict:
         sym = SYMBOL[torch.bfloat16]
 
         def layer(p, h):
-            return lm.block_apply(cfg, p, h, positions=positions)[0]
+            return lm.layer_apply(cfg, "attention", p, p["attn"], h,
+                                  positions=positions)[0]
 
         def h2d(p):
             return tree_map(lambda t: t.to(dev, non_blocking=True), p)
 
         def resident():
-            return lm._stack_scan(cfg, params, x0, None, positions)[0]
+            return lm.stack_apply(cfg, params, x0, None, positions)[0]
 
         def streamed():
             return device_streamed_scan(layer, host, x0, gather_fn=h2d)

@@ -50,25 +50,25 @@ class NullHopExecutor:
     """Executes a RoShamBoCNN per-layer under a transfer policy.
 
     ``device``: the engine's device (default: the current CUDA card; the
-    engine raises when there is none and no device was named).
-    ``staged=True`` (default) streams through the engine's cached
-    :class:`~repro_torch.core.transfer.StagedLayout` ring path — layer
-    weights are laid out once and re-staged copy-free on every subsequent
-    frame; ``staged=False`` keeps the seed per-frame pack path for
-    comparison."""
+    engine raises when there is none and no device was named). The policy
+    picks the streaming path (:class:`HostStreamingExecutor`): an INTERRUPT
+    policy with ring depth >= 2 streams through the engine's cached
+    :class:`~repro_torch.core.transfer.StagedLayout` ring with three-way
+    overlap; every other, ``TransferPolicy.kernel_level()`` (depth 1)
+    among them, runs the layers in turn, each layer's params packed into
+    one fresh payload a frame."""
 
     def __init__(self, cnn: RoShamBoCNN, policy: TransferPolicy, *,
-                 staged: bool = True,
                  device: "torch.device | str | None" = None):
         self.cnn = cnn
         self.policy = policy
-        self.staged = staged
         self.engine = TransferEngine(policy, device=device)
         # one streaming executor for the engine's life: its compute stream
         # and its interior RX landing buffers are reused frame after frame
-        self._streamer = HostStreamingExecutor(self.engine, staged=staged)
+        self._streamer = HostStreamingExecutor(self.engine)
         # host-side param arrays, reused while the same tensor is unmodified
-        # (tensor._version counts in-place writes): the staged layouts see
+        # (tensor._version counts in-place writes): no device->host copy of
+        # the params a frame, and the overlapped path's staged layouts see
         # the same array objects frame after frame and skip the pack copy
         self._host: dict[tuple[str, str], tuple[torch.Tensor, int, np.ndarray]] = {}
         self.calls = 0  # run_frame calls so far

@@ -7,8 +7,9 @@ stream back (RX) and become the next layer's input. Total frame time is the
 per-layer sum of (TX + compute + RX), with overlap determined by the
 transfer policy.
 
-Under an INTERRUPT policy with ring depth >= 2 the executor runs
-**three-way overlap** — the paper's balanced-TX/RX goal:
+The policy alone picks the path. Under an INTERRUPT policy with ring
+depth >= 2 the executor runs **three-way overlap** — the paper's
+balanced-TX/RX goal (:meth:`HostStreamingExecutor._run_overlapped`):
 
     TX(layer k+1)  ─┐
     compute(k)      ├─ concurrent (runtime completion workers + main thread)
@@ -24,8 +25,12 @@ identity through the engine's :class:`LayoutCache`, so steady-state frames
 do zero pack allocation — and zero pack *copies* when the host params are
 unchanged (inference weight streaming), the ZynqNet one-time-layout lesson.
 
-The seed's per-frame pack path (``np.concatenate`` per layer per frame,
-depth-2 max) is kept behind ``staged=False`` as the benchmark baseline.
+Every other policy — POLLING, SCHEDULED, and INTERRUPT with depth 1, which
+is :meth:`TransferPolicy.kernel_level`, the policy both of the benchmark's
+frame cells run — takes the serial path
+(:meth:`HostStreamingExecutor._run_basic`): per layer, its params packed
+into one fresh payload (:func:`_pack`), sent and waited for, the layer
+computed, its output fmap received, in turn.
 """
 
 from __future__ import annotations
@@ -101,13 +106,20 @@ class FrameTiming:
 
 class HostStreamingExecutor:
     """Run a sequence of layers, staging each layer's params host->device
-    under the engine's policy, with ring-depth-controlled prefetch.
+    under the engine's policy.
 
     ``layers`` is a list of (name, param_host_arrays, apply_fn) where
     ``apply_fn(params_device_list, x)`` returns the layer output tensor. With
     an INTERRUPT policy of ring depth >= 2 the executor overlaps layer k+1's
-    TX *and* layer k-1's RX with layer k's compute; with POLLING everything
-    serialises.
+    TX *and* layer k-1's RX with layer k's compute, through the cached
+    staging layouts; under any other policy (``kernel_level()`` among
+    them) everything serialises, each layer's params packed afresh.
+
+    Each interior layer's output fmap is received into a host buffer the
+    executor owns and reuses frame after frame (pinned on CUDA), so
+    steady-state frames allocate nothing on the readback side; the final
+    layer's output, the frame result handed to the caller, is always a
+    fresh array, so callers may keep frames without them aliasing.
 
     ``engine`` is a :class:`TransferEngine` or anything that duck-types one
     (:class:`~repro_torch.core.channels.ChannelGroup`,
@@ -119,9 +131,6 @@ class HostStreamingExecutor:
     time ends when an event recorded after it on that stream has completed,
     so ``compute_s`` means "until the layer's output exists".
 
-    ``staged=False`` selects the legacy per-frame pack path (re-concatenates
-    params every frame) — kept only as the measured baseline.
-
     ``sensor_fn``: optional frame-ingest callable, registered as a
     ``SENSOR``-class background task for the duration of each ``run()`` —
     the paper's concurrent collection+transfer scenario. Under INTERRUPT
@@ -131,21 +140,11 @@ class HostStreamingExecutor:
     paper's warning: the polling driver blocks the whole system).
     """
 
-    def __init__(self, engine: "TransferEngine | Any", *, staged: bool = True,
-                 zero_copy_rx: bool = True,
+    def __init__(self, engine: "TransferEngine | Any", *,
                  sensor_fn: Callable[[], None] | None = None):
         self.engine = engine
-        self.staged = staged
         self.sensor_fn = sensor_fn
         self.sensor_slices = 0  # background slices observed across runs
-        # per-layer host output buffers, reused frame after frame: with
-        # ``zero_copy_rx`` each INTERIOR layer's fmap RX lands in the SAME
-        # executor-owned buffer every frame (``rx_async(..., out=)``), so
-        # steady-state frames allocate nothing on the readback side. The
-        # FINAL layer's output — the frame result handed to the caller —
-        # is always a fresh array, so callers may keep frames without them
-        # aliasing each other.
-        self.zero_copy_rx = zero_copy_rx
         self._rx_bufs: dict[Any, np.ndarray] = {}
         device = engine.device
         self._cuda = device.type == "cuda"
@@ -182,7 +181,7 @@ class HostStreamingExecutor:
 
     def _rx_out(self, key: Any, y: torch.Tensor, *,
                 last: bool) -> list[np.ndarray] | None:
-        if not self.zero_copy_rx or last:
+        if last:
             return None
         shape, dtype = tuple(y.shape), _numpy_dtype(y.dtype)
         buf = self._rx_bufs.get(key)
@@ -243,11 +242,16 @@ class HostStreamingExecutor:
         t0 = time.perf_counter()
         unregister_sensor = self._register_sensor()
         try:
-            if overlapped and self.staged:
-                host_out, timing = self._run_overlapped(layers, x)
+            x_dev, input_tx_s, input_bytes = self._tx_input(x)
+            if not layers:
+                # no layers: the frame is the transferred input itself
+                host_out, timing = self.engine.rx([x_dev])[0], FrameTiming()
             else:
-                host_out, timing = self._run_basic(layers, x,
-                                                   prefetch=overlapped)
+                path = self._run_overlapped if overlapped else self._run_basic
+                host_out, timing = path(layers, x_dev)
+                first = timing.layers[0]  # the input's TX counts as layer 0's
+                first.tx_s += input_tx_s
+                first.tx_bytes += input_bytes
         finally:
             unregister_sensor()
         self._frame_end()
@@ -271,17 +275,11 @@ class HostStreamingExecutor:
         with self._on_compute():
             return unpack(chunks)
 
-    # -- new path: cached layouts + three-way overlap -----------------------
-    def _run_overlapped(self, layers, x) -> tuple[np.ndarray, FrameTiming]:
+    # -- INTERRUPT, depth >= 2: cached layouts + three-way overlap ----------
+    def _run_overlapped(self, layers, x_dev) -> tuple[np.ndarray, FrameTiming]:
         engine = self.engine
         policy = engine.policy
         timing = FrameTiming()
-        x_dev, input_tx_s, input_bytes = self._tx_input(x)
-        if not layers:
-            # no layers: the frame is the transferred input itself, not None
-            host_out = engine.rx([x_dev])[0]
-            return host_out, timing
-
         layouts: list[StagedLayout] = [
             engine.layouts.get((i, name), params)
             for i, (name, params, _) in enumerate(layers)
@@ -297,9 +295,7 @@ class HostStreamingExecutor:
         # segments (one ring slot, zero staging memcpy); many small params
         # keep the staged pack. Decisions are memoized per layer key in the
         # LayoutCache and re-priced when the online fit moves the crossover.
-        sg_capable = (hasattr(engine, "tx_sg")
-                      and hasattr(engine, "prefer_sg")
-                      and policy.management is Management.INTERRUPT)
+        sg_capable = hasattr(engine, "tx_sg") and hasattr(engine, "prefer_sg")
 
         def issue_tx() -> None:
             nonlocal next_tx
@@ -349,19 +345,13 @@ class HostStreamingExecutor:
                 issue_tx()
                 t1 = time.perf_counter()
                 _mark("frame.tx", t0, t1)
-                tx_s = t1 - t0
-                tx_bytes = layouts[i].nbytes
-                if i == 0:
-                    tx_s += input_tx_s
-                    tx_bytes += input_bytes
 
                 # --- compute (layer k-1's RX and layer k+1's TX are in flight)
                 y, compute_s = self._compute(apply_fn, params_dev, x_dev)
 
-                rx_bytes = _nbytes(y)
-                timing.layers.append(
-                    LayerTiming(name, tx_s, compute_s, 0.0, tx_bytes, rx_bytes)
-                )
+                timing.layers.append(LayerTiming(
+                    name, t1 - t0, compute_s, 0.0, layouts[i].nbytes,
+                    _nbytes(y)))
                 # --- RX: retire layer k-1's ticket, launch layer k's — an
                 # interior fmap streams back into its reused host buffer; the
                 # final layer's (the caller's frame result) gets a fresh one.
@@ -374,41 +364,21 @@ class HostStreamingExecutor:
         drain_rx()
         return host_out, timing
 
-    # -- legacy/basic path: per-frame pack, serial (or depth-2 TX prefetch) --
-    def _run_basic(self, layers, x, *, prefetch: bool) -> tuple[np.ndarray, FrameTiming]:
+    # -- every other policy: per-frame pack, each layer in turn -------------
+    def _run_basic(self, layers, x_dev) -> tuple[np.ndarray, FrameTiming]:
         timing = FrameTiming()
-        x_dev, input_tx_s, input_bytes = self._tx_input(x)
-        if not layers:
-            host_out = self.engine.rx([x_dev])[0]
-            return host_out, timing
-
-        pending: Ticket | None = None
-        if prefetch and layers:
-            pending = self.engine.tx_async(_pack(layers[0][1]))
-
         host_out: np.ndarray | None = None
         for i, (name, params_host, apply_fn) in enumerate(layers):
             with trace.span("frame.layer"):
                 # --- TX params for this layer
                 t0 = time.perf_counter()
-                if prefetch:
-                    chunks = pending.wait()
-                    params_dev = self._params_from(
-                        chunks, lambda c: _unpack(c, params_host))
-                    # issue next layer's TX immediately (overlaps compute below)
-                    if i + 1 < len(layers):
-                        pending = self.engine.tx_async(_pack(layers[i + 1][1]))
-                else:
-                    chunks = self.engine.tx(_pack(params_host))
-                    params_dev = self._params_from(
-                        chunks, lambda c: _unpack(c, params_host))
+                chunks = self.engine.tx(_pack(params_host))
+                params_dev = self._params_from(
+                    chunks, lambda c: _unpack(c, params_host))
                 t1 = time.perf_counter()
                 _mark("frame.tx", t0, t1)
                 tx_s = t1 - t0
                 tx_bytes = sum(np.asarray(p).nbytes for p in params_host)
-                if i == 0:
-                    tx_s += input_tx_s
-                    tx_bytes += input_bytes
 
                 # --- compute
                 y, compute_s = self._compute(apply_fn, params_dev, x_dev)
@@ -436,18 +406,17 @@ def _mark(name: str, t0: float, t1: float) -> None:
 
 
 def _pack(arrays: list[np.ndarray]) -> np.ndarray:
-    """Seed-path pack: flatten a param list into one freshly-allocated
-    contiguous payload, every call. Superseded by
-    :meth:`repro_torch.core.transfer.StagedLayout.pack`; kept as the
-    measured baseline."""
+    """The serial path's pack: flatten a param list into one
+    freshly-allocated contiguous payload, every call (the overlapped path
+    packs into cached layouts, :meth:`StagedLayout.pack`)."""
     if not arrays:
         return np.zeros((0,), np.float32)
     return np.concatenate([np.asarray(a).reshape(-1).view(np.uint8) for a in arrays])
 
 
 def _unpack(chunks: list[torch.Tensor], ref: list[np.ndarray]) -> list[torch.Tensor]:
-    """Seed-path unpack: re-derives offsets from ``ref`` on every call (see
-    :meth:`StagedLayout.unpack` for the cached equivalent)."""
+    """The serial path's unpack: re-derives offsets from ``ref`` on every
+    call (see :meth:`StagedLayout.unpack` for the cached equivalent)."""
     flat = reassemble_chunks(chunks)
     out, off = [], 0
     for a in ref:

@@ -169,8 +169,7 @@ def _mamba_group_scan(cfg: ModelConfig, gparams: dict, x: torch.Tensor,
         st = SSMState(layer_at(states.ssm, i), layer_at(states.conv, i))
         out, new_st = mamba2_apply(lp["mixer"], hn, cfg, state=st)
         x = batch_sharded(x + out)
-        layer_at(states.ssm, i).copy_(new_st.ssm)
-        layer_at(states.conv, i).copy_(new_st.conv)
+        lm.write_state(states, i, new_st)
     return x, states
 
 

@@ -296,7 +296,7 @@ def attn_params(generator: torch.Generator, d_model: int, n_heads: int,
 def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                head_dim: int, rope_theta: float, window: int = 0,
                kv_chunk: int = 1024, blocks_threshold: int = 4096,
-               use_pallas: bool = False, pallas_interpret: bool = False,
+               use_pallas: bool = False,
                cache: KVCache | None = None,
                positions: torch.Tensor | None = None,
                xk: torch.Tensor | None = None,
@@ -311,8 +311,7 @@ def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     decoding). ``scale`` multiplies the scores on every route (None:
     1/sqrt(head_dim)). ``use_pallas`` sends self-attention without a cache
     to the flash kernel, which scales by 1/sqrt(head_dim): another
-    ``scale`` is folded into q first; ``pallas_interpret`` is accepted and
-    means nothing here.
+    ``scale`` is folded into q first.
     Projections that come out as ``DTensor``s take :func:`_sharded_attn`;
     rows replicated on the data axes (B = 1) split each projection's
     contraction over them (``contract_on_data``)."""

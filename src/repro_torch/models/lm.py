@@ -4,30 +4,31 @@ Params keep the reference's pytree layout: a dict of tensors whose
 ``blocks`` subtree is stacked over layers (leading [L] axis), so the port's
 params and the reference's ``init_params`` carry over one to one
 (:func:`params_from_jax`). The reference scans the stack with
-``lax.scan``; here a Python loop walks per-layer views of the stack
-(:func:`unstack`, no copy) layer by layer, each block under
+``lax.scan``; here a Python loop (:func:`stack_apply`) walks per-layer
+views of the stack (:func:`unstack`, no copy) layer by layer, each under
 :func:`make_remat` when there is no cache. The skeleton is
 
-    x -> [ block_0 ... block_{L-1} ] -> final_norm -> lm_head
+    x -> [ layer_0 ... layer_{L-1} ] -> final_norm -> lm_head
 
-with block = (norm -> attention -> residual -> norm -> MLP -> residual)
-for the dense and vlm families, (norm -> attention -> residual -> norm ->
-MoE -> residual) for the moe family, or (norm -> Mamba2 mixer -> residual)
-for the ssm family; the vlm family puts its patch embeddings before the
-text (``prefix_embeds``). The decode cache is a stacked ``KVCache`` or
+with every family's layer the one :func:`layer_apply`: norm -> mixer
+(attention or Mamba2) -> residual, then, where the block has one, norm ->
+MLP or MoE -> residual. The dense and vlm families' layers are attention
+and MLP, the moe family's attention and MoE, the ssm family's Mamba2
+alone; the vlm family puts its patch embeddings before the text
+(``prefix_embeds``). The decode cache is a stacked ``KVCache`` or
 ``SSMState``; each layer's new entries are written into the stacked
 [L, ...] tensors in place (the reference scans a fresh cache out).
 
-The hybrid_moe family (granite-4.0-h) has no JAX counterpart. Its block is
-(norm -> Mamba2 or attention mixer, as ``cfg.layer_types`` says -> scaled
-residual -> norm -> routed MoE plus the shared expert -> scaled residual),
-with the published scalar multipliers (``embedding_multiplier``,
-``residual_multiplier``, ``attention_multiplier``, ``logits_scaling``) and
-``norm_eps``. Its params stack the norms and the MoE over every layer
-(``blocks``) and each mixer kind over its own layers (``mamba``,
-``attn``); its decode cache, a :class:`HybridCache`, holds the attention
-layers' K/V and the Mamba2 layers' state side by side, advanced together
-by one step.
+The hybrid_moe family (granite-4.0-h) has no JAX counterpart. Its layers
+are Mamba2 or attention, as ``cfg.layer_types`` says, each followed by the
+routed MoE plus the shared expert, with the published scalar multipliers
+(``embedding_multiplier``, ``residual_multiplier``,
+``attention_multiplier``, ``logits_scaling``) and ``norm_eps``, all of
+which every family reads (at their defaults they change nothing). Its
+params stack the norms and the MoE over every layer (``blocks``) and each
+mixer kind over its own layers (``mamba``, ``attn``); its decode cache, a
+:class:`HybridCache`, holds the attention layers' K/V and the Mamba2
+layers' state side by side, advanced together by one step.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from repro_torch.models.layers.ssm import (
     ssm_state_zeros,
 )
 from repro_torch.utils import trace
-from repro_torch.utils.pytree import tree_leaves, tree_map, unstack
+from repro_torch.utils.pytree import tree_map, unstack
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -200,81 +201,122 @@ def params_from_jax(params_np: dict, device: "torch.device | str") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# one block
+# one layer, and the stack of them
 # ---------------------------------------------------------------------------
 
-def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                cache: KVCache | None = None, positions=None):
-    """Returns (x, new_cache, aux_loss): the router's load-balance loss
-    (an f32 scalar tensor) for a moe block; 0.0 for any other, which has
-    none. A ``DTensor`` residual stream is kept batch-sharded
-    (``batch_sharded``)."""
-    if cfg.family == "ssm":
-        h, new_state = mamba2_apply(
-            p["mixer"], apply_norm(cfg.norm, p["ln1"], x), cfg, state=cache)
-        return batch_sharded(x + h), new_state, 0.0
-    h, new_cache = attn_apply(
-        p["attn"], apply_norm(cfg.norm, p["ln1"], x),
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-        rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-        kv_chunk=cfg.attn_kv_chunk, blocks_threshold=cfg.attn_blocks_threshold,
-        use_pallas=cfg.use_pallas_attention,
-        pallas_interpret=cfg.pallas_interpret,
-        cache=cache, positions=positions)
-    x = batch_sharded(x + h)
-    h2 = apply_norm(cfg.norm, p["ln2"], x)
-    if cfg.family == "moe":
-        h2, metrics = moe_apply(p["moe"], h2, top_k=cfg.top_k,
-                                capacity_factor=cfg.capacity_factor,
-                                ep_sharding=cfg.moe_ep_sharding)
-        return batch_sharded(x + h2), new_cache, metrics.aux_loss
-    h2 = mlp_apply(p["mlp"], h2, cfg.mlp)
-    return batch_sharded(x + h2), new_cache, 0.0
+def layer_apply(cfg: ModelConfig, kind: str, p: dict, mixer: dict,
+                x: torch.Tensor, *, cache=None, positions=None):
+    """One decoder layer: norm -> the mixer (``kind`` "attention" or
+    "mamba", its params ``mixer``) -> residual, then, where the block ``p``
+    holds an MLP or a MoE, norm -> that FFN -> residual. ``cache`` is the
+    mixer's ``KVCache`` or ``SSMState``, or None. Returns (x, the mixer's
+    new cache or state, aux): the MoE router's load-balance loss (an f32
+    scalar tensor), None for a block without a MoE. A ``DTensor`` residual
+    stream is kept batch-sharded (``batch_sharded``)."""
+    h = apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        h, new = mamba2_apply(mixer, h, cfg, state=cache)
+    else:
+        h, new = attn_apply(
+            mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+            window=cfg.sliding_window, kv_chunk=cfg.attn_kv_chunk,
+            blocks_threshold=cfg.attn_blocks_threshold,
+            use_pallas=cfg.use_pallas_attention,
+            scale=cfg.attention_multiplier or None, cache=cache,
+            positions=positions)
+    x = _residual(cfg, x, h)
+    aux = None
+    if "moe" in p:
+        h, metrics = moe_apply(p["moe"], apply_norm(cfg.norm, p["ln2"], x,
+                                                    cfg.norm_eps),
+                               top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               ep_sharding=cfg.moe_ep_sharding)
+        aux = metrics.aux_loss
+    elif "mlp" in p:
+        h = mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x,
+                                           cfg.norm_eps), cfg.mlp)
+    else:  # the ssm family's block: the mixer alone
+        return x, new, aux
+    return _residual(cfg, x, h), new, aux
 
 
-# ---------------------------------------------------------------------------
-# forward passes
-# ---------------------------------------------------------------------------
+def _residual(cfg: ModelConfig, x: torch.Tensor,
+              h: torch.Tensor) -> torch.Tensor:
+    """``x`` plus the branch ``h`` times ``cfg.residual_multiplier`` (no
+    product where that is 1)."""
+    r = cfg.residual_multiplier
+    return batch_sharded(x + (h if r == 1.0 else h * r))
 
-def _stack_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                caches: "KVCache | SSMState | None", positions):
-    """Run the blocks in order over the stacked [L, ...] params (and the
-    stacked cache, whose tensors each layer updates in place). The aux
-    loss is the sum of the layers' (an f32 scalar on ``x``'s device)."""
-    if cfg.family == "hybrid_moe":
-        return _hybrid_moe_scan(cfg, params, x, caches, positions)
+
+def _layers(cfg: ModelConfig, params: dict):
+    """Each layer in order as (kind, block params, mixer params, slot in
+    the cache). The kinds are ``cfg.layer_types`` where set, else one kind
+    for every layer (Mamba2 for the attention-free ssm family). The
+    reference's families keep a layer's mixer in its block (``attn`` /
+    ``mixer``) and stack their caches over every layer, so the slot is the
+    layer's index; hybrid_moe stacks each mixer kind over its own layers
+    (``params["attn"]`` / ``params["mamba"]``), as its cache does, so the
+    slot is the layer's place among its kind's."""
+    kinds = cfg.layer_types or (
+        "mamba" if cfg.is_attention_free else "attention",) * cfg.n_layers
     blocks = unstack(params["blocks"])
-    aux = 0.0
-    if isinstance(caches, SSMState):
-        for i in range(cfg.n_layers):
-            x, st, _ = block_apply(cfg, blocks[i], x,
-                                   cache=SSMState(layer_at(caches.ssm, i),
-                                                  layer_at(caches.conv, i)))
-            layer_at(caches.ssm, i).copy_(st.ssm)
-            layer_at(caches.conv, i).copy_(st.conv)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x, caches, aux
-    length = caches.length if caches is not None else None
-    block = make_remat(cfg)(
-        lambda p, h: block_apply(cfg, p, h, positions=positions))
-    for i in range(cfg.n_layers):
-        if caches is None:
-            x, nc, a = block(blocks[i], x)
+    stacks = {kind: unstack(params[key])
+              for kind, key in (("attention", "attn"), ("mamba", "mamba"))
+              if params.get(key) is not None}
+    for i, kind in enumerate(kinds):
+        if kind in stacks:
+            j = kinds[:i].count(kind)
+            yield kind, blocks[i], stacks[kind][j], j
         else:
-            x, nc, a = block_apply(
-                cfg, blocks[i], x,
-                cache=KVCache(layer_at(caches.k, i), layer_at(caches.v, i),
-                              caches.length),
-                positions=positions)
-        aux += a
-        if nc is not None:
-            length = nc.length
+            yield kind, blocks[i], blocks[i][
+                "attn" if kind == "attention" else "mixer"], i
+
+
+def write_state(stacked, i: int, new: SSMState) -> None:
+    """One Mamba2 layer's new state and conv tail into slot ``i`` of a
+    stacked state (an ``SSMState`` or a :class:`HybridCache`)."""
+    layer_at(stacked.ssm, i).copy_(new.ssm)
+    layer_at(stacked.conv, i).copy_(new.conv)
+
+
+def stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, caches,
+                positions):
+    """Run the layers in order (:func:`_layers`). With a cache (a stacked
+    ``KVCache`` or ``SSMState``, or a :class:`HybridCache`) each layer
+    runs on its slot of it, updated in place; without, each layer runs
+    under :func:`make_remat`. Returns (x, the cache of the type given, its
+    length advanced, aux): the sum of the layers' router losses, an f32
+    scalar on ``x``'s device."""
+    layer = make_remat(cfg)(
+        lambda kind, p, m, h: layer_apply(cfg, kind, p, m, h,
+                                          positions=positions))
+    aux, length = 0.0, None
+    for kind, p, mixer, slot in _layers(cfg, params):
+        if caches is None:
+            x, _, a = layer(kind, p, mixer, x)
+        elif kind == "mamba":
+            x, st, a = layer_apply(
+                cfg, kind, p, mixer, x, cache=SSMState(
+                    layer_at(caches.ssm, slot), layer_at(caches.conv, slot)))
+            write_state(caches, slot, st)
+        else:
+            x, kv, a = layer_apply(
+                cfg, kind, p, mixer, x, cache=KVCache(
+                    layer_at(caches.k, slot), layer_at(caches.v, slot),
+                    caches.length), positions=positions)
+            length = kv.length
+        if a is not None:
+            aux += a
     if not isinstance(aux, torch.Tensor):
         # a fill on the device, not a copy from pageable host memory
         aux = torch.full((), aux, dtype=torch.float32, device=x.device)
-    if caches is None:
-        return x, None, aux
-    return x, KVCache(caches.k, caches.v, length), aux
+    if caches is None or isinstance(caches, SSMState):
+        return x, caches, aux
+    if length is None:  # no attention layer has advanced it
+        length = caches.length + x.shape[1]
+    return x, caches._replace(length=length), aux
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -381,7 +423,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     """Scoring forward: tokens [B, S_text] -> logits [B, S, Vp], aux."""
     x = embed_tokens(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _, aux = _stack_scan(cfg, params, x, None, positions)
+    x, _, aux = stack_apply(cfg, params, x, None, positions)
     return logits_from_hidden(cfg, params, x), aux
 
 
@@ -420,7 +462,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, s_max: int,
         caches = cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
                                                      dev))
         positions = torch.arange(x.shape[1], device=x.device)
-        x, new_caches, _ = _stack_scan(cfg, params, x, caches, positions)
+        x, new_caches, _ = stack_apply(cfg, params, x, caches, positions)
         return logits_from_hidden(cfg, params, x[:, -1:]), new_caches
 
 
@@ -458,7 +500,7 @@ def prefill_chunked(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         last = None
         for c0 in range(0, s, chunk):
             xc = x[:, c0:c0 + chunk]
-            xc, caches, _ = _stack_scan(cfg, params, xc, caches, None)
+            xc, caches, _ = stack_apply(cfg, params, xc, caches, None)
             last = xc[:, -1:]
         return logits_from_hidden(cfg, params, last), caches
 
@@ -470,12 +512,12 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     is a span named ``lm.decode``."""
     with trace.span("lm.decode"):
         x = embed_tokens(cfg, params, token)
-        x, new_caches, _ = _stack_scan(cfg, params, x, caches, None)
+        x, new_caches, _ = stack_apply(cfg, params, x, caches, None)
         return logits_from_hidden(cfg, params, x), new_caches
 
 
 # ---------------------------------------------------------------------------
-# hybrid_moe: Mamba2 and attention mixers, each followed by a MoE
+# the hybrid_moe decode cache
 # ---------------------------------------------------------------------------
 
 class HybridCache(NamedTuple):
@@ -490,64 +532,3 @@ class HybridCache(NamedTuple):
     length: Length
     ssm: torch.Tensor
     conv: torch.Tensor
-
-
-def _hybrid_moe_layer(cfg: ModelConfig, kind: str, p: dict, mixer: dict,
-                      x: torch.Tensor, cache, positions):
-    """One hybrid_moe block: (x, the mixer's new cache or state, aux)."""
-    r = cfg.residual_multiplier
-    h = apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    if kind == "mamba":
-        h, new = mamba2_apply(mixer, h, cfg, state=cache)
-    else:
-        h, new = attn_apply(
-            mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
-            kv_chunk=cfg.attn_kv_chunk,
-            blocks_threshold=cfg.attn_blocks_threshold,
-            use_pallas=cfg.use_pallas_attention,
-            scale=cfg.attention_multiplier or None, cache=cache,
-            positions=positions)
-    x = batch_sharded(x + h * r)
-    h2, metrics = moe_apply(p["moe"], apply_norm(cfg.norm, p["ln2"], x,
-                                                 cfg.norm_eps),
-                            top_k=cfg.top_k,
-                            capacity_factor=cfg.capacity_factor,
-                            ep_sharding=cfg.moe_ep_sharding)
-    return batch_sharded(x + h2 * r), new, metrics.aux_loss
-
-
-def _hybrid_moe_scan(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                     caches: "HybridCache | None", positions):
-    """:func:`_stack_scan` for the hybrid_moe family: the layers in the
-    order of ``cfg.layer_types``, each mixer from its kind's stack (and
-    its kind's part of the cache, updated in place)."""
-    blocks = unstack(params["blocks"])
-    mixers = {"mamba": unstack(params["mamba"]),
-              "attention": unstack(params["attn"])}
-    seen = {"mamba": 0, "attention": 0}
-    layer = make_remat(cfg)(
-        lambda kind, p, m, h: _hybrid_moe_layer(cfg, kind, p, m, h, None,
-                                                positions))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, kind in enumerate(cfg.layer_types):
-        j = seen[kind]
-        seen[kind] += 1
-        if caches is None:
-            x, _, a = layer(kind, blocks[i], mixers[kind][j], x)
-        elif kind == "mamba":
-            x, st, a = _hybrid_moe_layer(
-                cfg, kind, blocks[i], mixers[kind][j], x,
-                SSMState(layer_at(caches.ssm, j), layer_at(caches.conv, j)),
-                positions)
-            layer_at(caches.ssm, j).copy_(st.ssm)
-            layer_at(caches.conv, j).copy_(st.conv)
-        else:
-            x, _, a = _hybrid_moe_layer(
-                cfg, kind, blocks[i], mixers[kind][j], x,
-                KVCache(layer_at(caches.k, j), layer_at(caches.v, j),
-                        caches.length), positions)
-        aux = aux + a
-    if caches is None:
-        return x, None, aux
-    return x, caches._replace(length=caches.length + x.shape[1]), aux

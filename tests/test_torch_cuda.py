@@ -1374,7 +1374,7 @@ def test_kernel_wrappers_refuse_a_dtensor_on_the_card(dev, nccl_world):
 def test_device_streamed_scan_from_pinned_host_is_bitwise_resident(dev):
     """A widened smoke LM (flash's head dim 64), bf16, its stacked layers
     resting in pinned host memory and copied to the card a layer ahead:
-    the hidden states bitwise the resident ``_stack_scan``'s, through one
+    the hidden states bitwise the resident ``stack_apply``'s, through one
     flash launch a layer."""
     from repro_torch.core.streaming import device_streamed_scan
     from repro_torch.utils.pytree import tree_map
@@ -1389,10 +1389,11 @@ def test_device_streamed_scan_from_pinned_host_is_bitwise_resident(dev):
     positions = torch.arange(256, device=dev)
     with torch.no_grad():
         x0 = lm.embed_tokens(cfg, params, toks)
-        want = lm._stack_scan(cfg, params, x0, None, positions)[0]
+        want = lm.stack_apply(cfg, params, x0, None, positions)[0]
         before = FLASH.launches[SYMBOL[torch.bfloat16]]
         got = device_streamed_scan(
-            lambda p, h: lm.block_apply(cfg, p, h, positions=positions)[0],
+            lambda p, h: lm.layer_apply(cfg, "attention", p, p["attn"], h,
+                                        positions=positions)[0],
             host, x0, gather_fn=lambda p: tree_map(
                 lambda t: t.to(dev, non_blocking=True), p))
         torch.cuda.synchronize()

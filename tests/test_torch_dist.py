@@ -21,7 +21,7 @@
   state's heads on "model";
 - ``core/streaming.py:device_streamed_scan`` against the reference's with
   a stacked MLP and a bf16 -> f32 gather (f32, 1e-5), and against the
-  port's ``_stack_scan`` on the smoke qwen (bitwise).
+  port's ``stack_apply`` on the smoke qwen (bitwise).
 """
 
 import json
@@ -642,12 +642,14 @@ def test_device_streamed_scan_is_bitwise_the_stack_scan():
     positions = torch.arange(16)
     with torch.no_grad():
         x0 = lm.embed_tokens(cfg, params, tokens)
-        want = lm._stack_scan(cfg, params, x0, None, positions)[0]
+        want = lm.stack_apply(cfg, params, x0, None, positions)[0]
         got = device_streamed_scan(
-            lambda p, h: lm.block_apply(cfg, p, h, positions=positions)[0],
+            lambda p, h: lm.layer_apply(cfg, "attention", p, p["attn"], h,
+                                        positions=positions)[0],
             params["blocks"], x0,
             gather_fn=lambda p: tree_map(torch.clone, p))
         plain = device_streamed_scan(
-            lambda p, h: lm.block_apply(cfg, p, h, positions=positions)[0],
+            lambda p, h: lm.layer_apply(cfg, "attention", p, p["attn"], h,
+                                        positions=positions)[0],
             params["blocks"], x0)
     assert torch.equal(got, want) and torch.equal(plain, want)

@@ -15,6 +15,8 @@ import repro.configs.registry as jregistry
 from repro.models.api import build_model as jbuild_model
 from perfbench.lib import spec
 from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.core.runtime import TransferRuntime
+from repro_torch.core.transfer import TransferEngine, TransferPolicy
 from repro_torch.models import lm
 from repro_torch.models.api import build_model
 from repro_torch.models.layers import moe
@@ -128,8 +130,10 @@ def test_prefill_then_decode_through_the_hybrid_cache(smoke):
 
 
 def _serve(model, params, reqs, n_slots):
-    """Serves ``reqs`` through the engine; returns each request's logits
-    rows (its prefill's, then its decodes') by rid."""
+    """Serves ``reqs`` through an engine over a kernel-level transfer
+    engine on a private runtime (whose admission reads no counts another
+    test left); returns each request's logits rows (its prefill's, then
+    its decodes') by rid."""
     rows: dict[int, list] = {}
     order: list[int] = []  # the rids in the order the engine admits them
     eng = None
@@ -146,14 +150,21 @@ def _serve(model, params, reqs, n_slots):
                 rows[q.rid].append(out[0][s, -1])
         return out
 
+    rt = TransferRuntime(workers=2)
+    transfer = TransferEngine(TransferPolicy.kernel_level(), device="cpu",
+                              runtime=rt)
     eng = ContinuousBatchingEngine(
         dataclasses.replace(model, prefill=prefill, decode=decode), params,
-        n_slots=n_slots, max_seq=64)
-    for r in reqs:
-        order.append(r.rid)
-        assert eng.submit(r).admitted
-    done = eng.run_to_completion()
-    eng.close()
+        n_slots=n_slots, max_seq=64, transfer=transfer)
+    try:
+        for r in reqs:
+            order.append(r.rid)
+            assert eng.submit(r).admitted
+        done = eng.run_to_completion()
+    finally:
+        eng.close()
+        transfer.close()
+        rt.close()
     return {q.rid: (q.tokens, torch.stack(rows[q.rid][:len(q.tokens)]))
             for q in done}
 
@@ -195,8 +206,10 @@ def test_two_shared_experts_are_one_mlp_of_twice_the_width():
 
 def test_granite_moe_is_unchanged_by_the_new_fields():
     """granite-moe's smoke logits with the new fields at their defaults:
-    equal to the JAX reference's, and bitwise to the same config with
-    those defaults written out."""
+    equal to the JAX reference's, bitwise to the same config with those
+    defaults written out, and bitwise to the same model run as hybrid_moe
+    layers that are all attention (the attention stacked apart from the
+    blocks): one layer and one loop serve both families."""
     import jax
 
     cfg = smoke_config("granite-moe-1b-a400m").replace(dtype="float32")
@@ -211,13 +224,20 @@ def test_granite_moe_is_unchanged_by_the_new_fields():
     explicit = cfg.replace(layer_types=(), embedding_multiplier=1.0,
                            residual_multiplier=1.0, attention_multiplier=0.0,
                            logits_scaling=1.0, norm_eps=1e-6)
+    hybrid = explicit.replace(family="hybrid_moe",
+                              layer_types=("attention",) * cfg.n_layers)
+    blocks = dict(params["blocks"])
+    split = {**params, "blocks": blocks, "attn": blocks.pop("attn")}
     with torch.no_grad():
         got = build_model(cfg).forward(
             params, {"tokens": torch.from_numpy(tokens)})[0]
         again = build_model(explicit).forward(
             params, {"tokens": torch.from_numpy(tokens)})[0]
+        as_hybrid = build_model(hybrid).forward(
+            split, {"tokens": torch.from_numpy(tokens)})[0]
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     assert torch.equal(got, again)
+    assert torch.equal(got, as_hybrid)
 
 
 def test_the_attention_scale_reaches_the_cached_routes():

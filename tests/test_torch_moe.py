@@ -164,7 +164,7 @@ def test_params_from_jax_carries_the_moe_tree_with_an_f32_router():
 
 
 def test_moe_model_aux_loss_is_the_sum_over_layers():
-    """block_apply returns each layer's router loss and the stack sums it,
+    """layer_apply returns each layer's router loss and the stack sums it,
     as the reference's scan does."""
     jcfg = jregistry.smoke_config("granite-moe-1b-a400m").replace(
         dtype="float32")
