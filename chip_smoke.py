@@ -149,7 +149,16 @@ Phases, in order; any failure exits non-zero before a result is printed:
    qwen2.5-3b in f32, 3 requests over 2 slots, each request's greedy
    tokens against ``ServingEngine`` serving it alone (a differing token
    fails the phase unless the top-2 logit margin there is under
-   ``LM_LOGIT_ATOL``; the line says where and by how much);
+   ``LM_LOGIT_ATOL``; the line says where and by how much); then decode
+   attention (a ``decode_attention`` line): the kernel against its plain
+   version at granite.chat's and granite4h.rag's decode shapes and length
+   mix (flash's bf16 rule), one launch a call, two calls bitwise equal, its
+   ms and device ms beside its bound, the plain version's, the model's
+   route before it and SDPA's over a mask of the live rows; and the
+   decode graph (a ``decode_graph`` line): the engine's replayed decode
+   steps bitwise eager ones of the same inputs (smoke granite-moe and
+   granite-4.0-h with 64-wide heads, 5 requests on 3 slots; granite-moe
+   at full size on 64 slots), with the host ms of each;
 12d. the encoder-decoder path (an ``encdec`` line): seamless-m4t-medium at
    full width (12 + 12 layers), f32 prefill of 31 tokens + one decode
    step against the teacher-forced forward over frames [2, 128, 1024]
@@ -239,6 +248,7 @@ line printed after the build (``nvidia-smi`` name and power limit).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -2115,6 +2125,291 @@ def continuous_paths(np, torch, dev, libs):
     print("continuous " + json.dumps(line))
 
 
+def _decode_lengths(np, b: int, s_max: int, median: float, seed: int):
+    """[B] int64 lengths like a served batch's (lognormal around
+    ``median``), with an empty slot, a full one and an idle slot past
+    S_max."""
+    rng = np.random.default_rng(seed)
+    n = np.clip(np.rint(median * np.exp(0.6 * rng.standard_normal(b))), 0,
+                s_max - 1).astype(np.int64)
+    n[:3] = (0, s_max - 1, s_max + 50)
+    return n
+
+
+def _snapshot(cache):
+    return cache._replace(**{f: getattr(cache, f).clone()
+                             for f in cache._fields})
+
+
+def decode_graph_check(np, torch, dev, model, params, prompts, n_slots: int,
+                       max_seq: int, attn_launches: int,
+                       steps: int | None = None) -> dict:
+    """The engine's decode steps, the first eager and every later one
+    replayed from its decode graph, each against an eager decode of the
+    same token and cache (snapshots taken before the step): fails unless
+    every step's logits, cache tensors and length are bitwise equal.
+    ``prompts`` ((prompt, max_new_tokens) pairs) are admitted as slots
+    free up, so later admissions splice into the graph's cache. Each
+    replay after the capture runs under a CPU profiler session: fails
+    unless it adds exactly ``attn_launches`` (the model's attention
+    layers) to ``attn.decode`` and launches nothing through the decode
+    library's Python entry. Returns the steps compared, the replays so
+    counted and the host ms of the replayed (profiled) and the eager
+    twin's decode calls (each synchronised)."""
+    from repro_torch.core.runtime import TransferRuntime
+    from repro_torch.core.transfer import TransferEngine, TransferPolicy
+    from repro_torch.kernels.decode_attention.kernel import DECODE
+    from repro_torch.models import lm
+    from repro_torch.serve.continuous import ContinuousBatchingEngine, Request
+    from repro_torch.utils import trace
+
+    seen, graph_ms, eager_ms, counted = [], [], [], []
+
+    def decode(ps, token, cache):
+        graphed = isinstance(cache, lm.DecodeGraph)
+        replay = graphed and cache._graph is not None
+        tok0 = token.clone()
+        cache0 = _snapshot(cache.cache if graphed else cache)
+        torch.cuda.synchronize()
+        before = DECODE.launches["decode_attention"]
+        with contextlib.ExitStack() as prof:
+            if replay:
+                prof.enter_context(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]))
+                trace.count("test.session")  # the session's first record
+            t0 = time.perf_counter()
+            logits, new = model.decode(ps, token, cache)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        if replay:
+            got = (trace.counters().get("attn.decode", 0),
+                   DECODE.launches["decode_attention"] - before)
+            if (got != (attn_launches, 0)
+                    or cache.attn_launches != attn_launches):
+                fail(f"{model.cfg.name} replay {len(seen)}: attn.decode "
+                     f"{got[0]}, Python launches {got[1]}, captured "
+                     f"{cache.attn_launches}; expected {attn_launches}, 0, "
+                     f"{attn_launches}")
+            counted.append(got[0])
+        t1 = time.perf_counter()
+        want, want_cache = model.decode(ps, tok0, cache0)
+        torch.cuda.synchronize()
+        if graphed:
+            graph_ms.append(step_ms)
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+        same = [f for f in new._fields
+                if not torch.equal(getattr(new, f), getattr(want_cache, f))]
+        if not torch.equal(logits, want) or same:
+            fail(f"{model.cfg.name} decode step {len(seen)} (graphed "
+                 f"{graphed}): logits equal {torch.equal(logits, want)}, "
+                 f"cache fields that differ {same}")
+        seen.append(graphed)
+        return logits, new
+
+    import dataclasses
+
+    # a private runtime: admission reads no TOKEN deadline misses that
+    # earlier phases left on the shared one
+    rt = TransferRuntime(workers=2)
+    transfer = TransferEngine(TransferPolicy.kernel_level(), device=dev,
+                              runtime=rt)
+    eng = ContinuousBatchingEngine(dataclasses.replace(model, decode=decode),
+                                   params, n_slots=n_slots, max_seq=max_seq,
+                                   transfer=transfer)
+    try:
+        for i, (p, n) in enumerate(prompts):
+            if not eng.submit(Request(rid=i, prompt=p,
+                                      max_new_tokens=n)).admitted:
+                fail(f"decode graph check: request {i} shed")
+        eng.run_to_completion(max_steps=steps or 10_000)
+    finally:
+        eng.close()
+        transfer.close()
+        rt.close()
+    if seen[:1] != [False] or not all(seen[1:]) or len(seen) < 4:
+        fail(f"decode graph check: steps graphed {seen}")
+    if not counted:
+        fail("decode graph check: no replay after the capture was counted")
+    return {"steps": len(seen), "attn_decode_a_replay": attn_launches,
+            "replays_counted": len(counted), "replay_ms": sorted(graph_ms),
+            "eager_ms": sorted(eager_ms)}
+
+
+def decode_phase(np, torch, dev, libs) -> dict:
+    """12c, continued. Decode attention and the decode graph (a
+    ``decode_attention`` line and a ``decode_graph`` line): the kernel against its plain
+    version at granite.chat's and granite4h.rag's decode shapes and
+    length mix (flash's bf16 rule), one launch a call, two calls bitwise
+    equal; its time by CUDA events and by the profiler beside its bound
+    (the live rows' K and V read once), the plain version's, the model's
+    route before it (K / V repeated, K cast to f32, over every row) and
+    SDPA's over a mask of the live rows (the yardstick; the port never
+    calls it); a smoke LM's decode launching it once a layer; then the
+    engine's graph-replayed decode steps bitwise eager ones, each replay
+    adding the model's attention layers to ``attn.decode``, for smoke
+    granite-moe and granite-4.0-h with 64-wide heads and for
+    granite-moe-1b-a400m at full size on 64 slots; and one eager decode
+    step at each serving cell's size, its launches counted from zero (24
+    for granite.chat's, 2 for granite4h.rag's). Returns the kernel table's
+    row, whose ``launches`` is that chat step's."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.kernels.decode_attention.kernel import DECODE
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, live_rows)
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers.attention import attention
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(33)
+    cases = {}
+    for name, b, s_max, h, hkv, dh, median, scale in (
+            ("chat", 64, 2560, 16, 8, 64, 755, None),
+            ("rag", 64, 4608, 32, 8, 128, 2000, 0.0078125)):
+        q = torch.randn((b, 1, h, dh), generator=gen).to(dev, torch.bfloat16)
+        k = torch.randn((b, s_max, hkv, dh), generator=gen).to(
+            dev, torch.bfloat16)
+        v = torch.randn((b, s_max, hkv, dh), generator=gen).to(
+            dev, torch.bfloat16)
+        length = torch.from_numpy(_decode_lengths(np, b, s_max, median,
+                                                  s_max)).to(dev)
+        got = launched(torch, DECODE, "decode_attention", 1,
+                       lambda: decode_attention(q, k, v, length, scale=scale),
+                       f"decode attention {name}")
+        ref = decode_attention_ref(q, k, v, length, scale=scale)
+        ok, err, err_rms = rms_close(torch, got, ref, (2e-2, None), 0.05)
+        if not ok:
+            fail(f"decode attention {name}: kernel vs plain max |d| {err}, "
+                 f"(|d| - 2e-2 |ref|) / RMS {err_rms}")
+        if not torch.equal(got, decode_attention(q, k, v, length,
+                                                 scale=scale)):
+            fail(f"decode attention {name}: two calls differ")
+        sc = scale if scale is not None else dh ** -0.5
+        live = live_rows(length, b, s_max, dev)
+        nbytes = int(live.sum()) * hkv * dh * 2 * 2 + 2 * q.numel() * 2
+        flops = 4 * int(live.sum()) * h * dh
+        b_ms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+        mask = (torch.arange(s_max, device=dev)[None] < live[:, None])[
+            :, None, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def kern():
+            return decode_attention(q, k, v, length, scale=sc)
+
+        def route():
+            return attention(q, k, v, causal=True, q_offset=length,
+                             kv_valid=length + 1, scale=sc)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=sc, enable_gqa=True)
+
+        lib_err = rms_close(torch, sdpa().transpose(1, 2), ref, (2e-2, None),
+                            0.05)
+        cases[name] = {
+            "b": b, "s_max": s_max, "heads": [h, hkv], "dh": dh,
+            "live_rows_mean": float(live.float().mean()),
+            "max_abs_err": err, "err_over_row_rms": err_rms,
+            "ms": time_ms(torch, kern, iters=50),
+            "device_ms": device_ms_per_call(torch, kern),
+            "bound_ms": b_ms, "bound_by": by,
+            "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+                q, k, v, length, scale=sc), iters=5),
+            "route_before_ms": time_ms(torch, route, iters=5),
+            "library_ms": time_ms(torch, sdpa, iters=20),
+            "library_device_ms": device_ms_per_call(torch, sdpa),
+            "library_within_rule": lib_err[0]}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    print("decode_attention " + json.dumps(cases))
+
+    # a smoke LM's decode steps: one launch an attention layer a step
+    graph = {}
+    rng = np.random.default_rng(34)
+    for arch in ("granite-moe-1b-a400m", "granite-4.0-h-small"):
+        cfg = smoke_config(arch).replace(dtype="bfloat16", head_dim=64)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        n_attn = len(cfg.attn_layers) if cfg.layer_types else cfg.n_layers
+        cache = model.init_cache(3, 40, device=dev)._replace(
+            length=torch.tensor([0, 17, 39], device=dev))
+        tok = torch.zeros((3, 1), dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            launched(torch, DECODE, "decode_attention", n_attn,
+                     lambda: model.decode(params, tok, cache),
+                     f"{arch} smoke decode step")
+            prompts = [(rng.integers(0, cfg.vocab, n).astype(np.int32), new)
+                       for n, new in ((9, 5), (4, 7), (13, 4), (6, 6),
+                                      (11, 3))]
+            graph[cfg.name] = decode_graph_check(np, torch, dev, model,
+                                                 params, prompts, 3, 48,
+                                                 n_attn)
+        del params
+    # the serving decode step's own launches, counted from zero: one eager
+    # step of granite-moe-1b-a400m at full size as granite.chat serves it
+    # (64 slots of 2,560 rows, 24 attention layers), and one of
+    # granite-4.0-h-small's widths as granite4h.rag serves them (64 slots
+    # of 4,608 rows, past the blocks threshold) with the cell's 2
+    # attention layers, each after one Mamba2 layer
+    steps = {}
+    for arch, s_max, median, types in (
+            ("granite-moe-1b-a400m", 2560, 755, None),
+            ("granite-4.0-h-small", 4608, 2000, ("mamba", "attention") * 2)):
+        cfg = get_config(arch, dtype="float32")
+        if types is not None:
+            cfg = cfg.replace(n_layers=len(types), layer_types=types)
+        n_attn = len(cfg.attn_layers) if cfg.layer_types else cfg.n_layers
+        params = _cast_weights(build_model(cfg).init(
+            torch.Generator(dev).manual_seed(0), dev), torch.bfloat16)
+        model = build_model(cfg.replace(dtype="bfloat16"))
+        cache = model.init_cache(64, s_max, device=dev)._replace(
+            length=torch.from_numpy(_decode_lengths(np, 64, s_max, median,
+                                                    s_max + 1)).to(dev))
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (64, 1)).astype(
+            np.int32)).to(dev)
+        _zero(libs)
+        with torch.no_grad():
+            launched(torch, DECODE, "decode_attention", n_attn,
+                     lambda: model.decode(params, tok, cache),
+                     f"{arch} decode step, 64 slots of {s_max}")
+        steps[arch] = {"slots": 64, "s_max": s_max, "layers": cfg.n_layers,
+                       "launches": DECODE.launches["decode_attention"]}
+        if arch == "granite-moe-1b-a400m":
+            # the engine's graph-replayed steps on 64 slots of 2,560,
+            # prompts of 64-1,024 tokens
+            prompts = [(rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                        6) for n in rng.integers(64, 1025, 64)]
+            with torch.no_grad():
+                graph[cfg.name] = decode_graph_check(
+                    np, torch, dev, model, params, prompts, 64, s_max,
+                    n_attn, steps=6)
+        del params, cache
+        torch.cuda.empty_cache()
+    graph["full_size_step_launches"] = steps
+    print("decode_graph " + json.dumps(graph))
+    chat = cases["chat"]
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": None,
+        "replaces_note": "no pallas_call: the reference's decode attention "
+                         "is XLA's; the port's plain decode repeated K / V "
+                         "and cast K to f32 over every cache row",
+        "launches": steps["granite-moe-1b-a400m"]["launches"],
+        "max_abs_err_bf16": max(c["max_abs_err"] for c in cases.values()),
+        "ms": chat["ms"], "device_ms": chat["device_ms"],
+        "plain_ms": chat["plain_ms"], "bound_ms": chat["bound_ms"],
+        "bound_by": chat["bound_by"], "library_ms": chat["library_ms"],
+        "library_device_ms": chat["library_device_ms"],
+        "library_note": "SDPA over a boolean mask of the live rows "
+                        "(enable_gqa), the yardstick only",
+        "shape": "granite.chat decode: 64 slots, 16 / 8 heads of 64, "
+                 "S_max 2560", "phase_s": time.perf_counter() - t_phase}
+
+
 def encdec_paths(np, torch, dev, libs):
     """12d. seamless-m4t-medium at full width: f32 prefill(S-1) + one
     decode step against the teacher-forced forward, then bf16 serving with
@@ -3115,7 +3410,9 @@ def main() -> None:
     from repro_torch.kernels.ssd_scan.ops import (
         ssd_intra_chunk, ssd_state_pass)
 
-    libs = (CONV2D, MATMUL, FLASH, SSD)
+    from repro_torch.kernels.decode_attention.kernel import DECODE
+
+    libs = (CONV2D, MATMUL, FLASH, SSD, DECODE)
     t0 = time.perf_counter()
     build_all(list(libs))
     print(f"card: {card}")
@@ -3467,6 +3764,7 @@ def main() -> None:
     # 12b.-12e. the moe, continuous-batching, encoder-decoder and vlm paths
     moe_launches = moe_paths(np, torch, dev, libs, FLASH)
     continuous_paths(np, torch, dev, libs)
+    decode_row = decode_phase(np, torch, dev, libs)
     encdec_paths(np, torch, dev, libs)
     vlm_launches = vlm_paths(np, torch, dev, libs, FLASH)
 
@@ -3756,6 +4054,7 @@ def main() -> None:
         "bound_ms": sp_bound, "bound_by": sp_by, "library_ms": None,
         "library_note": "no single PyTorch call computes the recurrence",
     })
+    kernels.append(decode_row)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,110 @@
+"""Binding of the hand-written CUDA decode-attention kernel
+(``csrc/decode_attention.cu``).
+
+It replaces no TPU kernel: the reference's decode attention is XLA's. One
+C entry, ``decode_attention``, launches the kernel that splits each slot's
+live cache rows into chunks of :data:`CHUNK` and the one that merges them;
+``DECODE.launches`` counts the entry's calls, and while a profiler
+records each call also ticks the tracer's ``attn.decode`` counter. The
+source's header says what bounds it on an H100 and how the design answers
+that. A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
+launches the kernel or raises ``ValueError``."""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import (
+    I, L, P, CudaLibrary, refuse_dtensor, refuse_grad)
+from repro_torch.utils import trace
+
+DECODE = CudaLibrary(
+    "decode_attention",
+    Path(__file__).with_name("csrc") / "decode_attention.cu",
+    {"decode_attention": [P, P, P, P, L, L, P, P, P, L, L, L, L, L, I, I, I,
+                          I, I, ctypes.c_float, P]})
+
+HEAD_DIMS = (64, 128)  # the head dims it is compiled for
+GROUPS = (1, 2, 4, 8)  # query heads a KV head, H / Hkv
+CHUNK = 256  # cache rows a block of the split kernel (kChunk)
+
+
+def fits(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether the kernel is built for these dtypes and widths: bf16 q and
+    cache, a head dim of :data:`HEAD_DIMS`, a group of :data:`GROUPS`."""
+    return (q.dtype == k.dtype == torch.bfloat16
+            and q.shape[-1] == k.shape[-1] and q.shape[-1] in HEAD_DIMS
+            and q.shape[2] % k.shape[2] == 0
+            and q.shape[2] // k.shape[2] in GROUPS)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0]:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: want q [B, "
+                         f"1, H, Dh] and k, v [B, S_max, Hkv, Dh]")
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"needs CUDA tensors on one device, got {q.device}, "
+                         f"{k.device}, {v.device}")
+    if not fits(q, k) or v.dtype != k.dtype:
+        raise ValueError(
+            f"the kernel is built for bf16, head dims {HEAD_DIMS} and "
+            f"groups {GROUPS}: got {q.dtype} / {k.dtype} / {v.dtype}, head "
+            f"dim {q.shape[-1]}, {q.shape[2]} / {k.shape[2]} heads")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # heads and dims contiguous; 16-byte loads need every row start on
+        # 16 bytes
+        if (t.stride(3) != 1 or t.stride(2) != t.shape[3]
+                or t.data_ptr() % 16 or t.stride(0) % 8
+                or (t is not q and t.stride(1) % 8)):
+            raise ValueError(f"{name} {tuple(t.shape)} strides "
+                             f"{t.stride()}: rows of contiguous heads, "
+                             f"starting on 16 bytes")
+
+
+def decode_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          length, *, scale: float | None = None
+                          ) -> torch.Tensor:
+    """q: [B, 1, H, Dh]; k, v: [B, S_max, Hkv, Dh], the cache read where it
+    lies (after this step's row was written); ``length`` the cached tokens
+    before this step, an int (passed to the kernel as an argument, no
+    host-to-device copy), a 0-d tensor or [B] per-slot lengths, at least
+    0: slot b attends its rows j < min(length_b + 1, S_max). Returns [B, 1,
+    H, Dh] in bf16. CUDA tensors only (``ops.decode_attention`` takes the
+    plain version for CPU tensors); no backward."""
+    refuse_dtensor("the decode attention kernel", q, k, v)
+    refuse_grad("the decode attention kernel", q, k, v)
+    _check(q, k, v)
+    b, _, h, dh = q.shape
+    s_max = k.shape[1]
+    len_ptr, len_int, len_stride = None, 0, 0
+    if isinstance(length, torch.Tensor):
+        if length.dim() > 1 or (length.dim() == 1
+                                and length.shape[0] != b):
+            raise ValueError(f"length {tuple(length.shape)}: want an int, "
+                             f"a 0-d or a [{b}] tensor")
+        length = length.to(q.device, torch.int64)  # held through the launch
+        len_ptr = length.data_ptr()
+        len_stride = length.stride(0) if length.dim() else 0
+    else:
+        len_int = int(length)
+    n_chunks = -(-s_max // CHUNK)
+    part_acc = torch.empty((b, n_chunks, h, dh), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, n_chunks, h, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
+    scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
+    DECODE.launch("decode_attention", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), len_ptr, len_int, len_stride,
+                  part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+                  q.stride(0), k.stride(0), k.stride(1), v.stride(0),
+                  v.stride(1), b, h, k.shape[2], s_max, dh, scale,
+                  device=q.device)
+    trace.count("attn.decode")
+    return out

@@ -15,7 +15,11 @@ product, in every path.
 
 The KV cache is updated IN PLACE (``_cache_write``): the reference donates
 its cache and gets an updated copy back; here the returned cache holds the
-same tensors as the one passed in. A cache ``length`` is a Python int when
+same tensors as the one passed in. One new token a slot against the cache,
+on the card, takes the hand-written decode kernel
+(``repro_torch.kernels.decode_attention``) where :func:`_decode_route`
+says so: it reads each slot's live rows where they lie, with no repeat of
+K / V and no f32 copy. A cache ``length`` is a Python int when
 every slot holds the same number of tokens (the host knows it, so slicing
 at it needs no device sync), a 0-d tensor, or a [B] int tensor of per-slot
 lengths (continuous batching)."""
@@ -29,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import contract_on_data, is_dtensor
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.models.layers.rope import apply_rope
 from repro_torch.utils import trace
 
@@ -353,6 +359,20 @@ def _positions(offset: Length, s: int, device) -> torch.Tensor:
     return steps[None] + offset.to(device).reshape(-1, 1)
 
 
+def _decode_route(q: torch.Tensor, ck: torch.Tensor, *, window: int,
+                  kv_heads: torch.Tensor | None) -> bool:
+    """Whether self-attention against the cache ``ck`` (after this call's
+    write) takes the decode kernel: one query token a slot, plain CUDA
+    tensors, no window, the q heads grouped over the cache's as
+    :func:`repeat_kv` groups them (no ``kv_heads``), and dtypes and widths
+    the kernel is built for (``decode_attention.kernel.fits``). Every
+    other call keeps the plain routes."""
+    return (q.shape[1] == 1 and window == 0 and kv_heads is None
+            and q.device.type == "cuda"
+            and not (is_dtensor(q) or is_dtensor(ck))
+            and decode_kernel.fits(q, ck))
+
+
 def _attend(q, k, v, *, rope_theta: float, window: int, kv_chunk: int,
             blocks_threshold: int, use_pallas: bool, cache: KVCache | None,
             positions, cross: bool, causal: bool,
@@ -389,6 +409,9 @@ def _attend(q, k, v, *, rope_theta: float, window: int, kv_chunk: int,
         ck = _cache_write(cache.k, k, cache.length)
         cv = _cache_write(cache.v, v, cache.length)
         new_cache = KVCache(ck, cv, cache.length + s)
+        if _decode_route(q, ck, window=window, kv_heads=kv_heads):
+            return decode_attention(q, ck, cv, cache.length,
+                                    scale=scale), new_cache
         k, v = ck, cv
         kv_off: Length = 0
         if window > 0 and ck.shape[1] > 2 * window and _is_scalar(cache.length):

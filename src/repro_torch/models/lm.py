@@ -48,6 +48,7 @@ from torch.utils.checkpoint import (
 from repro_torch.device import default_device
 from repro_torch.dist.sharding import (
     batch_sharded, contract_on_data, is_dtensor, layer_at)
+from repro_torch.kernels.decode_attention.kernel import DECODE
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (
     KVCache, Length, attn_apply, attn_params)
@@ -506,14 +507,80 @@ def prefill_chunked(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
-                caches: "KVCache | SSMState"):
+                caches: "KVCache | SSMState | HybridCache | DecodeGraph"):
     """One decode step. token: [B, 1]; caches from prefill/init_cache
-    (updated in place and returned). While a profiler records, the call
-    is a span named ``lm.decode``."""
+    (updated in place and returned), or a :class:`DecodeGraph` over such a
+    cache, whose captured step is replayed. While a profiler records, the
+    call is a span named ``lm.decode``."""
     with trace.span("lm.decode"):
-        x = embed_tokens(cfg, params, token)
-        x, new_caches, _ = stack_apply(cfg, params, x, caches, None)
-        return logits_from_hidden(cfg, params, x), new_caches
+        if isinstance(caches, DecodeGraph):
+            return caches.replay(cfg, params, token)
+        return _decode(cfg, params, token, caches)
+
+
+def _decode(cfg: ModelConfig, params: dict, token: torch.Tensor, caches):
+    x = embed_tokens(cfg, params, token)
+    x, new_caches, _ = stack_apply(cfg, params, x, caches, None)
+    return logits_from_hidden(cfg, params, x), new_caches
+
+
+class DecodeGraph:
+    """A decode step captured once as a CUDA graph over one cache, and
+    replayed: :func:`decode_step` takes it in the cache's place.
+
+    ``cache`` is a stacked ``KVCache`` or :class:`HybridCache` on the card
+    with a [B] length tensor, whose tensors stay the graph's inputs and
+    outputs: each replay writes the step's K/V (and Mamba2 state) into them
+    in place, as the eager step does, and copies the advanced length back
+    into the same length tensor, where the eager step returns a new one.
+    The step is captured at the first :meth:`replay` (after at least one
+    eager step has run its kernels at these shapes) with that call's params
+    and token tensor; every replay takes those same tensors, so the caller
+    writes its next tokens into that token tensor and admits requests by
+    writing into the cache's tensors in place. Each replay returns a copy
+    of the captured logits, which the next replay overwrites, and the
+    cache. Nothing in the step may wait for the host; capture errors on an
+    unsafe call from this thread only (other threads may be moving
+    transfers meanwhile). While a profiler records, each replay adds the
+    captured step's decode-attention launches to the ``attn.decode``
+    counter (the spans inside the step do not fire: the host never runs
+    them)."""
+
+    def __init__(self, cache: "KVCache | HybridCache"):
+        if not (isinstance(cache.length, torch.Tensor)
+                and cache.length.dim() == 1
+                and cache.k.device.type == "cuda"):
+            raise ValueError("a decode graph takes a cache on the card with "
+                             "a [B] length tensor")
+        self.cache = cache
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._params: dict | None = None
+        self._token: torch.Tensor | None = None
+        self._logits: torch.Tensor | None = None
+        self.attn_launches = 0  # decode-attention launches a replay
+
+    def replay(self, cfg: ModelConfig, params: dict, token: torch.Tensor):
+        """(a copy of the step's logits, the cache): the step replayed over
+        ``token`` [B, 1], captured first where it has not been."""
+        if self._graph is None:
+            self._capture(cfg, params, token)
+        elif params is not self._params or token is not self._token:
+            raise ValueError("a decode graph replays the params and token "
+                             "tensor it was captured with")
+        self._graph.replay()
+        trace.count("attn.decode", self.attn_launches)
+        return self._logits.clone(), self.cache
+
+    def _capture(self, cfg: ModelConfig, params: dict,
+                 token: torch.Tensor) -> None:
+        before = DECODE.launches["decode_attention"]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            logits, new = _decode(cfg, params, token, self.cache)
+            self.cache.length.copy_(new.length)
+        self.attn_launches = DECODE.launches["decode_attention"] - before
+        self._graph, self._logits = graph, logits
+        self._params, self._token = params, token
 
 
 # ---------------------------------------------------------------------------

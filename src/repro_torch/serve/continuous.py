@@ -16,7 +16,7 @@ overlaps the host's slot bookkeeping), with per-transfer stats in
 
 Serves the KV-cache families (dense / moe / vlm) and hybrid_moe, whose
 cache holds its attention layers' K/V beside its Mamba2 layers' state
-(``models.lm.HybridCache``). The port runs the model eagerly under
+(``models.lm.HybridCache``). The port runs the model under
 ``torch.no_grad()`` (no ``jit``) and differs from the reference in two
 ways:
 
@@ -28,6 +28,13 @@ ways:
   reference guesses the axis from the shapes (the reference has no
   hybrid_moe family).
 
+On the card, after one eager decode step, the step is captured once as a
+CUDA graph (``models.lm.DecodeGraph``) and replayed every step after:
+``model.decode`` is handed the graph in the cache's place. Its inputs stay
+the same tensors: the token buffer takes each step's tokens in place, and
+``_splice_slot`` writes admitted requests into the cache's tensors in
+place. A CPU engine stays eager.
+
 Every slot decodes every step, idle ones too, as in the reference: an idle
 slot's length keeps growing, and its writes past ``max_seq`` are dropped
 (``_cache_write``). Skipping idle slots would change the other requests'
@@ -38,7 +45,8 @@ While a ``torch.profiler`` records, a step is a ``serve.step`` span
 holding ``serve.admit`` (``serve.admit.tx``, then for each admitted
 request ``serve.prefill``, ``serve.first_token`` and ``serve.splice``
 with its ``rid``), ``serve.decode``, ``serve.token_rx`` (the RX
-submission until the last ticket returns) and ``serve.retire``; each
+submission until the last ticket returns) and ``serve.retire``; a decode
+replayed from the graph ticks the ``serve.graph_replay`` counter; each
 request marks ``serve.queue`` (submit to its slot) and ``serve.request``
 (submit to done). See :mod:`repro_torch.utils.trace`.
 """
@@ -69,7 +77,7 @@ from repro_torch.core.transfer import (
 )
 from repro_torch.models.api import Model
 from repro_torch.models.layers.attention import KVCache
-from repro_torch.models.lm import HybridCache
+from repro_torch.models.lm import DecodeGraph, HybridCache
 from repro_torch.serve.engine import transfer_fault_summary
 from repro_torch.utils import trace
 
@@ -172,8 +180,10 @@ class ContinuousBatchingEngine:
         # per-slot lengths: one [B] tensor for every layer
         self.cache = cache._replace(length=torch.zeros(
             n_slots, dtype=torch.int64, device=self.device))
+        # the decode step's token input, written in place each step
         self.tokens = torch.zeros((n_slots, 1), dtype=torch.int32,
                                   device=self.device)
+        self._graph: DecodeGraph | None = None  # the captured decode step
         self.lengths = np.zeros(n_slots, np.int64)
         # decoded-token landing zone: every step's RX writes this buffer in
         # place (out=), so steady-state decode allocates nothing per step
@@ -267,10 +277,18 @@ class ContinuousBatchingEngine:
         if not active:
             return 0
         with trace.span("serve.decode"):
-            logits, self.cache = self.model.decode(self.params, self.tokens,
-                                                   self.cache)
+            if self._graph is not None:
+                trace.count("serve.graph_replay")
+            logits, self.cache = self.model.decode(
+                self.params, self.tokens,
+                self.cache if self._graph is None else self._graph)
             tok_dev = logits[:, -1, : self.model.cfg.vocab].argmax(-1).to(
                 torch.int32)
+            self.tokens.copy_(tok_dev[:, None])  # the next step's input
+        if self._graph is None and self.device.type == "cuda":
+            # this step ran every kernel of the step eagerly: the next one
+            # is captured
+            self._graph = DecodeGraph(self.cache)
         # the next step's input stays on the device; only the bookkeeping
         # copy crosses back to the host, as a measured RX. Under INTERRUPT
         # it rides a runtime worker at TOKEN priority; with more than one
@@ -291,8 +309,8 @@ class ContinuousBatchingEngine:
         return len(active)
 
     def _token_rx(self, active: list[int], tok_dev: torch.Tensor):
-        """The step's tokens on the host; ``self.tokens`` becomes the next
-        step's input, which stays on the device."""
+        """The step's tokens on the host (the next step's input stays on
+        the device, in ``self.tokens``)."""
         interrupt = (
             self.transfer.policy.management is Management.INTERRUPT)
         if (interrupt and len(active) > 1
@@ -301,7 +319,6 @@ class ContinuousBatchingEngine:
                 [tok_dev[s:s + 1] for s in active],
                 out=[self._tok_host[s:s + 1] for s in active],
                 qos=self._tok_qos)
-            self.tokens = tok_dev[:, None]
             for t in tickets:
                 t.wait(self.rx_timeout_s)
             # per-slot landings wrote _tok_host in place (inactive slots
@@ -311,7 +328,6 @@ class ContinuousBatchingEngine:
         ticket = (self.transfer.rx_async([tok_dev], out=out,
                                          qos=self._tok_qos)
                   if interrupt else None)
-        self.tokens = tok_dev[:, None]
         return (ticket.wait(self.rx_timeout_s)[0] if ticket
                 else self.transfer.rx([tok_dev], out=out,
                                       qos=self._tok_qos)[0])

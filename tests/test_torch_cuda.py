@@ -10,6 +10,7 @@ jax nor the reference package, so it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -31,6 +32,7 @@ from repro_torch.core.faults import (
     FaultSpec,
     RecoveryConfig,
 )
+from repro_torch.core.runtime import TransferRuntime
 from repro_torch.core.transfer import (
     Buffering,
     Management,
@@ -60,6 +62,9 @@ from repro_torch.kernels.streamed_matmul.kernel import (
     unique_one_block,
     unique_plan,
 )
+from repro_torch.kernels.decode_attention.kernel import DECODE
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.kernel import FLASH, SYMBOL
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
@@ -1022,6 +1027,24 @@ def test_moe_smoke_on_card_matches_cpu(dev, arch):
                                    atol=1e-6)
 
 
+@contextlib.contextmanager
+def _private_engine(model, params, **kw):
+    """A continuous-batching engine on the params' device over a
+    kernel-level transfer engine on a private runtime, whose admission
+    reads no TOKEN deadline misses that earlier tests left on the shared
+    runtime (F14); closes all three."""
+    rt = TransferRuntime(workers=2)
+    transfer = TransferEngine(TransferPolicy.kernel_level(),
+                              device=params["embed"].device, runtime=rt)
+    eng = ContinuousBatchingEngine(model, params, transfer=transfer, **kw)
+    try:
+        yield eng
+    finally:
+        eng.close()
+        transfer.close()
+        rt.close()
+
+
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-moe-1b-a400m"])
 def test_continuous_engine_on_card_matches_cpu(dev, arch):
     """The smoke model's engine on the card gives the CPU engine's tokens,
@@ -1034,20 +1057,161 @@ def test_continuous_engine_on_card_matches_cpu(dev, arch):
             for n, new in ((14, 2), (4, 14), (9, 3))]
     got = {}
     for where in ("cpu", dev):
-        eng = ContinuousBatchingEngine(model, _tree_to(params, where),
-                                       n_slots=2, max_seq=20)
-        try:
+        with _private_engine(model, _tree_to(params, where), n_slots=2,
+                             max_seq=20) as eng:
             assert eng.transfer.device.type == torch.device(where).type
             for i, (p, new) in enumerate(reqs):
-                eng.submit(Request(rid=i, prompt=p, max_new_tokens=new))
+                assert eng.submit(Request(rid=i, prompt=p,
+                                          max_new_tokens=new)).admitted
             done = eng.run_to_completion()
             got[str(where)] = ([(r.rid, r.tokens) for r in done],
                                eng.cache.length.cpu().tolist())
-        finally:
-            eng.close()
     (cpu_toks, cpu_len), (card_toks, card_len) = got.values()
     assert card_toks == cpu_toks and card_len == cpu_len
     assert max(card_len) > 20
+
+
+# ---- decode attention and the decode graph ----------------------------------
+
+def _decode_lengths(b, s_max, median, seed):
+    """[B] lengths like a served batch's: lognormal around ``median``, with
+    an empty slot, a full one (S_max - 1 cached) and an idle slot past
+    S_max."""
+    rng = np.random.default_rng(seed)
+    n = np.clip(np.rint(median * np.exp(0.6 * rng.standard_normal(b))), 0,
+                s_max - 1).astype(np.int64)
+    n[:3] = (0, s_max - 1, s_max + 50)
+    return torch.from_numpy(n)
+
+
+# granite.chat's decode (64 slots, 16 / 8 heads of 64, S_max 2,560, ~755
+# live rows) and granite4h.rag's (32 / 8 heads of 128, S_max 4,608, ~2,000
+# live rows); a group of 1 and of 8 at D 128; an int and a 0-d length; the
+# cache as a layer of a stacked [L, B, S, Hkv, Dh] tensor
+@pytest.mark.parametrize("b,s_max,h,hkv,dh,median,length,scale", [
+    (64, 2560, 16, 8, 64, 755, "slots", None),
+    (64, 4608, 32, 8, 128, 2000, "slots", 0.0078125),
+    (8, 1000, 8, 8, 128, 300, "slots", None),
+    (4, 700, 16, 2, 128, 500, "int", None),
+    (3, 300, 4, 2, 64, 0, "0-d", 0.3),
+])
+def test_decode_attention_kernel_matches_plain(dev, b, s_max, h, hkv, dh,
+                                               median, length, scale):
+    """Within flash's bf16 rule (2e-2 |ref| + 0.05 RMS of the plain output
+    row: the kernel rounds each p to bf16 against a running maximum, the
+    plain version against the row's, and sums in another order), one
+    launch a call, two calls bitwise equal."""
+    g = torch.Generator().manual_seed(s_max + dh)
+    q = torch.randn((b, 1, h, dh), generator=g).to(dev, torch.bfloat16)
+    kv = torch.randn((2, 2, b, s_max, hkv, dh), generator=g).to(
+        dev, torch.bfloat16)
+    k, v = kv[0, 1], kv[1, 1]  # layer 1 of a stacked cache
+    n = {"slots": _decode_lengths(b, s_max, median, s_max).to(dev),
+         "int": s_max // 3, "0-d": torch.tensor(s_max + 9, device=dev)}[
+        length]
+    before = DECODE.launches["decode_attention"]
+    got = decode_attention(q, k, v, n, scale=scale)
+    assert DECODE.launches["decode_attention"] - before == 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    ref = decode_attention_ref(q, k, v, n, scale=scale).float()
+    atol = 0.05 * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = (got.float() - ref).abs()
+    assert torch.isfinite(got).all()
+    assert bool((diff <= atol + 2e-2 * ref.abs()).all()), float(diff.max())
+    assert torch.equal(got, decode_attention(q, k, v, n, scale=scale))
+
+
+def _decode_lm(arch):
+    """A smoke LM in bf16 whose attention heads are 64 wide (a head dim
+    the decode kernel is built for; the smoke configs' is 16)."""
+    cfg = smoke_config(arch).replace(dtype="bfloat16", head_dim=64)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    return cfg, model, params
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "granite-4.0-h-small"])
+def test_decode_steps_take_the_kernel_on_card(dev, arch):
+    """Decode steps through the model on the card launch the kernel once
+    an attention layer a step, and give the CPU's logits within flash's
+    bf16 rule (the CPU takes the plain route)."""
+    cfg, model, params = _decode_lm(arch)
+    n_attn = len(cfg.attn_layers) if cfg.layer_types else cfg.n_layers
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 1)).astype(np.int32))
+    out = {}
+    for where in ("cpu", dev):
+        ps = _tree_to(params, where)
+        cache = model.init_cache(3, 40, device=where)
+        cache = cache._replace(length=torch.tensor([0, 17, 39],
+                                                   device=where))
+        rows, before = [], DECODE.launches["decode_attention"]
+        for _ in range(3):
+            logits, cache = model.decode(ps, toks.to(where), cache)
+            rows.append(logits.float().cpu())
+        out[str(where)] = torch.stack(rows)
+        if where != "cpu":
+            assert DECODE.launches["decode_attention"] - before == 3 * n_attn
+    want, got = out["cpu"], out[str(dev)]
+    atol = 0.05 * want.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = (got - want).abs()
+    assert bool((diff <= atol + 2e-2 * want.abs()).all()), float(diff.max())
+
+
+def _snapshot(cache):
+    return cache._replace(**{f: getattr(cache, f).clone()
+                             for f in cache._fields})
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "granite-4.0-h-small"])
+def test_graph_replayed_decode_is_bitwise_eager(dev, arch):
+    """The engine's decode steps on the card, replayed from the graph it
+    captures after its first step: each step's logits, cache tensors and
+    length bitwise those of an eager decode of the same inputs, over
+    every step of 5 requests on 3 slots (admissions splice into the
+    graph's cache after the capture); a replay ticks
+    ``serve.graph_replay`` once and ``attn.decode`` once an attention
+    layer (the profiled step's eager twin ticks it as often again)."""
+    cfg, model, params = _decode_lm(arch)
+    n_attn = len(cfg.attn_layers) if cfg.layer_types else cfg.n_layers
+    seen = []  # (graphed, logits equal, cache equal)
+
+    def decode(ps, token, cache):
+        graphed = isinstance(cache, lm.DecodeGraph)
+        static = cache.cache if graphed else cache
+        tok0, cache0 = token.clone(), _snapshot(static)
+        logits, new = model.decode(ps, token, cache)
+        want, want_cache = model.decode(ps, tok0, cache0)
+        seen.append((graphed, torch.equal(logits, want), all(
+            torch.equal(getattr(new, f), getattr(want_cache, f))
+            for f in new._fields)))
+        return logits, new
+
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+        np.int32), max_new_tokens=new) for i, (n, new) in enumerate(
+            [(9, 5), (4, 7), (13, 4), (6, 6), (11, 3)])]
+    with _private_engine(dataclasses.replace(model, decode=decode),
+                         _tree_to(params, dev), n_slots=3,
+                         max_seq=48) as eng:
+        for r in reqs:
+            assert eng.submit(r).admitted
+        eng.step()
+        assert isinstance(eng._graph, lm.DecodeGraph)
+        eng.step()  # the capture
+        trace.enabled()  # seen off: the profiled step's records start afresh
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            eng.step()
+            counts = trace.counters()
+        done = eng.run_to_completion()
+    assert sorted(r.rid for r in done) == list(range(5))
+    assert counts.get("serve.graph_replay") == 1
+    assert counts.get("attn.decode") == 2 * n_attn
+    assert [g for g, _, _ in seen] == [False] + [True] * (len(seen) - 1)
+    assert len(seen) >= 8 and all(lg and c for _, lg, c in seen), seen
 
 
 # ---- training (F8: gradients through the kernels) ---------------------------

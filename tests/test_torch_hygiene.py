@@ -39,6 +39,10 @@ SLICE_MODULES = [
     "repro_torch.kernels.flash_attention.ref",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.decode_attention",
+    "repro_torch.kernels.decode_attention.ref",
+    "repro_torch.kernels.decode_attention.kernel",
+    "repro_torch.kernels.decode_attention.ops",
     "repro_torch.models.layers.attention", "repro_torch.models.lm",
     "repro_torch.models.api", "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.launch.serve", "repro_torch.kernels.ssd_scan",
