@@ -158,7 +158,19 @@ Phases, in order; any failure exits non-zero before a result is printed:
    decode graph (a ``decode_graph`` line): the engine's replayed decode
    steps bitwise eager ones of the same inputs (smoke granite-moe and
    granite-4.0-h with 64-wide heads, 5 requests on 3 slots; granite-moe
-   at full size on 64 slots), with the host ms of each;
+   at full size on 64 slots), with the host ms of each; and latent
+   decode attention (an ``mla_decode`` line): the kernel against its
+   plain version at dsv2lite.longdoc's decode shape and length mix (the
+   same rule), one launch a call, two calls bitwise equal, its ms and
+   device ms beside its bound, the plain version's and SDPA's over a mask
+   of the live rows; one eager DeepSeek-V2-Lite decode step at every
+   published width on 32 slots of 18,432 launching it 27 times and no
+   other kernel of the port's; and MLA's prefill attention (a
+   ``flash_dkv`` line): the flash kernel's two-width entry (q and K of
+   192, V of 128) at dsv2lite.longdoc's second prefill chunk (4,096
+   queries after 4,096 keys) against its plain version (the same rule),
+   one launch a call, two calls bitwise equal, its ms and device ms beside
+   its bound, the plain version's and SDPA's with the same causal mask;
 12d. the encoder-decoder path (an ``encdec`` line): seamless-m4t-medium at
    full width (12 + 12 layers), f32 prefill of 31 tokens + one decode
    step against the teacher-forced forward over frames [2, 128, 1024]
@@ -2184,11 +2196,11 @@ def decode_graph_check(np, torch, dev, model, params, prompts, n_slots: int,
         if replay:
             got = (trace.counters().get("attn.decode", 0),
                    DECODE.launches["decode_attention"] - before)
-            if (got != (attn_launches, 0)
-                    or cache.attn_launches != attn_launches):
+            captured = cache.counts.get("attn.decode", 0)
+            if got != (attn_launches, 0) or captured != attn_launches:
                 fail(f"{model.cfg.name} replay {len(seen)}: attn.decode "
                      f"{got[0]}, Python launches {got[1]}, captured "
-                     f"{cache.attn_launches}; expected {attn_launches}, 0, "
+                     f"{captured}; expected {attn_launches}, 0, "
                      f"{attn_launches}")
             counted.append(got[0])
         t1 = time.perf_counter()
@@ -2408,6 +2420,227 @@ def decode_phase(np, torch, dev, libs) -> dict:
                         "(enable_gqa), the yardstick only",
         "shape": "granite.chat decode: 64 slots, 16 / 8 heads of 64, "
                  "S_max 2560", "phase_s": time.perf_counter() - t_phase}
+
+
+MLA_SLOTS, MLA_S_MAX, MLA_LIVE = 32, 18432, 9500  # dsv2lite.longdoc's decode
+
+
+def mla_phase(np, torch, dev, libs) -> dict:
+    """12c, continued. Latent decode attention (an ``mla_decode`` line):
+    the kernel against its plain version at dsv2lite.longdoc's decode
+    shape and length mix (32 slots of 18,432 rows, ~9,500 live, with an
+    empty, a full and an idle slot past S_max; flash's bf16 rule), one
+    launch a call, two calls bitwise equal; its time by CUDA events and by
+    the profiler beside its bound (``perfbench/counts/mla_lm.py``: the
+    live rows read once, the products at the tensor cores' peak), the
+    plain version's, and SDPA's over a mask of the live rows (the
+    yardstick; the port never calls it): the 16 heads as 16 queries of
+    one head against the rows, values their first 512, the same function;
+    then one eager decode step of DeepSeek-V2-Lite at every published
+    width on those 32 slots, every library's launches counted from zero
+    (27 of ``mla_decode``, one a layer, and nothing else). Returns the
+    kernel table's row, whose ``launches`` is that step's."""
+    import torch.nn.functional as F
+
+    from perfbench.counts.mla_lm import latent_decode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attention.kernel import (
+        MLA, mla_decode_bsd)
+    from repro_torch.kernels.decode_attention.ref import (
+        live_rows, mla_decode_ref)
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers.mla import mla_scale
+
+    t_phase = time.perf_counter()
+    cfg = get_config("deepseek-v2-lite")
+    b, s_max, h = MLA_SLOTS, MLA_S_MAX, cfg.n_heads
+    r = cfg.kv_lora_rank
+    width = r + cfg.qk_rope_head_dim
+    sc = mla_scale(cfg)
+    gen = torch.Generator(dev).manual_seed(34)
+    q = torch.randn((b, h, width), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    rows = torch.randn((b, s_max, width), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    length = torch.from_numpy(_decode_lengths(np, b, s_max, MLA_LIVE,
+                                              s_max)).to(dev)
+
+    def kern():
+        return mla_decode_bsd(q, rows, length, scale=sc)
+
+    got = launched(torch, MLA, "mla_decode", 1, kern,
+                   "latent decode attention")
+    ref = mla_decode_ref(q, rows, length, scale=sc, value_dim=r)
+    ok, err, err_rms = rms_close(torch, got, ref, (2e-2, None), 0.05)
+    if not ok:
+        fail(f"latent decode attention: kernel vs plain max |d| {err}, "
+             f"(|d| - 2e-2 |ref|) / RMS {err_rms}")
+    if not torch.equal(got, kern()):
+        fail("latent decode attention: two calls differ")
+    live = live_rows(length, b, s_max, dev)
+    counted = json.loads((ROOT / "perfbench" / "configs"
+                          / "deepseek-v2-lite.json").read_text())
+    flops, nbytes = latent_decode(counted, int(live.sum()), 1, b)
+    b_ms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    mask = (torch.arange(s_max, device=dev)[None] < live[:, None])[
+        :, None, None]
+    qs, ks, vs = q[:, None], rows[:, None], rows[:, None, :, :r]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              scale=sc)
+
+    lib_ok = rms_close(torch, sdpa()[:, 0], ref, (2e-2, None), 0.05)[0]
+    kernel = {
+        "b": b, "s_max": s_max, "heads": h, "row": width, "value": r,
+        "live_rows_mean": float(live.float().mean()),
+        "max_abs_err": err, "err_over_row_rms": err_rms,
+        "ms": time_ms(torch, kern, iters=50),
+        "device_ms": device_ms_per_call(torch, kern),
+        "bound_ms": b_ms, "bound_by": by,
+        "plain_ms": time_ms(torch, lambda: mla_decode_ref(
+            q, rows, length, scale=sc, value_dim=r), iters=5),
+        "library_ms": time_ms(torch, sdpa, iters=20),
+        "library_device_ms": device_ms_per_call(torch, sdpa),
+        "library_within_rule": lib_ok}
+    del q, rows, got, ref, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    # the serving decode step's own launches, counted from zero
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    cache = model.init_cache(b, s_max, device=dev)._replace(length=length)
+    tok = torch.from_numpy(np.random.default_rng(35).integers(
+        0, cfg.vocab, (b, 1)).astype(np.int32)).to(dev)
+    _zero(libs)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        launched(torch, MLA, "mla_decode", cfg.n_layers,
+                 lambda: model.decode(params, tok, cache),
+                 f"{cfg.name} decode step, {b} slots of {s_max}")
+        step_ms = (time.perf_counter() - t0) * 1e3
+    step = {lib.name: dict(lib.launches) for lib in libs}
+    if any(n for lib in libs if lib is not MLA
+           for n in lib.launches.values()):
+        fail(f"{cfg.name} decode step launched {step}; expected "
+             f"{cfg.n_layers} x mla_decode and nothing else")
+    kernel["full_size_step"] = {"layers": cfg.n_layers, "launches": step,
+                                "eager_ms": step_ms}
+    del params, cache
+    torch.cuda.empty_cache()
+    print("mla_decode " + json.dumps(kernel))
+    return {
+        "name": "mla_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "mla_decode.cu",
+        "replaces": None,
+        "replaces_note": "no pallas_call: the reference has no latent "
+                         "attention",
+        "launches": MLA.launches["mla_decode"],
+        "max_abs_err_bf16": err,
+        "ms": kernel["ms"], "device_ms": kernel["device_ms"],
+        "plain_ms": kernel["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+        "library_ms": kernel["library_ms"],
+        "library_device_ms": kernel["library_device_ms"],
+        "library_note": "SDPA over a boolean mask of the live rows, the 16 "
+                        "heads as queries of one head, the yardstick only",
+        "shape": "dsv2lite.longdoc decode: 32 slots, 16 heads of 576, "
+                 "values 512, S_max 18432",
+        "phase_s": time.perf_counter() - t_phase}
+
+
+DKV_Q, DKV_KV = 4096, 8192  # dsv2lite.longdoc's second prefill chunk
+
+
+def flash_dkv_phase(np, torch, dev, libs) -> dict:
+    """12c, continued. MLA's decompressed prefill attention (a
+    ``flash_dkv`` line): the flash kernel's two-width entry
+    (``flash_attention_fwd_tc_dkv``) at a DeepSeek-V2-Lite prefill chunk
+    of dsv2lite.longdoc (4,096 queries after 4,096 cached keys, 16 heads,
+    q and K of 192, V of 128 read from a view into [k_nope | v]) against
+    its plain version (f32 scores; flash's bf16 rule), one launch a call,
+    two calls bitwise equal; its time by CUDA events and by the profiler
+    beside its bound (the visible (q, k) pairs' products at the tensor
+    cores' peak, q, K, V and o read or written once), the plain
+    version's, and SDPA's with the same lower-right causal mask (the
+    yardstick; the port never calls it). Returns the kernel table's
+    row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import FLASH
+    from repro_torch.kernels.flash_attention.ops import flash_attention_dkv
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    t_phase = time.perf_counter()
+    h, dk, dv, sq, skv = 16, 192, 128, DKV_Q, DKV_KV
+    off = skv - sq
+    gen = torch.Generator(dev).manual_seed(35)
+    q = torch.randn((1, sq, h, dk), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((1, skv, h, dk), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn((1, skv, h, 2 * dv), generator=gen, device=dev,
+                    dtype=torch.bfloat16)[..., dv:]
+
+    def kern():
+        return flash_attention_dkv(q, k, v, q_offset=off)
+
+    def plain():
+        return attention_ref(q[0].transpose(0, 1), k[0].transpose(0, 1),
+                             v[0].transpose(0, 1), q_offset=off)
+
+    got = launched(torch, FLASH, "flash_attention_fwd_tc_dkv", 1, kern,
+                   "two-width flash attention")
+    ref = plain().transpose(0, 1)[None]
+    ok, err, err_rms = rms_close(torch, got, ref, (2e-2, None), 0.05)
+    if not ok:
+        fail(f"two-width flash attention: kernel vs plain max |d| {err}, "
+             f"(|d| - 2e-2 |ref|) / RMS {err_rms}")
+    if not torch.equal(got, kern()):
+        fail("two-width flash attention: two calls differ")
+    pairs = sq * off + sq * (sq + 1) // 2  # (query, key) pairs it sees
+    flops = 2 * h * pairs * (dk + dv)
+    nbytes = 2 * h * (sq * dk + skv * dk + skv * dv + sq * dv)
+    b_ms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (torch.arange(skv, device=dev)[None]
+            <= torch.arange(sq, device=dev)[:, None] + off)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+    lib_ok = rms_close(torch, sdpa().transpose(1, 2), ref, (2e-2, None),
+                       0.05)[0]
+    row = {
+        "sq": sq, "skv": skv, "heads": h, "dk": dk, "dv": dv,
+        "max_abs_err": err, "err_over_row_rms": err_rms,
+        "ms": time_ms(torch, kern, iters=20),
+        "device_ms": device_ms_per_call(torch, kern, n=10),
+        "bound_ms": b_ms, "bound_by": by,
+        "plain_ms": time_ms(torch, plain, iters=2),
+        "library_ms": time_ms(torch, sdpa, iters=10),
+        "library_within_rule": lib_ok}
+    del q, k, v, got, ref, qs, ks, vs
+    torch.cuda.empty_cache()
+    print("flash_dkv " + json.dumps(row))
+    return {
+        "name": "flash_dkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": None,
+        "replaces_note": "no pallas_call: the reference has no latent "
+                         "attention; the tensor-core flash kernel at two "
+                         "head widths",
+        "launches": FLASH.launches["flash_attention_fwd_tc_dkv"],
+        "max_abs_err_bf16": err,
+        "ms": row["ms"], "device_ms": row["device_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+        "library_ms": row["library_ms"],
+        "library_note": "SDPA with the same lower-right causal mask, the "
+                        "yardstick only",
+        "shape": "dsv2lite.longdoc prefill chunk: 4096 queries after 4096 "
+                 "keys, 16 heads, q/K 192, V 128",
+        "phase_s": time.perf_counter() - t_phase}
 
 
 def encdec_paths(np, torch, dev, libs):
@@ -3410,9 +3643,9 @@ def main() -> None:
     from repro_torch.kernels.ssd_scan.ops import (
         ssd_intra_chunk, ssd_state_pass)
 
-    from repro_torch.kernels.decode_attention.kernel import DECODE
+    from repro_torch.kernels.decode_attention.kernel import DECODE, MLA
 
-    libs = (CONV2D, MATMUL, FLASH, SSD, DECODE)
+    libs = (CONV2D, MATMUL, FLASH, SSD, DECODE, MLA)
     t0 = time.perf_counter()
     build_all(list(libs))
     print(f"card: {card}")
@@ -3765,6 +3998,8 @@ def main() -> None:
     moe_launches = moe_paths(np, torch, dev, libs, FLASH)
     continuous_paths(np, torch, dev, libs)
     decode_row = decode_phase(np, torch, dev, libs)
+    mla_row = mla_phase(np, torch, dev, libs)
+    dkv_row = flash_dkv_phase(np, torch, dev, libs)
     encdec_paths(np, torch, dev, libs)
     vlm_launches = vlm_paths(np, torch, dev, libs, FLASH)
 
@@ -4055,6 +4290,8 @@ def main() -> None:
         "library_note": "no single PyTorch call computes the recurrence",
     })
     kernels.append(decode_row)
+    kernels.append(mla_row)
+    kernels.append(dkv_row)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,7 @@
 """Registry mapping --arch ids to ModelConfig builders: the reference's
-arch ids, all of them (``ARCHS``), the paper's RoShamBo CNN, and
-granite-4.0-h-small (the hybrid_moe family, which the reference lacks)."""
+arch ids, all of them (``ARCHS``), the paper's RoShamBo CNN,
+granite-4.0-h-small (the hybrid_moe family) and DeepSeek-V2-Lite (the mla
+family), which the reference lacks."""
 
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ _ARCH_MODULES = {
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
     "roshambo-nullhop": "repro_torch.configs.roshambo",
     "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
+    "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
 }
 
-# the port's own: the paper's CNN, and a family the reference lacks
-PORT_ONLY = ("roshambo-nullhop", "granite-4.0-h-small")
+# the port's own: the paper's CNN, and families the reference lacks
+PORT_ONLY = ("roshambo-nullhop", "granite-4.0-h-small", "deepseek-v2-lite")
 ARCHS = tuple(k for k in _ARCH_MODULES if k not in PORT_ONLY)
 
 

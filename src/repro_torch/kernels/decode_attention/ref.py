@@ -1,7 +1,8 @@
-"""Plain PyTorch version of decode attention (``csrc/decode_attention.cu``):
-the wrapper's path for CPU tensors, and what the kernel is held against on
-the card. It materialises every row's scores and masks the rows past each
-slot's live ones."""
+"""Plain PyTorch versions of decode attention (``csrc/decode_attention.cu``)
+and of latent decode attention (``csrc/mla_decode.cu``): the path for
+CPU tensors, and what the kernels are held against on the card.
+Each materialises every row's scores and masks the rows past each slot's
+live ones."""
 
 from __future__ import annotations
 
@@ -38,3 +39,22 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bgrs,bsgd->bgrd", p.to(q.dtype).float(), v.float())
     o = o / p.sum(-1)[..., None]
     return o.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def mla_decode_ref(q: torch.Tensor, rows: torch.Tensor, length, *,
+                   scale: float, value_dim: int) -> torch.Tensor:
+    """q: [B, H, Dr]; rows: [B, S_max, Dr], every head reading every row;
+    ``length`` as :func:`live_rows` takes it, at least 0. Scores in f32
+    times ``scale``; the probabilities, relative to the row's maximum,
+    cast to q's type before the PV product against each row's first
+    ``value_dim`` columns, which and whose normaliser are summed in f32;
+    output in q's type, [B, H, value_dim]."""
+    b, s_max = q.shape[0], rows.shape[1]
+    s = torch.einsum("bhd,bsd->bhs", q.float(), rows.float()) * scale
+    live = (torch.arange(s_max, device=q.device)[None]
+            < live_rows(length, b, s_max, q.device)[:, None])
+    s = torch.where(live[:, None], s, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhs,bsd->bhd", p.to(q.dtype).float(),
+                     rows[..., :value_dim].float())
+    return (o / p.sum(-1)[..., None]).to(q.dtype)

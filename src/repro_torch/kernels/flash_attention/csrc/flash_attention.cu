@@ -69,6 +69,14 @@
 // warp-specialised producer, one tile's softmax overlapping the next
 // tile's S, K/V shared across a GQA group's heads.
 //
+// bf16 with two head dims: flash_attention_fwd_tc_dkv, the same kernel as
+// one template over (DK, DV): q and k of DK, v and o of DV, each read by its
+// own strides, causal with query row i at key position q_off + i. It serves
+// MLA's decompressed prefill (DK 192 = 128 + 64 rope columns, DV 128): a
+// chunk of queries after the cached keys, v a view into the decompressed
+// [k_nope | v] tensor. At (192, 128) a block takes 129 KB of shared memory,
+// one block an SM. The first two entries take DK = DV and q_off 0.
+//
 // f32: flash_attention_fwd, the first port's kernel, kept as it was: a float32
 // product on the tensor cores would be TF32, which the f32 route's limits
 // (2e-4 against the plain version, the LM's f32 logits at 1e-3) do not
@@ -99,6 +107,11 @@ struct Params {
   long long q_sb, q_ss, q_sh;     // q and o strides (elements): batch, seq, head
   long long kv_sb, kv_ss, kv_sh;  // k and v strides
   int B, H, Hkv, Sq, Skv, causal, window;
+  // the tensor-core kernel's own: v's and o's strides (v may be narrower
+  // than k, a view into a wider tensor), and the key position of query row
+  // 0 (the causal mask's diagonal: a chunk of queries after cached keys)
+  long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
+  int q_off;
 };
 
 // [t_lo, t_hi): the bkv-key tiles that some query row in [q0, min(q0 + bq,
@@ -435,13 +448,13 @@ __device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
 }
 
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (D == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (D == 80) wgmma_rs_n80(o, a, db);
-  else if constexpr (D == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (DV == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (DV == 80) wgmma_rs_n80(o, a, db);
+  else if constexpr (DV == 128) wgmma_rs_n128(o, a, db);
   else wgmma_rs_n160(o, a, db);
 }
 
@@ -452,22 +465,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // two blocks an SM up to D 128 (at most 128 registers a thread; D 128 takes
 // more without the bound, one block an SM, which ran 13% slower at qwen's
-// shape)
-template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
+// shape). DK is q's and k's head dim, DV v's and o's (equal but for MLA's
+// decompressed prefill, 192 and 128).
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads, DK <= 128 && DV <= 128 ? 2 : 1)
 flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv) {
-  static_assert(D % 16 == 0 && D <= 256, "wgmma: D a multiple of 16, <= 256");
-  constexpr int kChunks = (D + 63) / 64;  // 128-byte column chunks a row
-  constexpr int kQBytes = kChunks * kBQ * 128;
-  constexpr int kTileBytes = kChunks * kBKV * 128;  // one K or V tile
+  static_assert(DK % 16 == 0 && DK <= 256 && DV % 16 == 0 && DV <= 160,
+                "wgmma: head dims a multiple of 16, DK <= 256, DV <= 160");
+  constexpr int kChunksK = (DK + 63) / 64;  // 128-byte column chunks a row
+  constexpr int kChunksV = (DV + 63) / 64;
+  constexpr int kQBytes = kChunksK * kBQ * 128;
+  constexpr int kKBytes = kChunksK * kBKV * 128;  // one K tile
+  constexpr int kStageBytes = kKBytes + kChunksV * kBKV * 128;  // K and V
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   // [q tile][stage 0: K, V][stage 1: K, V][barriers: q, stage 0, stage 1],
   // from the first 1024-byte boundary (the swizzle atom)
   const uint32_t q_s = (smem_addr(tc_smem) + 1023) & ~1023u;
   const uint32_t kv_s = q_s + kQBytes;
-  const uint32_t bar = kv_s + kStages * 2 * kTileBytes;  // 8 bytes each
+  const uint32_t bar = kv_s + kStages * kStageBytes;  // 8 bytes each
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
   const int lane = tid & 31;
@@ -476,14 +493,16 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
   const int hkv = h / (p.H / p.Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int qw0 = q0 + 64 * wg;  // this warpgroup's first row
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const int qa0 = p.q_off + q0, qaw0 = p.q_off + qw0;  // as key positions
+  const int sq_end = p.q_off + p.Sq;
+  const float scale = 1.f / sqrtf(static_cast<float>(DK));
 
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.q_sb + h * p.q_sh;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   // the block loads the tiles some row of its 128 sees; a warpgroup
   // computes the tiles some row of its 64 sees
-  const int2 blk = visible_kv_tiles(q0, kBQ, kBKV, p.Sq, p.Skv, p.causal, p.window);
-  const int2 own = visible_kv_tiles(qw0, 64, kBKV, p.Sq, p.Skv, p.causal, p.window);
+  const int2 blk = visible_kv_tiles(qa0, kBQ, kBKV, sq_end, p.Skv, p.causal, p.window);
+  const int2 own = visible_kv_tiles(qaw0, 64, kBKV, sq_end, p.Skv, p.causal, p.window);
 
   // Thread 0 issues every copy, by TMA: the q tile once, then K and V
   // tile t into stage (t - t_lo) % kStages, each completing on that
@@ -492,14 +511,15 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
   auto load_kv = [&](int t) {
     if (t < blk.y) {
       const int st = (t - blk.x) % kStages;
-      const uint32_t dst = kv_s + st * 2 * kTileBytes, fb = bar + 8 + 8 * st;
-      mbar_expect(fb, 2 * kTileBytes);
+      const uint32_t dst = kv_s + st * kStageBytes, fb = bar + 8 + 8 * st;
+      mbar_expect(fb, kStageBytes);
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
+      for (int c = 0; c < kChunksK; ++c)
         tma_load(dst + c * kBKV * 128, &tk, 64 * c, t * kBKV, hkv, b, fb);
-        tma_load(dst + kTileBytes + c * kBKV * 128, &tv, 64 * c, t * kBKV,
+#pragma unroll
+      for (int c = 0; c < kChunksV; ++c)
+        tma_load(dst + kKBytes + c * kBKV * 128, &tv, 64 * c, t * kBKV,
                  hkv, b, fb);
-      }
     }
   };
   if (tid == 0) {
@@ -510,7 +530,7 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_expect(bar, kQBytes);
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
+    for (int c = 0; c < kChunksK; ++c)
       tma_load(q_s + c * kBQ * 128, &tq, 64 * c, q0, h, b, bar);
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) load_kv(blk.x + i);
@@ -521,9 +541,9 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
   // 4 j + 2 i + c for row row0 + 8 i, column 8 j + col0 + c)
   const int row0 = 16 * warp + (lane >> 2);
   const int col0 = 2 * (lane & 3);
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const uint32_t qa = q_s + wg * 64 * 128;  // the warpgroup's 64 rows
   mbar_wait(bar, 0);
@@ -535,13 +555,13 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
     mbar_wait(bar + 8 + 8 * st, ((t - blk.x) / kStages) & 1);  // tile t is in
 
     if (t >= own.x && t < own.y) {
-      const uint32_t ks = kv_s + st * 2 * kTileBytes, vs = ks + kTileBytes;
+      const uint32_t ks = kv_s + st * kStageBytes, vs = ks + kKBytes;
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DK / 16; ++kk)
         wgmma_ss_n64(s,
                      make_desc(qa + (kk >> 2) * kBQ * 128 + (kk & 3) * 32,
                                16, 1024),
@@ -555,8 +575,8 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
       // masks only where a tile is not wholly visible to the warpgroup
       const int k0 = t * kBKV;
       const bool edge = k0 + kBKV > p.Skv ||
-                        (p.causal && k0 + kBKV - 1 > qw0) ||
-                        (p.window > 0 && qw0 + 63 - k0 >= p.window);
+                        (p.causal && k0 + kBKV - 1 > qaw0) ||
+                        (p.window > 0 && qaw0 + 63 - k0 >= p.window);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -564,7 +584,7 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 4; ++e) {
           float x = s[4 * j + e] * scale;
           if (edge) {
-            const int qpos = qw0 + row0 + 8 * (e >> 1);
+            const int qpos = qaw0 + row0 + 8 * (e >> 1);
             const int kpos = k0 + 8 * j + col0 + (e & 1);
             bool ok = true;
             if (p.causal) ok = ok && kpos <= qpos;
@@ -601,7 +621,7 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
         m[i] = mx[i];
       }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j] *= alpha[0];
         o[4 * j + 1] *= alpha[0];
         o[4 * j + 2] *= alpha[1];
@@ -621,7 +641,7 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(o, a[kk], make_desc(vs + kk * 2048, kBKV * 128, 1024));
+        wgmma_pv<DV>(o, a[kk], make_desc(vs + kk * 2048, kBKV * 128, 1024));
       wgmma_commit();
       wgmma_wait0();
       reg_fence(o);
@@ -634,9 +654,9 @@ flash_fwd_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
     const int q = qw0 + row0 + 8 * i;
     if (q >= p.Sq) continue;
     const float lm = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = og + static_cast<long long>(q) * p.q_ss + col0;
+    __nv_bfloat16* orow = og + static_cast<long long>(q) * p.o_ss + col0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * i] / lm, o[4 * j + 2 * i + 1] / lm);
   }
@@ -686,34 +706,42 @@ bool encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const Params& p, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
-  if (!encode_bshd(&tq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, kBQ) ||
-      !encode_bshd(&tk, p.k, p.B, p.Skv, p.Hkv, D, p.kv_sb, p.kv_ss, p.kv_sh,
+  if (!encode_bshd(&tq, p.q, p.B, p.Sq, p.H, DK, p.q_sb, p.q_ss, p.q_sh, kBQ) ||
+      !encode_bshd(&tk, p.k, p.B, p.Skv, p.Hkv, DK, p.kv_sb, p.kv_ss, p.kv_sh,
                    kBKV) ||
-      !encode_bshd(&tv, p.v, p.B, p.Skv, p.Hkv, D, p.kv_sb, p.kv_ss, p.kv_sh,
+      !encode_bshd(&tv, p.v, p.B, p.Skv, p.Hkv, DV, p.v_sb, p.v_ss, p.v_sh,
                    kBKV))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kChunks = (D + 63) / 64;
-  const int smem = 1024 + kChunks * 128 * (kBQ + kStages * 2 * kBKV) +
+  constexpr int kChunksK = (DK + 63) / 64, kChunksV = (DV + 63) / 64;
+  const int smem = 1024 + 128 * (kChunksK * kBQ +
+                                 kStages * (kChunksK + kChunksV) * kBKV) +
                    8 * (kStages + 1);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_tc_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(p.B * p.H, (p.Sq + kBQ - 1) / kBQ);
-  flash_fwd_tc_kernel<D><<<grid, kThreads, smem, s>>>(p, tq, tk, tv);
+  flash_fwd_tc_kernel<DK, DV><<<grid, kThreads, smem, s>>>(p, tq, tk, tv);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const Params& p, int D, cudaStream_t s) {
   switch (D) {
-    case 64: return launch<64>(p, s);
-    case 80: return launch<80>(p, s);
-    case 128: return launch<128>(p, s);
-    case 160: return launch<160>(p, s);
+    case 64: return launch<64, 64>(p, s);
+    case 80: return launch<80, 80>(p, s);
+    case 128: return launch<128, 128>(p, s);
+    case 160: return launch<160, 160>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// q / k of DK and v / o of DV: MLA's decompressed prefill (192, 128)
+int dispatch_dkv(const Params& p, int DK, int DV, cudaStream_t s) {
+  if (DK == 192 && DV == 128) return launch<192, 128>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tc
@@ -732,7 +760,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    long long kv_sh, int causal, int window,
                                    void* stream) {
   const Params p{q, k, v, o, q_sb, q_ss, q_sh, kv_sb, kv_ss, kv_sh,
-                 B, H, Hkv, Sq, Skv, causal, window};
+                 B, H, Hkv, Sq, Skv, causal, window,
+                 kv_sb, kv_ss, kv_sh, q_sb, q_ss, q_sh, 0};
   return cc::dispatch(p, D, static_cast<cudaStream_t>(stream));
 }
 
@@ -746,6 +775,22 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
                                       long long kv_ss, long long kv_sh,
                                       int causal, int window, void* stream) {
   const Params p{q, k, v, o, q_sb, q_ss, q_sh, kv_sb, kv_ss, kv_sh,
-                 B, H, Hkv, Sq, Skv, causal, window};
+                 B, H, Hkv, Sq, Skv, causal, window,
+                 kv_sb, kv_ss, kv_sh, q_sb, q_ss, q_sh, 0};
   return tc::dispatch(p, D, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16 q, k [.., DK] and v, o [.., DV], each by its own strides (16-byte
+// aligned, strides a multiple of 8 elements), causal with query row i at
+// key position q_off + i: the tensor-core kernel at (DK, DV) = (192, 128).
+extern "C" int flash_attention_fwd_tc_dkv(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int Hkv, int Sq, int Skv, int DK, int DV, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, int q_off, int causal, void* stream) {
+  const Params p{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                 B, H, Hkv, Sq, Skv, causal, 0,
+                 v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, q_off};
+  return tc::dispatch_dkv(p, DK, DV, static_cast<cudaStream_t>(stream));
 }

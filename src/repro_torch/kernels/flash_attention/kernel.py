@@ -35,13 +35,19 @@ from repro_torch.kernels._build import (
     I, L, P, CudaLibrary, refuse_dtensor, refuse_grad)
 
 _ARGS = [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, I, I, P]
+_ARGS_DKV = [P, P, P, P, I, I, I, I, I, I, I, *[L] * 12, I, I, P]
 FLASH = CudaLibrary(
     "flash_attention", Path(__file__).with_name("csrc") / "flash_attention.cu",
-    {"flash_attention_fwd": _ARGS, "flash_attention_fwd_tc": _ARGS})
+    {"flash_attention_fwd": _ARGS, "flash_attention_fwd_tc": _ARGS,
+     "flash_attention_fwd_tc_dkv": _ARGS_DKV})
 
 # head dims the kernels are compiled for: smoke 64, danube 80, qwen 128,
 # stablelm 160
 HEAD_DIMS = (64, 80, 128, 160)
+
+# (q / k head dim, v / o head dim) pairs the two-width entry is compiled
+# for: MLA's decompressed prefill (DeepSeek-V2: 128 + 64, 128)
+DKV_DIMS = ((192, 128),)
 
 # the C symbol that serves each dtype
 SYMBOL = {torch.float32: "flash_attention_fwd",
@@ -118,4 +124,51 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      v.data_ptr(), o.data_ptr(), b, h, hkv, sq, skv, d,
                      sq * h * d, h * d, d, skv * hkv * d, hkv * d, d,
                      int(causal), int(window), device=q.device)
+    return o
+
+
+def flash_attention_dkv_bshd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, q_offset: int = 0
+                             ) -> torch.Tensor:
+    """Causal attention with two head widths: q [B, Sq, H, Dk], k [B, Skv,
+    Hkv, Dk], v [B, Skv, Hkv, Dv] -> [B, Sq, H, Dv], query row i at key
+    position ``q_offset + i``, scores scaled by 1/sqrt(Dk). bf16 CUDA
+    tensors whose last dim is contiguous, read by stride (v may be a view
+    into a wider tensor), at a (Dk, Dv) of ``DKV_DIMS``; anything else
+    raises ``ValueError``. The tensor-core kernel, entry
+    ``flash_attention_fwd_tc_dkv``."""
+    refuse_dtensor("the flash attention kernel", q, k, v)
+    refuse_grad("the flash attention kernel", q, k, v)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} are not [B, S, H, D]")
+    b, sq, h, dk = q.shape
+    _, skv, hkv, dv = v.shape
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[-1] != dk
+            or h % hkv):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not match")
+    if (dk, dv) not in DKV_DIMS:
+        raise ValueError(f"head dims ({dk}, {dv}): the two-width kernel is "
+                         f"built for {DKV_DIMS}")
+    if any(t.device.type != "cuda" or t.device != q.device
+           or t.dtype != torch.bfloat16 for t in (k, v)) or (
+            q.device.type != "cuda" or q.dtype != torch.bfloat16):
+        raise ValueError("needs bf16 CUDA tensors on one device")
+    for t in (q, k, v):
+        # the TMA maps: 16-byte aligned, last dim contiguous, other strides
+        # whole multiples of 16 bytes
+        if (t.stride(-1) != 1 or t.data_ptr() % 16
+                or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError("q, k and v need a contiguous last dim, 16-byte "
+                             "alignment and strides a multiple of 8")
+    if not 0 <= q_offset <= skv - sq:
+        raise ValueError(f"q_offset {q_offset}: {sq} queries after it must "
+                         f"lie within the {skv} keys")
+    o = q.new_empty((b, sq, h, dv))
+    if o.numel():
+        FLASH.launch("flash_attention_fwd_tc_dkv", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), b, h, hkv, sq, skv, dk, dv,
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *o.stride()[:3], int(q_offset), 1, device=q.device)
     return o

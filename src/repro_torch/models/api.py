@@ -11,13 +11,13 @@ functions, as the reference's does:
 
 Batches are dicts of tensors. Keys by family, as the reference's:
 
-- dense / moe / ssm / hybrid / hybrid_moe: ``tokens`` [B,S], ``labels``
-  [B,S]
+- dense / moe / ssm / hybrid / hybrid_moe / mla: ``tokens`` [B,S],
+  ``labels`` [B,S]
 - vlm: ``tokens`` [B,S_text], ``patch_embeds`` [B,n_prefix,D],
   ``labels`` [B,S_text] (the loss is taken over the text positions only)
 - audio: ``frames`` [B,S_enc,D], ``tokens`` [B,S_dec], ``labels`` [B,S_dec]
 
-The dense, vlm, moe, ssm and hybrid_moe families run through
+The dense, vlm, moe, ssm, hybrid_moe and mla families run through
 ``models/lm.py``, the
 hybrid family through ``models/hybrid.py`` and the audio family through
 ``models/encdec.py``. For the dry run (``launch/dryrun.py``),
@@ -105,7 +105,7 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio",
-                          "hybrid_moe"):
+                          "hybrid_moe", "mla"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)
@@ -124,9 +124,7 @@ def build_model(cfg: ModelConfig) -> Model:
     def pre(params, batch, s_max):
         pe = batch.get("patch_embeds") if vlm else None
         s_tok = batch["tokens"].shape[1]
-        if (cfg.prefill_chunk and pe is None
-                and s_tok % cfg.prefill_chunk == 0
-                and s_tok > cfg.prefill_chunk):
+        if cfg.prefill_chunk and pe is None and s_tok > cfg.prefill_chunk:
             return lm.prefill_chunked(cfg, params, batch["tokens"], s_max,
                                       chunk=cfg.prefill_chunk)
         return lm.prefill(cfg, params, batch["tokens"], s_max,

@@ -16,10 +16,15 @@ Families:
 - ``hybrid_moe``: Mamba2 and GQA mixers in a per-layer pattern
   (``layer_types``), each followed by a routed MoE with a shared expert
   (granite-4.0-h-small)
+- ``mla``    : multi-head latent attention over a latent KV cache, with
+  YaRN RoPE, leading dense layers and then MoE layers (DeepSeek-V2-Lite)
 
 The fields below ``layer_types`` (the published scalar multipliers and
-the norms' eps) are set by the ``hybrid_moe`` configs alone; at their
-defaults every other family computes what it computed without them.
+the norms' eps) are set by the ``hybrid_moe`` configs alone, and those
+below ``kv_lora_rank`` (the latent attention's widths, YaRN, the leading
+dense layers, routing without renormalisation) by the ``mla`` configs
+alone; at their defaults every other family computes what it computed
+without them.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm | audio | moe | ssm | hybrid | hybrid_moe
+    family: str  # dense | vlm | audio | moe | ssm | hybrid | hybrid_moe | mla
     n_layers: int
     d_model: int
     vocab: int
@@ -83,6 +88,24 @@ class ModelConfig:
     attention_multiplier: float = 0.0  # scores' scale; 0 -> 1/sqrt(head dim)
     logits_scaling: float = 1.0  # logits divided by this
     norm_eps: float = 1e-6  # the RMS norms' and the gated norm's eps
+    # -- mla (DeepSeek-V2): the latent c and the shared roped key, the
+    # per-head no-rope query/key and value widths --
+    kv_lora_rank: int = 0  # c's width
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN on the rope columns (DeepSeek-V2's yarn_* functions); factor 0:
+    # plain RoPE
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0  # mscale = mscale_all_dim: the scores' term
+    first_k_dense: int = 0  # leading layers whose FFN is a dense MLP of d_ff
+    moe_renormalize: bool = True  # top-k gate weights renormalised over k
+    # from this many tokens on, a MoE whose capacity seats every token runs
+    # each expert over its own seats, not the padded buffer (0: never)
+    moe_ragged_tokens: int = 0
     # -- enc-dec (seamless) --
     n_enc_layers: int = 0
     # -- modality frontend stubs --
@@ -152,6 +175,11 @@ class ModelConfig:
                      if t == "mamba")
 
     @property
+    def mla_rows(self) -> int:
+        """``mla``: a latent cache row, c then the roped key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
@@ -176,9 +204,14 @@ class ModelConfig:
             per = self._ssm_params() + 2 * D  # norms
             return emb + L * per + D
         attn = D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D
+        if self.family == "mla":
+            r, dn, dr, dv = (self.kv_lora_rank, self.qk_nope_head_dim,
+                             self.qk_rope_head_dim, self.v_head_dim)
+            attn = (D * H * (dn + dr) + D * (r + dr) + r
+                    + r * H * (dn + dv) + H * dv * D)
         if self.qkv_bias:
             attn += (H + 2 * Hkv) * Dh
-        if self.family in ("moe", "hybrid_moe"):
+        if self.family in ("moe", "hybrid_moe", "mla"):
             E, Fe, S = self.n_experts, self.d_expert or F, self.n_shared_experts
             ff = E * (3 * D * Fe) + S * (3 * D * Fe) + D * E
         elif self.mlp == "gated_silu":
@@ -191,6 +224,8 @@ class ModelConfig:
                     + (L - n_attn) * self._ssm_params() + D)
         per = attn + ff + 2 * D
         total = emb + L * per + D
+        if self.family == "mla":  # the leading layers' dense MLPs
+            total += self.first_k_dense * (3 * D * F - ff)
         if self.family == "audio":
             # encoder stack (self-attn + mlp) + decoder cross-attn additions
             enc_per = attn + (3 * D * F if self.mlp == "gated_silu" else 2 * D * F) + 2 * D
@@ -213,13 +248,13 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: shared + top_k experts only)."""
-        if self.family not in ("moe", "hybrid_moe"):
+        if self.family not in ("moe", "hybrid_moe", "mla"):
             return self.param_count()
         D, L = self.d_model, self.n_layers
         E, Fe, S, K = (self.n_experts, self.d_expert or self.d_ff,
                        self.n_shared_experts, self.top_k)
         dense_total = self.param_count()
-        inactive = L * (E - K) * (3 * D * Fe)
+        inactive = (L - self.first_k_dense) * (E - K) * (3 * D * Fe)
         return dense_total - inactive
 
 

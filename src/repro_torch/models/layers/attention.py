@@ -164,9 +164,9 @@ def attention_unique(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float | None = None) -> torch.Tensor:
     """Unique-mode attention: one [S_q, S_kv] score block.
 
-    q: [B, S_q, H, Dh]; k, v: [B, S_kv, Hkv, Dh] (Hkv divides H).
-    kv_valid: kv positions >= kv_valid are masked (cache). ``scale``
-    multiplies the scores (None: 1/sqrt(Dh)). While a
+    q: [B, S_q, H, Dh]; k, v: [B, S_kv, Hkv, Dh] (Hkv divides H; v's Dh
+    may differ). kv_valid: kv positions >= kv_valid are masked (cache).
+    ``scale`` multiplies the scores (None: 1/sqrt(Dh)). While a
     profiler records, the repeat of K / V over each head group and K's
     cast to f32 are a span named ``attn.cache``."""
     b, sq, h, dh = q.shape
@@ -201,8 +201,9 @@ def attention_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float | None = None) -> torch.Tensor:
     """Blocks-mode attention: stream KV in chunks with online softmax.
 
-    Same semantics as :func:`attention_unique`; working set O(S_q * kv_chunk).
-    This is the paper's BLOCKS partitioning applied to the KV stream."""
+    Same semantics as :func:`attention_unique` (v's head dim may differ
+    from q's and k's); working set O(S_q * kv_chunk). This is the paper's
+    BLOCKS partitioning applied to the KV stream."""
     b, sq, h, dh = q.shape
     s_kv = k.shape[1]
     hkv = k.shape[2]
@@ -219,7 +220,8 @@ def attention_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     n_rep = h // hkv
     qf = q.float()
 
-    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
+                      device=dev)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
     for ci in range(n_chunks):

@@ -93,27 +93,45 @@ def moe_params(generator: torch.Generator, d_model: int, n_experts: int,
 
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
-              ep_sharding: bool = True) -> tuple[torch.Tensor, MoEMetrics]:
+              ep_sharding: bool = True,
+              renormalize: bool = True,
+              ragged_tokens: int = 0) -> tuple[torch.Tensor, MoEMetrics]:
     """x: [B, S, D] -> [B, S, D].
 
-    Routing: softmax over experts, top-k, weights renormalised over the k.
+    Routing: softmax over experts, top-k, weights renormalised over the k
+    (``renormalize``; off, the k softmax weights as they are, DeepSeek-V2's
+    ``norm_topk_prob`` false).
     Tokens beyond an expert's capacity are dropped (their residual passes
     through): standard capacity-based MoE semantics. ``ep_sharding``
     constrains the expert-major intermediates to the "model" axis and the
     gathered tokens to "data", at the reference's four sites
     (:func:`_shard_experts`; nothing without a mesh). A ``DTensor`` ``x``
-    takes :func:`_sharded_moe`, expert parallelism with the same seats."""
+    takes :func:`_sharded_moe`, expert parallelism with the same seats.
+
+    ``ragged_tokens`` (0: never): from this many bf16 tokens on, where the
+    capacity seats every token (no seat can drop), grad mode is off and no
+    CUDA graph is being captured, the experts run over their own seats
+    alone (:func:`_ragged_experts`, grouped products) instead of over the
+    padded [E, C, D] buffer, which at capacity T holds E / top_k times the
+    seated rows. The seats, the gate weights and the k-by-k combine are
+    the same."""
     b, s, d = x.shape
     e = p["we_up"].shape[0]
     t = b * s
     capacity = max(int(math.ceil(top_k * t / e * capacity_factor)), 1)
     if is_dtensor(x):
         return _sharded_moe(p, x, top_k=top_k, capacity=capacity,
-                            ep_sharding=ep_sharding)
+                            ep_sharding=ep_sharding, renormalize=renormalize)
     xt = x.reshape(t, d)
+    if (0 < ragged_tokens <= t and capacity >= t and x.dtype == torch.bfloat16
+            and not torch.is_grad_enabled()
+            and not (xt.is_cuda and torch.cuda.is_current_stream_capturing())):
+        out, metrics = _ragged_moe(p, xt, top_k, capacity, renormalize)
+        return out.reshape(b, s, d), metrics
 
     with trace.span("moe.dispatch"):
-        probs, gate_vals, gate_idx = _gates(xt, p["router"], top_k)
+        probs, gate_vals, gate_idx = _gates(xt, p["router"], top_k,
+                                            renormalize)
         seats = _seats(gate_idx, e, capacity)
         slot_k = seats.slot.reshape(top_k, t)  # [K, T]
         # dispatch into [E, C, D], one k-slot at a time; a dropped seat
@@ -152,6 +170,52 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     return out.reshape(b, s, d), MoEMetrics(aux, seats.dropped)
 
 
+def _ragged_moe(p: dict, xt: torch.Tensor, top_k: int, capacity: int,
+                renormalize: bool) -> tuple[torch.Tensor, MoEMetrics]:
+    """:func:`moe_apply` on tokens xt [T, D] where every seat is kept: the
+    same gates, seats and k-by-k combine, the experts over their own seats
+    (:func:`_ragged_experts`)."""
+    t, d = xt.shape
+    e = p["we_up"].shape[0]
+    with trace.span("moe.dispatch"):
+        probs, gate_vals, gate_idx = _gates(xt, p["router"], top_k,
+                                            renormalize)
+        flat_e = gate_idx.T.reshape(-1)  # [K*T], slot-major, as _seats'
+        # every seat kept: _seats' f_e and dropped, without the queue places
+        counts = torch.bincount(flat_e, minlength=e)
+        f_e = counts.float() / float(top_k * t)
+    with trace.span("moe.experts"):
+        ys = _ragged_experts(p, xt, flat_e, counts)  # [K*T, D]
+    with trace.span("moe.combine"):
+        w_k = gate_vals.T.to(xt.dtype)  # [K, T]
+        out = torch.zeros((t, d), dtype=xt.dtype, device=xt.device)
+        for k in range(top_k):
+            out = out + ys[k * t:(k + 1) * t] * w_k[k][:, None]
+    out = _shared_experts(p, xt, out)
+    aux = e * torch.sum(f_e * probs.mean(0))
+    return out, MoEMetrics(aux, torch.zeros((), device=xt.device))
+
+
+def _ragged_experts(p: dict, xt: torch.Tensor, flat_e: torch.Tensor,
+                    counts: torch.Tensor) -> torch.Tensor:
+    """Every seat's expert output [K*T, D], seat-major (``k * T + t``), with
+    each expert run over its own seats only (``counts`` [E]: its seats):
+    the seats sorted by expert (stably), each projection one grouped
+    product over the experts' row groups (``torch._grouped_mm``, bf16; the
+    groups' ends stay on the device, so nothing waits on the host), then
+    put back in seat order."""
+    t = xt.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    ends = counts.cumsum(0).to(torch.int32)  # each expert's seats' end
+    xs = xt[order % t]  # seat k * T + t holds token t
+    h = torch._grouped_mm(xs, p["we_up"], offs=ends)
+    gate, up = h.chunk(2, dim=-1)
+    y = torch._grouped_mm(F.silu(gate) * up, p["we_down"], offs=ends)
+    ys = torch.empty_like(y)
+    ys[order] = y
+    return ys
+
+
 class Seats(NamedTuple):
     """Every (k-slot, token) pair's seat, k-major (index ``k * T + t``)."""
 
@@ -163,12 +227,15 @@ class Seats(NamedTuple):
     dropped: torch.Tensor  # the dropped share of all seats
 
 
-def _gates(xt: torch.Tensor, router: torch.Tensor, top_k: int):
-    """(probs [T, E], gate weights [T, K] renormalised over the k, gate
-    experts [T, K])."""
+def _gates(xt: torch.Tensor, router: torch.Tensor, top_k: int,
+           renormalize: bool = True):
+    """(probs [T, E], gate weights [T, K] (renormalised over the k where
+    ``renormalize``), gate experts [T, K])."""
     probs = torch.softmax(xt.float() @ router, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1, sorted=True)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    if renormalize:
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(
+            1e-9)
     return probs, gate_vals, gate_idx
 
 
@@ -234,7 +301,7 @@ def _shared_experts(p: dict, xt: torch.Tensor,
 
 
 def _sharded_moe(p: dict, x, *, top_k: int, capacity: int,
-                 ep_sharding: bool):
+                 ep_sharding: bool, renormalize: bool = True):
     """:func:`moe_apply` over a ``DTensor`` ``x``: expert parallelism.
 
     The tokens stay where the batch rule put them (rows on the data axes,
@@ -312,7 +379,7 @@ def _sharded_moe(p: dict, x, *, top_k: int, capacity: int,
         router = p["router"]
         if is_dtensor(router):  # a rank's gradient: its own tokens'
             router = router.full_tensor(grad_placements=dp(Partial()))
-        probs, gate_vals, gate_idx = _gates(xl, router, top_k)
+        probs, gate_vals, gate_idx = _gates(xl, router, top_k, renormalize)
         kslot = torch.arange(top_k, device=xl.device)[:, None]
         counts = torch.zeros(top_k * e, dtype=torch.int64,
                              device=xl.device).index_add_(

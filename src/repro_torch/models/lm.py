@@ -1,4 +1,4 @@
-"""Decoder-only LM: the dense, vlm, moe, ssm and hybrid_moe families.
+"""Decoder-only LM: the dense, vlm, moe, ssm, hybrid_moe and mla families.
 
 Params keep the reference's pytree layout: a dict of tensors whose
 ``blocks`` subtree is stacked over layers (leading [L] axis), so the port's
@@ -29,11 +29,21 @@ params stack the norms and the MoE over every layer (``blocks``) and each
 mixer kind over its own layers (``mamba``, ``attn``); its decode cache, a
 :class:`HybridCache`, holds the attention layers' K/V and the Mamba2
 layers' state side by side, advanced together by one step.
+
+The mla family (DeepSeek-V2-Lite) has no JAX counterpart either. Every
+layer's mixer is multi-head latent attention (``models/layers/mla.py``);
+the first ``cfg.first_k_dense`` layers' FFN is a dense MLP of ``d_ff`` and
+the rest's a MoE of ``d_expert`` routed without renormalisation
+(``cfg.moe_renormalize``). Its params keep the norms and the mixer in
+``blocks`` (key ``mla``) and stack the two FFN kinds over their own layers
+(``dense``, ``moe``); its decode cache, a :class:`LatentCache`, holds one
+row of c and the roped key a token and layer.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import math
 from typing import Callable, NamedTuple
 
@@ -48,10 +58,10 @@ from torch.utils.checkpoint import (
 from repro_torch.device import default_device
 from repro_torch.dist.sharding import (
     batch_sharded, contract_on_data, is_dtensor, layer_at)
-from repro_torch.kernels.decode_attention.kernel import DECODE
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (
     KVCache, Length, attn_apply, attn_params)
+from repro_torch.models.layers.mla import LatentCache, mla_apply, mla_params
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
 from repro_torch.models.layers.moe import moe_apply, moe_params
 from repro_torch.models.layers.norm import apply_norm, norm_params
@@ -114,6 +124,10 @@ def init_block_params(generator: torch.Generator, cfg: ModelConfig,
         return {"ln1": norm_params(cfg.norm, cfg.d_model, device),
                 "mixer": mamba2_params(generator, cfg, dt, device)}
     p = {"ln1": norm_params(cfg.norm, cfg.d_model, device)}
+    if cfg.family == "mla":  # the FFNs are stacked over their own layers
+        p["mla"] = mla_params(generator, cfg, dt, device)
+        p["ln2"] = norm_params(cfg.norm, cfg.d_model, device)
+        return p
     if cfg.family != "hybrid_moe":
         p["attn"] = _attn_params(generator, cfg, device)
     p["ln2"] = norm_params(cfg.norm, cfg.d_model, device)
@@ -152,6 +166,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["attn"] = stack_blocks(
             lambda: _attn_params(generator, cfg, device),
             len(cfg.attn_layers), device)
+    if cfg.family == "mla":  # each FFN kind over its own layers
+        if cfg.first_k_dense:
+            params["dense"] = stack_blocks(
+                lambda: {"mlp": mlp_params(generator, cfg.d_model, cfg.d_ff,
+                                           cfg.mlp, dt, device)},
+                cfg.first_k_dense, device)
+        params["moe"] = stack_blocks(
+            lambda: moe_params(generator, cfg.d_model, cfg.n_experts,
+                               cfg.d_expert, cfg.n_shared_experts, dt,
+                               device), cfg.n_layers - cfg.first_k_dense,
+            device)
     params["final_norm"] = norm_params(cfg.norm, cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = draw((cfg.d_model, cfg.vocab_padded))
@@ -207,16 +232,19 @@ def params_from_jax(params_np: dict, device: "torch.device | str") -> dict:
 
 def layer_apply(cfg: ModelConfig, kind: str, p: dict, mixer: dict,
                 x: torch.Tensor, *, cache=None, positions=None):
-    """One decoder layer: norm -> the mixer (``kind`` "attention" or
-    "mamba", its params ``mixer``) -> residual, then, where the block ``p``
-    holds an MLP or a MoE, norm -> that FFN -> residual. ``cache`` is the
-    mixer's ``KVCache`` or ``SSMState``, or None. Returns (x, the mixer's
-    new cache or state, aux): the MoE router's load-balance loss (an f32
-    scalar tensor), None for a block without a MoE. A ``DTensor`` residual
-    stream is kept batch-sharded (``batch_sharded``)."""
+    """One decoder layer: norm -> the mixer (``kind`` "attention", "mamba"
+    or "mla", its params ``mixer``) -> residual, then, where the block
+    ``p`` holds an MLP or a MoE, norm -> that FFN -> residual. ``cache`` is
+    the mixer's ``KVCache``, ``SSMState`` or ``LatentCache``, or None.
+    Returns (x, the mixer's new cache or state, aux): the MoE router's
+    load-balance loss (an f32 scalar tensor), None for a block without a
+    MoE. A ``DTensor`` residual stream is kept batch-sharded
+    (``batch_sharded``)."""
     h = apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         h, new = mamba2_apply(mixer, h, cfg, state=cache)
+    elif kind == "mla":
+        h, new = mla_apply(mixer, h, cfg, cache=cache, positions=positions)
     else:
         h, new = attn_apply(
             mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -233,7 +261,9 @@ def layer_apply(cfg: ModelConfig, kind: str, p: dict, mixer: dict,
                                                     cfg.norm_eps),
                                top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
-                               ep_sharding=cfg.moe_ep_sharding)
+                               ep_sharding=cfg.moe_ep_sharding,
+                               renormalize=cfg.moe_renormalize,
+                               ragged_tokens=cfg.moe_ragged_tokens)
         aux = metrics.aux_loss
     elif "mlp" in p:
         h = mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x,
@@ -251,18 +281,30 @@ def _residual(cfg: ModelConfig, x: torch.Tensor,
     return batch_sharded(x + (h if r == 1.0 else h * r))
 
 
+_IN_BLOCK = {"attention": "attn", "mamba": "mixer", "mla": "mla"}
+
+
 def _layers(cfg: ModelConfig, params: dict):
     """Each layer in order as (kind, block params, mixer params, slot in
     the cache). The kinds are ``cfg.layer_types`` where set, else one kind
-    for every layer (Mamba2 for the attention-free ssm family). The
-    reference's families keep a layer's mixer in its block (``attn`` /
-    ``mixer``) and stack their caches over every layer, so the slot is the
-    layer's index; hybrid_moe stacks each mixer kind over its own layers
+    for every layer (Mamba2 for the attention-free ssm family, latent
+    attention for the mla family). The reference's families and mla keep
+    a layer's mixer in its block (``attn`` / ``mixer`` / ``mla``) and stack
+    their caches over every layer, so the slot is the layer's index;
+    hybrid_moe stacks each mixer kind over its own layers
     (``params["attn"]`` / ``params["mamba"]``), as its cache does, so the
-    slot is the layer's place among its kind's."""
+    slot is the layer's place among its kind's. Where the FFNs are stacked
+    apart (mla: ``params["dense"]`` over the leading layers, then
+    ``params["moe"]``), each layer's is added to its block."""
     kinds = cfg.layer_types or (
-        "mamba" if cfg.is_attention_free else "attention",) * cfg.n_layers
+        "mamba" if cfg.is_attention_free
+        else "mla" if cfg.family == "mla" else "attention",) * cfg.n_layers
     blocks = unstack(params["blocks"])
+    if cfg.family == "mla":
+        ffns = ([{"mlp": m["mlp"]} for m in unstack(params["dense"])]
+                if cfg.first_k_dense else []) + [
+            {"moe": m} for m in unstack(params["moe"])]
+        blocks = [{**blk, **ffn} for blk, ffn in zip(blocks, ffns)]
     stacks = {kind: unstack(params[key])
               for kind, key in (("attention", "attn"), ("mamba", "mamba"))
               if params.get(key) is not None}
@@ -271,8 +313,7 @@ def _layers(cfg: ModelConfig, params: dict):
             j = kinds[:i].count(kind)
             yield kind, blocks[i], stacks[kind][j], j
         else:
-            yield kind, blocks[i], blocks[i][
-                "attn" if kind == "attention" else "mixer"], i
+            yield kind, blocks[i], blocks[i][_IN_BLOCK[kind]], i
 
 
 def write_state(stacked, i: int, new: SSMState) -> None:
@@ -285,7 +326,8 @@ def write_state(stacked, i: int, new: SSMState) -> None:
 def stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, caches,
                 positions):
     """Run the layers in order (:func:`_layers`). With a cache (a stacked
-    ``KVCache`` or ``SSMState``, or a :class:`HybridCache`) each layer
+    ``KVCache``, ``SSMState`` or ``LatentCache``, or a
+    :class:`HybridCache`) each layer
     runs on its slot of it, updated in place; without, each layer runs
     under :func:`make_remat`. Returns (x, the cache of the type given, its
     length advanced, aux): the sum of the layers' router losses, an f32
@@ -302,6 +344,12 @@ def stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, caches,
                 cfg, kind, p, mixer, x, cache=SSMState(
                     layer_at(caches.ssm, slot), layer_at(caches.conv, slot)))
             write_state(caches, slot, st)
+        elif kind == "mla":
+            x, lc, a = layer_apply(
+                cfg, kind, p, mixer, x, cache=LatentCache(
+                    layer_at(caches.kv, slot), caches.length),
+                positions=positions)
+            length = lc.length
         else:
             x, kv, a = layer_apply(
                 cfg, kind, p, mixer, x, cache=KVCache(
@@ -428,12 +476,14 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     return logits_from_hidden(cfg, params, x), aux
 
 
-def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               device=None) -> "KVCache | SSMState | HybridCache":
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None
+               ) -> "KVCache | SSMState | HybridCache | LatentCache":
     """Stacked [L, ...] decode cache: for the dense family K/V with one
     length for every layer (they advance together), a Python int; for the
     ssm family the recurrent state (``s_max`` unused: it is O(1)); for the
-    hybrid_moe family both, each over its own layers (:class:`HybridCache`)."""
+    hybrid_moe family both, each over its own layers (:class:`HybridCache`);
+    for the mla family the latent rows [L, B, S_max, r + dr]
+    (``LatentCache``)."""
     device = default_device(device)
     dt = _dtype(cfg)
 
@@ -448,6 +498,10 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
     if cfg.family == "ssm":
         return states(cfg.n_layers)
+    if cfg.family == "mla":
+        return LatentCache(torch.zeros((cfg.n_layers, batch, s_max,
+                                        cfg.mla_rows), dtype=dt,
+                                       device=device), 0)
     if cfg.family == "hybrid_moe":
         return HybridCache(*kv(len(cfg.attn_layers)),
                            *states(len(cfg.mamba_layers)))
@@ -487,17 +541,15 @@ def prefill_chunked(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                     s_max: int, *, chunk: int = 4096,
                     prefix_embeds: torch.Tensor | None = None):
     """Blocks-mode prefill: run the prompt through the stack in sequence
-    chunks, carrying the KV cache between chunks. Semantically identical to
-    :func:`prefill` (causal attention never looks ahead), and the same
-    ``lm.prefill`` span."""
+    chunks of ``chunk`` tokens, the last one shorter where ``chunk`` does
+    not divide the prompt, carrying the KV cache between chunks.
+    Semantically identical to :func:`prefill` (causal attention never
+    looks ahead), and the same ``lm.prefill`` span."""
     with trace.span("lm.prefill"):
         x = embed_tokens(cfg, params, tokens, prefix_embeds)
         s = x.shape[1]
         caches = cache_for(x, lambda dev: init_cache(cfg, x.shape[0], s_max,
                                                      dev))
-        if s % chunk:
-            raise ValueError(
-                f"prompt length {s} not divisible by chunk {chunk}")
         last = None
         for c0 in range(0, s, chunk):
             xc = x[:, c0:c0 + chunk]
@@ -528,10 +580,11 @@ class DecodeGraph:
     """A decode step captured once as a CUDA graph over one cache, and
     replayed: :func:`decode_step` takes it in the cache's place.
 
-    ``cache`` is a stacked ``KVCache`` or :class:`HybridCache` on the card
-    with a [B] length tensor, whose tensors stay the graph's inputs and
-    outputs: each replay writes the step's K/V (and Mamba2 state) into them
-    in place, as the eager step does, and copies the advanced length back
+    ``cache`` is a stacked ``KVCache``, :class:`HybridCache` or
+    ``LatentCache`` on the card with a [B] length tensor, whose tensors stay
+    the graph's inputs and outputs: each replay writes the step's K/V (or
+    latent rows, and Mamba2 state) into them in place, as the eager step
+    does, and copies the advanced length back
     into the same length tensor, where the eager step returns a new one.
     The step is captured at the first :meth:`replay` (after at least one
     eager step has run its kernels at these shapes) with that call's params
@@ -541,15 +594,16 @@ class DecodeGraph:
     of the captured logits, which the next replay overwrites, and the
     cache. Nothing in the step may wait for the host; capture errors on an
     unsafe call from this thread only (other threads may be moving
-    transfers meanwhile). While a profiler records, each replay adds the
-    captured step's decode-attention launches to the ``attn.decode``
-    counter (the spans inside the step do not fire: the host never runs
-    them)."""
+    transfers meanwhile). What the step counted while it was captured
+    (``counts``: the decode kernels' ``attn.decode`` or
+    ``attn.decode_latent``, a launch each) each replay counts again,
+    where a profiler records (the spans inside the step do not fire: the
+    host never runs them)."""
 
-    def __init__(self, cache: "KVCache | HybridCache"):
+    def __init__(self, cache: "KVCache | HybridCache | LatentCache"):
         if not (isinstance(cache.length, torch.Tensor)
                 and cache.length.dim() == 1
-                and cache.k.device.type == "cuda"):
+                and cache[0].device.type == "cuda"):
             raise ValueError("a decode graph takes a cache on the card with "
                              "a [B] length tensor")
         self.cache = cache
@@ -557,7 +611,7 @@ class DecodeGraph:
         self._params: dict | None = None
         self._token: torch.Tensor | None = None
         self._logits: torch.Tensor | None = None
-        self.attn_launches = 0  # decode-attention launches a replay
+        self.counts: dict[str, int] = {}  # the tracer's counts a replay
 
     def replay(self, cfg: ModelConfig, params: dict, token: torch.Tensor):
         """(a copy of the step's logits, the cache): the step replayed over
@@ -568,17 +622,28 @@ class DecodeGraph:
             raise ValueError("a decode graph replays the params and token "
                              "tensor it was captured with")
         self._graph.replay()
-        trace.count("attn.decode", self.attn_launches)
+        for name, n in self.counts.items():
+            trace.count(name, n)
         return self._logits.clone(), self.cache
 
     def _capture(self, cfg: ModelConfig, params: dict,
                  token: torch.Tensor) -> None:
-        before = DECODE.launches["decode_attention"]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            logits, new = _decode(cfg, params, token, self.cache)
-            self.cache.length.copy_(new.length)
-        self.attn_launches = DECODE.launches["decode_attention"] - before
+        # no garbage collection inside the capture: a finalizer it ran there
+        # (of another object's CUDA resources) would call the runtime from
+        # the capturing thread and invalidate the capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with trace.tally() as counts, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                logits, new = _decode(cfg, params, token, self.cache)
+                self.cache.length.copy_(new.length)
+        finally:
+            if collecting:
+                gc.enable()
+        self.counts = counts
         self._graph, self._logits = graph, logits
         self._params, self._token = params, token
 

@@ -14,11 +14,12 @@ a measured RX (``rx_async`` under INTERRUPT, so the device-to-host copy
 overlaps the host's slot bookkeeping), with per-transfer stats in
 ``engine.stats``.
 
-Serves the KV-cache families (dense / moe / vlm) and hybrid_moe, whose
+Serves the KV-cache families (dense / moe / vlm), hybrid_moe, whose
 cache holds its attention layers' K/V beside its Mamba2 layers' state
-(``models.lm.HybridCache``). The port runs the model under
-``torch.no_grad()`` (no ``jit``) and differs from the reference in two
-ways:
+(``models.lm.HybridCache``), and mla, whose cache holds one latent row a
+token and layer (``models.layers.mla.LatentCache``). The port runs the
+model under ``torch.no_grad()`` (no ``jit``) and differs from the
+reference in two ways:
 
 - the per-slot length is ONE [B] int tensor on the device, shared by
   every layer (the port's cache has one length for all layers), not the
@@ -26,7 +27,7 @@ ways:
 - ``_splice_slot`` copies a prefilled batch-1 cache into slot ``slot`` in
   place, along the stacked cache's explicit batch axis (1), where the
   reference guesses the axis from the shapes (the reference has no
-  hybrid_moe family).
+  hybrid_moe or mla family).
 
 On the card, after one eager decode step, the step is captured once as a
 CUDA graph (``models.lm.DecodeGraph``) and replayed every step after:
@@ -46,8 +47,11 @@ holding ``serve.admit`` (``serve.admit.tx``, then for each admitted
 request ``serve.prefill``, ``serve.first_token`` and ``serve.splice``
 with its ``rid``), ``serve.decode``, ``serve.token_rx`` (the RX
 submission until the last ticket returns) and ``serve.retire``; a decode
-replayed from the graph ticks the ``serve.graph_replay`` counter; each
-request marks ``serve.queue`` (submit to its slot) and ``serve.request``
+replayed from the graph ticks the ``serve.graph_replay`` counter; with a
+latent cache, each decode adds the rows the latent decode kernel reads to
+``attn.latent_rows`` (the active slots' live rows times the latent layers,
+from the host's own lengths, with no read from the device); each request
+marks ``serve.queue`` (submit to its slot) and ``serve.request``
 (submit to done). See :mod:`repro_torch.utils.trace`.
 """
 
@@ -77,6 +81,7 @@ from repro_torch.core.transfer import (
 )
 from repro_torch.models.api import Model
 from repro_torch.models.layers.attention import KVCache
+from repro_torch.models.layers.mla import LatentCache
 from repro_torch.models.lm import DecodeGraph, HybridCache
 from repro_torch.serve.engine import transfer_fault_summary
 from repro_torch.utils import trace
@@ -97,8 +102,9 @@ class Request:
     t_submit_ns: int = field(default=0, repr=False, compare=False)
 
 
-def _splice_slot(batch_cache: "KVCache | HybridCache",
-                 one_cache: "KVCache | HybridCache", slot: int) -> None:
+def _splice_slot(batch_cache: "KVCache | HybridCache | LatentCache",
+                 one_cache: "KVCache | HybridCache | LatentCache",
+                 slot: int) -> None:
     """Copy a batch-1 stacked cache ([L, 1, S_max, ...], one int length)
     into slot ``slot`` of the batched one ([L, B, S_max, ...], [B]
     lengths), in place; a ``HybridCache``'s SSM state and conv tail too.
@@ -128,14 +134,16 @@ class ContinuousBatchingEngine:
                  rx_timeout_s: float | None = 60.0,
                  qos: QosSpec | None = None,
                  admission: AdmissionPolicy | None = None):
-        if model.cfg.family not in ("dense", "moe", "vlm", "hybrid_moe"):
+        if model.cfg.family not in ("dense", "moe", "vlm", "hybrid_moe",
+                                    "mla"):
             # the ssm and hybrid states carry no per-slot length, and the
             # audio family's dict cache cannot be spliced (the reference
             # raises for the first two and cannot splice the third)
             raise NotImplementedError(
                 "continuous batching currently supports KV-cache families "
                 "(dense / moe / vlm / hybrid_moe, whose cache holds its "
-                f"Mamba2 state too), not {model.cfg.family!r}")
+                "Mamba2 state too / mla, whose cache is latent), not "
+                f"{model.cfg.family!r}")
         self.model = model
         self.params = params
         self.n_slots = n_slots
@@ -279,6 +287,11 @@ class ContinuousBatchingEngine:
         with trace.span("serve.decode"):
             if self._graph is not None:
                 trace.count("serve.graph_replay")
+            if isinstance(self.cache, LatentCache) and trace.enabled():
+                # each active slot's live rows, a latent layer each
+                trace.count("attn.latent_rows", int(np.minimum(
+                    self.lengths[active], self.max_seq).sum())
+                    * self.cache.kv.shape[0])
             logits, self.cache = self.model.decode(
                 self.params, self.tokens,
                 self.cache if self._graph is None else self._graph)

@@ -4,7 +4,8 @@
 An operator turns tracing on by running the profiler around the code of
 interest; nothing else turns it on. While no profiler records, every site
 costs one flag read: :func:`span` returns a shared null context and
-:func:`mark` / :func:`count` return at once.
+:func:`mark` / :func:`count` return at once (a count also reads
+whether a :func:`tally` is open on its thread).
 
 While a profiler records:
 
@@ -179,9 +180,27 @@ def mark(name: str, t0_ns: int, t1_ns: int, id: Any = None,
 
 
 def count(name: str, n: int = 1) -> None:
-    """Adds ``n`` to counter ``name``."""
-    if enabled() and _fresh():
+    """Adds ``n`` to counter ``name`` (inside :func:`tally` on this
+    thread, to the tally)."""
+    into = getattr(_local, "tally", None)
+    if into is not None:
+        into[name] = into.get(name, 0) + n
+    elif enabled() and _fresh():
         _counts.append((name, n))
+
+
+@contextlib.contextmanager
+def tally():
+    """``with tally() as t:`` sums into the dict ``t`` what this thread
+    counts inside the block, whether a profiler records or not, and
+    records none of it: for work captured now (a CUDA graph) that runs
+    later, whose replays add ``t`` again."""
+    outer = getattr(_local, "tally", None)
+    _local.tally = into = {}
+    try:
+        yield into
+    finally:
+        _local.tally = outer
 
 
 class Tag(NamedTuple):

@@ -41,7 +41,7 @@ from repro_torch.core.transfer import (
     TransferPolicy,
     reassemble_chunks,
 )
-from repro_torch.configs.registry import smoke_config
+from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.kernels._split import SPLIT_WORKSPACE
 from repro_torch.kernels.conv2d.kernel import CONV2D, conv_plan, conv_ranges
 from repro_torch.kernels.conv2d.ops import conv2d_relu
@@ -62,14 +62,20 @@ from repro_torch.kernels.streamed_matmul.kernel import (
     unique_one_block,
     unique_plan,
 )
-from repro_torch.kernels.decode_attention.kernel import DECODE
+from repro_torch.kernels.decode_attention.kernel import (
+    DECODE, MLA, mla_decode_bsd)
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, mla_decode_ref)
 from repro_torch.kernels.flash_attention.kernel import FLASH, SYMBOL
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_dkv_bshd)
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
+    flash_attention_dkv,
     flash_attention_plain,
 )
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.kernel import SSD
 from repro_torch.kernels.ssd_scan.ops import (
@@ -470,6 +476,72 @@ def test_flash_kernel_matches_plain(dev, b, sq, skv, h, hkv, d, causal,
     diff = (got.float() - ref).abs()
     assert torch.isfinite(got).all()
     assert bool((diff <= atol + rtol * ref.abs()).all()), float(diff.max())
+
+
+# MLA's decompressed prefill on the two-width entry: q / K 192 (128 + 64
+# rope columns), V 128 a view into [k_nope | v] of 256, 16 heads; a 4,096-
+# query chunk after 4,096 cached keys (dsv2lite.longdoc's second chunk), a
+# ragged last chunk, and a batch of prompts alone
+@pytest.mark.parametrize("b,sq,skv", [(1, 4096, 8192), (1, 777, 4873),
+                                      (2, 300, 300)])
+def test_flash_dkv_kernel_matches_plain(dev, b, sq, skv):
+    """Within flash's bf16 rule of the plain version (scores f32, p in
+    bf16), one launch of the two-width entry a call, repeats bitwise."""
+    g = torch.Generator().manual_seed(sq + skv)
+    q = torch.randn((b, sq, 16, 192), generator=g).to(dev, torch.bfloat16)
+    k = torch.randn((b, skv, 16, 192), generator=g).to(dev, torch.bfloat16)
+    v = torch.randn((b, skv, 16, 256), generator=g).to(
+        dev, torch.bfloat16)[..., 128:]
+    before = dict(FLASH.launches)
+    got = flash_attention_dkv(q, k, v, q_offset=skv - sq)
+    assert {s: FLASH.launches[s] - before[s] for s in before} == {
+        s: int(s == "flash_attention_fwd_tc_dkv") for s in before}
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, 16, 128)
+    ref = attention_ref(
+        q.transpose(1, 2).reshape(b * 16, sq, 192),
+        k.transpose(1, 2).reshape(b * 16, skv, 192),
+        v.transpose(1, 2).reshape(b * 16, skv, 128),
+        q_offset=skv - sq).reshape(b, 16, sq, 128).transpose(1, 2).float()
+    atol = 0.05 * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = (got.float() - ref).abs()
+    assert torch.isfinite(got).all()
+    assert bool((diff <= atol + 2e-2 * ref.abs()).all()), float(diff.max())
+    assert torch.equal(got, flash_attention_dkv(q, k, v, q_offset=skv - sq))
+
+
+def test_flash_dkv_kernel_raises_off_its_widths(dev):
+    """The two-width entry is built for (192, 128) in bf16: the smoke
+    config's widths, and f32, raise ``ValueError`` and launch nothing."""
+    before = dict(FLASH.launches)
+    for dk, dv, dt in ((24, 16, torch.bfloat16), (192, 128, torch.float32)):
+        q = torch.zeros((1, 8, 4, dk), device=dev, dtype=dt)
+        v = torch.zeros((1, 8, 4, dv), device=dev, dtype=dt)
+        with pytest.raises(ValueError):
+            flash_attention_dkv_bshd(q, q, v)
+    assert dict(FLASH.launches) == before
+
+
+def test_ragged_moe_matches_the_padded_buffer_on_card(dev):
+    """DeepSeek-V2-Lite's MoE (64 experts of 1,408, top-6 not
+    renormalised, the shared MLP of 2,816) on a 4,096-token chunk in bf16:
+    each expert over its own seats gives the padded buffer's output within
+    1% of each row's RMS (the same bf16 products in GEMMs of other shapes
+    round differently; a wrong or missing seat moves a row by tens of
+    percent)."""
+    from repro_torch.models.layers import moe
+
+    g = torch.Generator(dev).manual_seed(11)
+    p = moe.moe_params(g, 2048, 64, 1408, 2, torch.bfloat16, dev)
+    x = torch.randn((1, 4096, 2048), generator=g, device=dev).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        want, _ = moe.moe_apply(p, x, top_k=6, capacity_factor=64 / 6,
+                                renormalize=False)
+        got, _ = moe.moe_apply(p, x, top_k=6, capacity_factor=64 / 6,
+                               renormalize=False, ragged_tokens=256)
+    want, got = want.float(), got.float()
+    err = (got - want).pow(2).mean(-1).sqrt() / want.pow(2).mean(-1).sqrt()
+    assert bool((err <= 0.01).all()), float(err.max())
 
 
 def _small_lm(**over):
@@ -1210,6 +1282,149 @@ def test_graph_replayed_decode_is_bitwise_eager(dev, arch):
     assert sorted(r.rid for r in done) == list(range(5))
     assert counts.get("serve.graph_replay") == 1
     assert counts.get("attn.decode") == 2 * n_attn
+    assert [g for g, _, _ in seen] == [False] + [True] * (len(seen) - 1)
+    assert len(seen) >= 8 and all(lg and c for _, lg, c in seen), seen
+
+
+# dsv2lite.longdoc's decode (32 slots, S_max 18,432, ~9,500 live rows, the
+# YaRN sigma), a small batch, an int and a 0-d length; the rows as a layer
+# of a stacked [L, B, S, 576] cache
+@pytest.mark.parametrize("b,s_max,median,length,scale", [
+    (32, 18432, 9500, "slots", 0.11472138679292612),
+    (8, 1000, 300, "slots", 0.0721),
+    (4, 700, 0, "int", 0.1),
+    (3, 300, 0, "0-d", 0.3),
+])
+def test_mla_decode_kernel_matches_plain(dev, b, s_max, median, length,
+                                         scale):
+    """Within flash's bf16 rule (2e-2 |ref| + 0.05 RMS of the plain output
+    row: the kernel rounds each p to bf16 against a running maximum, the
+    plain version against the row's, and sums in another order), one
+    launch a call, two calls bitwise equal."""
+    g = torch.Generator().manual_seed(s_max + b)
+    q = torch.randn((b, 16, 576), generator=g).to(dev, torch.bfloat16)
+    rows = torch.randn((2, b, s_max, 576), generator=g).to(
+        dev, torch.bfloat16)[1]
+    n = {"slots": _decode_lengths(b, s_max, median, s_max).to(dev),
+         "int": s_max // 3, "0-d": torch.tensor(s_max + 9, device=dev)}[
+        length]
+    before = MLA.launches["mla_decode"]
+    got = mla_decode_bsd(q, rows, n, scale=scale)
+    assert MLA.launches["mla_decode"] - before == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, 16, 512)
+    ref = mla_decode_ref(q, rows, n, scale=scale, value_dim=512).float()
+    atol = 0.05 * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = (got.float() - ref).abs()
+    assert torch.isfinite(got).all()
+    assert bool((diff <= atol + 2e-2 * ref.abs()).all()), float(diff.max())
+    assert torch.equal(got, mla_decode_bsd(q, rows, n, scale=scale))
+
+
+def _mla_lm():
+    """DeepSeek-V2-Lite's smoke LM in bf16 at the latent kernel's widths
+    (16 heads, c of 512, k^R of 64, values of 128)."""
+    cfg = smoke_config("deepseek-v2-lite").replace(
+        dtype="bfloat16", n_heads=16, n_kv_heads=16, kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    return cfg, model, params
+
+
+def test_mla_decode_steps_take_the_kernel_on_card(dev):
+    """Decode steps of the smoke DeepSeek-V2-Lite at the kernel's widths
+    launch it once a layer a step, and give the CPU's logits (the CPU
+    takes the plain version) within 5% of each row's RMS, in RMS over the
+    row: the card's bf16 products and the kernel's rounding of p each move
+    a row by up to ~2% after three layers and their MoE, where a wrong or
+    missing latent row moves it by tens of percent."""
+    cfg, model, params = _mla_lm()
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (3, 1)).astype(np.int32))
+    kv0 = torch.randn(model.init_cache(3, 40, device="cpu").kv.shape,
+                      generator=torch.Generator().manual_seed(5))
+    out = {}
+    for where in ("cpu", dev):
+        ps = _tree_to(params, where)
+        cache = model.init_cache(3, 40, device=where)
+        cache.kv.copy_(kv0)  # earlier tokens' rows
+        cache = cache._replace(length=torch.tensor([0, 17, 39],
+                                                   device=where))
+        rows, before = [], MLA.launches["mla_decode"]
+        for _ in range(3):
+            logits, cache = model.decode(ps, toks.to(where), cache)
+            rows.append(logits.float().cpu())
+        out[str(where)] = torch.stack(rows)
+        if where != "cpu":
+            assert MLA.launches["mla_decode"] - before == 3 * cfg.n_layers
+    want, got = out["cpu"], out[str(dev)]
+    err = (got - want).pow(2).mean(-1).sqrt() / want.pow(2).mean(-1).sqrt()
+    assert bool((err <= 0.05).all()), err
+
+
+@pytest.mark.parametrize("widths", ["smoke", "float32"])
+def test_mla_decode_off_the_kernel_raises_on_card(dev, widths):
+    """On the card a decode step takes the latent kernel or raises: the
+    smoke config's own widths (4 heads, c of 32), and f32 at the kernel's
+    widths, raise ``ValueError`` rather than fall back to the plain
+    version, which only CPU tensors take."""
+    cfg = (smoke_config("deepseek-v2-lite").replace(dtype="bfloat16")
+           if widths == "smoke" else _mla_lm()[0].replace(dtype="float32"))
+    model = build_model(cfg)
+    params = _tree_to(model.init(torch.Generator().manual_seed(0), "cpu"),
+                      dev)
+    cache = model.init_cache(2, 16, device=dev)
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="latent kernel"):
+        model.decode(params, tok, cache)
+
+def test_graph_replayed_dsv2lite_decode_is_bitwise_eager(dev):
+    """DeepSeek-V2-Lite at every published width (27 layers, 15.7B
+    parameters in bf16) served on 32 slots: each decode step, replayed
+    from the graph the engine captures after its first step, gives bitwise
+    the logits, latent cache and length of an eager decode of the same
+    inputs, over every step of 40 requests (admissions splice into the
+    graph's cache after the capture); a replay ticks ``attn.decode_latent``
+    once a layer (the profiled step's eager twin as often again) and
+    ``attn.decode`` not at all."""
+    cfg = get_config("deepseek-v2-lite")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    seen = []  # (graphed, logits equal, cache equal)
+
+    def decode(ps, token, cache):
+        graphed = isinstance(cache, lm.DecodeGraph)
+        static = cache.cache if graphed else cache
+        tok0, cache0 = token.clone(), _snapshot(static)
+        logits, new = model.decode(ps, token, cache)
+        want, want_cache = model.decode(ps, tok0, cache0)
+        seen.append((graphed, torch.equal(logits, want), all(
+            torch.equal(getattr(new, f), getattr(want_cache, f))
+            for f in new._fields)))
+        return logits, new
+
+    rng = np.random.default_rng(6)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(
+        np.int32), max_new_tokens=int(new)) for i, (n, new) in enumerate(
+            zip(rng.integers(8, 40, 40), rng.integers(2, 8, 40)))]
+    with _private_engine(dataclasses.replace(model, decode=decode), params,
+                         n_slots=32, max_seq=64) as eng:
+        for r in reqs:
+            assert eng.submit(r).admitted
+        eng.step()
+        assert isinstance(eng._graph, lm.DecodeGraph)
+        eng.step()  # the capture
+        trace.enabled()  # seen off: the profiled step's records start afresh
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            eng.step()
+            counts = trace.counters()
+        done = eng.run_to_completion()
+    assert sorted(r.rid for r in done) == list(range(40))
+    assert counts.get("serve.graph_replay") == 1
+    assert counts.get("attn.decode_latent") == 2 * cfg.n_layers
+    assert not counts.get("attn.decode")
+    assert counts.get("attn.latent_rows", 0) > 0
     assert [g for g, _, _ in seen] == [False] + [True] * (len(seen) - 1)
     assert len(seen) >= 8 and all(lg and c for _, lg, c in seen), seen
 

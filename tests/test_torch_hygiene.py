@@ -43,7 +43,8 @@ SLICE_MODULES = [
     "repro_torch.kernels.decode_attention.ref",
     "repro_torch.kernels.decode_attention.kernel",
     "repro_torch.kernels.decode_attention.ops",
-    "repro_torch.models.layers.attention", "repro_torch.models.lm",
+    "repro_torch.models.layers.attention", "repro_torch.models.layers.mla",
+    "repro_torch.configs.deepseek_v2_lite", "repro_torch.models.lm",
     "repro_torch.models.api", "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.launch.serve", "repro_torch.kernels.ssd_scan",
     "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.kernel",

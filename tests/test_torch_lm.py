@@ -415,12 +415,21 @@ def test_prefill_chunked_matches_reference():
     tl, tc = lm.prefill_chunked(m.cfg, tp, _t(toks), 32, chunk=8)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
     np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), atol=ATOL)
-    # Model.prefill takes the chunked path when prefill_chunk divides S
+    # Model.prefill takes the chunked path when the prompt is longer than
+    # prefill_chunk
     _, mc, _, tpc = _pair("qwen2.5-3b", prefill_chunk=8)
     tl2, _ = mc.prefill(tpc, {"tokens": _t(toks)}, 32)
     np.testing.assert_allclose(tl2.numpy(), tl.numpy(), atol=ATOL, rtol=0)
-    with pytest.raises(ValueError, match="divisible"):
-        lm.prefill_chunked(m.cfg, tp, _t(toks[:, :20]), 32, chunk=8)
+    # a prompt the chunk does not divide ends in a shorter chunk: the
+    # reference's single-shot prefill, and Model.prefill takes it too
+    jl3, jc3 = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :20])}, 32)
+    tl3, tc3 = lm.prefill_chunked(m.cfg, tp, _t(toks[:, :20]), 32, chunk=8)
+    np.testing.assert_allclose(tl3.numpy(), np.asarray(jl3), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(tc3.k.numpy(), np.asarray(jc3.k), atol=ATOL)
+    assert tc3.length == 20
+    tl4, _ = mc.prefill(tpc, {"tokens": _t(toks[:, :20])}, 32)
+    assert torch.equal(tl4, tl3)
 
 
 def test_swa_decode_sliced_cache_matches_reference():

@@ -6,6 +6,7 @@ the transfer engine's descriptors and the serving step."""
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 
@@ -114,6 +115,26 @@ def test_buffer_is_bounded_and_a_new_session_starts_clean(monkeypatch):
     assert [r.name for r in trace.records()] == ["next"]
     assert trace.counters() == {}
 
+
+@pytest.mark.parametrize("profiling", [False, True])
+def test_a_tally_sums_this_threads_counts_and_records_none(profiling):
+    """What a captured step counts (``models/lm.py:DecodeGraph``) goes to
+    the tally, profiler or not, and to no session; another thread's
+    counts, and counts after the block, are recorded as ever."""
+    other = threading.Thread(target=trace.count, args=("other",))
+    with _profiling() if profiling else contextlib.nullcontext():
+        trace.count("before")
+        with trace.tally() as t:
+            trace.count("attn.decode", 2)
+            trace.count("attn.decode")
+            trace.count("attn.decode_latent", 27)
+            other.start()
+            other.join()
+        trace.count("after")
+        got = trace.counters()
+    assert t == {"attn.decode": 3, "attn.decode_latent": 27}
+    if profiling:
+        assert got == {"before": 1, "other": 1, "after": 1}
 
 def test_done_event_marks_the_wake_of_its_waiter():
     done = trace.Done()
