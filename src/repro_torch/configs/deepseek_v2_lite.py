@@ -30,7 +30,7 @@ def config() -> ModelConfig:
         yarn_beta_slow=1.0, yarn_mscale=0.707,
         d_ff=10944, first_k_dense=1,
         n_experts=64, top_k=6, n_shared_experts=2, d_expert=1408,
-        capacity_factor=64 / 6, moe_renormalize=False, moe_ragged_tokens=256,
+        capacity_factor=64 / 6, moe_renormalize=False,
         norm_eps=1e-6, prefill_chunk=4096, use_pallas_attention=True,
         mlp="gated_silu", norm="rms",
     )

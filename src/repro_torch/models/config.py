@@ -103,9 +103,10 @@ class ModelConfig:
     yarn_mscale: float = 1.0  # mscale = mscale_all_dim: the scores' term
     first_k_dense: int = 0  # leading layers whose FFN is a dense MLP of d_ff
     moe_renormalize: bool = True  # top-k gate weights renormalised over k
-    # from this many tokens on, a MoE whose capacity seats every token runs
-    # each expert over its own seats, not the padded buffer (0: never)
-    moe_ragged_tokens: int = 0
+    # a prefill of at least this many tokens whose MoE capacity seats
+    # every token runs each expert over its own seats, not the padded
+    # buffer (1: every such prefill; 0: never)
+    moe_ragged_tokens: int = 1
     # -- enc-dec (seamless) --
     n_enc_layers: int = 0
     # -- modality frontend stubs --

@@ -23,8 +23,9 @@ While a ``torch.profiler`` records, the layer's phases are ranges named
 ``moe.dispatch`` (routing, seats, the dispatch writes), ``moe.experts``
 (the expert products), ``moe.combine`` (the weighted gathers) and
 ``moe.shared`` (the shared experts), so a trace splits the layer's device
-time between them (spans of :mod:`repro_torch.utils.trace`); with no
-profiler they cost a flag read.
+time between them (spans of :mod:`repro_torch.utils.trace`), and the
+counters ``moe.rows`` / ``moe.seats`` tally the expert products' rows
+against the seats they serve; with no profiler they cost a flag read.
 """
 
 from __future__ import annotations
@@ -108,25 +109,35 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     (:func:`_shard_experts`; nothing without a mesh). A ``DTensor`` ``x``
     takes :func:`_sharded_moe`, expert parallelism with the same seats.
 
-    ``ragged_tokens`` (0: never): from this many bf16 tokens on, where the
-    capacity seats every token (no seat can drop), grad mode is off and no
-    CUDA graph is being captured, the experts run over their own seats
-    alone (:func:`_ragged_experts`, grouped products) instead of over the
-    padded [E, C, D] buffer, which at capacity T holds E / top_k times the
-    seated rows. The seats, the gate weights and the k-by-k combine are
-    the same."""
+    ``ragged_tokens`` (0: never): on a bf16 prefill (S > 1) of at least
+    this many tokens, where the capacity seats every token (no seat can
+    drop), grad mode is off and no CUDA graph is being captured, the
+    experts run over their own seats alone (:func:`_ragged_experts`,
+    grouped products) instead of over the padded [E, C, D] buffer, which
+    at capacity T holds E / top_k times the seated rows. The seats, the
+    gate weights and the k-by-k combine are the same, and nothing on that
+    route waits on the host. A one-token step (S = 1, a decode step) keeps
+    the padded buffer, eager or captured, so the eager step before a
+    capture runs the kernels the capture records.
+
+    Each call counts ``moe.rows``, the rows the expert products compute
+    (E * C padded, top_k * T grouped), and ``moe.seats``, top_k * T."""
     b, s, d = x.shape
     e = p["we_up"].shape[0]
     t = b * s
     capacity = max(int(math.ceil(top_k * t / e * capacity_factor)), 1)
+    ragged = (not is_dtensor(x) and s > 1 and 0 < ragged_tokens <= t
+              and capacity >= t and x.dtype == torch.bfloat16
+              and not torch.is_grad_enabled()
+              and not (x.is_cuda and torch.cuda.is_current_stream_capturing()))
+    trace.count("moe.rows", top_k * t if ragged else e * capacity)
+    trace.count("moe.seats", top_k * t)
     if is_dtensor(x):
         return _sharded_moe(p, x, top_k=top_k, capacity=capacity,
                             ep_sharding=ep_sharding, renormalize=renormalize)
     xt = x.reshape(t, d)
-    if (0 < ragged_tokens <= t and capacity >= t and x.dtype == torch.bfloat16
-            and not torch.is_grad_enabled()
-            and not (xt.is_cuda and torch.cuda.is_current_stream_capturing())):
-        out, metrics = _ragged_moe(p, xt, top_k, capacity, renormalize)
+    if ragged:
+        out, metrics = _ragged_moe(p, xt, top_k, renormalize)
         return out.reshape(b, s, d), metrics
 
     with trace.span("moe.dispatch"):
@@ -170,7 +181,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     return out.reshape(b, s, d), MoEMetrics(aux, seats.dropped)
 
 
-def _ragged_moe(p: dict, xt: torch.Tensor, top_k: int, capacity: int,
+def _ragged_moe(p: dict, xt: torch.Tensor, top_k: int,
                 renormalize: bool) -> tuple[torch.Tensor, MoEMetrics]:
     """:func:`moe_apply` on tokens xt [T, D] where every seat is kept: the
     same gates, seats and k-by-k combine, the experts over their own seats
@@ -182,7 +193,7 @@ def _ragged_moe(p: dict, xt: torch.Tensor, top_k: int, capacity: int,
                                             renormalize)
         flat_e = gate_idx.T.reshape(-1)  # [K*T], slot-major, as _seats'
         # every seat kept: _seats' f_e and dropped, without the queue places
-        counts = torch.bincount(flat_e, minlength=e)
+        counts = _seat_counts(flat_e, e)
         f_e = counts.float() / float(top_k * t)
     with trace.span("moe.experts"):
         ys = _ragged_experts(p, xt, flat_e, counts)  # [K*T, D]
@@ -196,14 +207,22 @@ def _ragged_moe(p: dict, xt: torch.Tensor, top_k: int, capacity: int,
     return out, MoEMetrics(aux, torch.zeros((), device=xt.device))
 
 
+def _seat_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """[E] int64: each expert's seats among ``flat_e``, summed on the
+    device (CUDA's ``torch.bincount`` reads its input's range on the host
+    to size its output, a sync)."""
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
 def _ragged_experts(p: dict, xt: torch.Tensor, flat_e: torch.Tensor,
                     counts: torch.Tensor) -> torch.Tensor:
     """Every seat's expert output [K*T, D], seat-major (``k * T + t``), with
     each expert run over its own seats only (``counts`` [E]: its seats):
     the seats sorted by expert (stably), each projection one grouped
     product over the experts' row groups (``torch._grouped_mm``, bf16; the
-    groups' ends stay on the device, so nothing waits on the host), then
-    put back in seat order."""
+    groups' ends stay on the device), then put back in seat order."""
     t = xt.shape[0]
     order = torch.argsort(flat_e, stable=True)
     ends = counts.cumsum(0).to(torch.int32)  # each expert's seats' end

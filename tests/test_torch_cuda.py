@@ -521,24 +521,38 @@ def test_flash_dkv_kernel_raises_off_its_widths(dev):
     assert dict(FLASH.launches) == before
 
 
-def test_ragged_moe_matches_the_padded_buffer_on_card(dev):
-    """DeepSeek-V2-Lite's MoE (64 experts of 1,408, top-6 not
-    renormalised, the shared MLP of 2,816) on a 4,096-token chunk in bf16:
-    each expert over its own seats gives the padded buffer's output within
-    1% of each row's RMS (the same bf16 products in GEMMs of other shapes
-    round differently; a wrong or missing seat moves a row by tens of
-    percent)."""
+@pytest.mark.parametrize("d,e,f,k,shared,renormalize", [
+    (2048, 64, 1408, 6, 2, False),  # DeepSeek-V2-Lite
+    (4096, 72, 768, 10, 2, True),  # granite-4.0-h-small: shared MLP 1,536
+], ids=["deepseek-v2-lite", "granite-4.0-h-small"])
+def test_ragged_moe_matches_the_padded_buffer_on_card(dev, d, e, f, k, shared,
+                                                      renormalize):
+    """A dropless MoE at a published model's widths on a 4,096-token chunk
+    in bf16: each expert over its own seats gives the padded buffer's
+    output within 1% of each row's RMS (the same bf16 products in GEMMs of
+    other shapes round differently; a wrong or missing seat moves a row by
+    tens of percent), and the grouped route never waits on the host (no
+    call under ``set_sync_debug_mode("error")`` raises; its counters say
+    the checked call took it)."""
     from repro_torch.models.layers import moe
+    from repro_torch.utils import trace
 
     g = torch.Generator(dev).manual_seed(11)
-    p = moe.moe_params(g, 2048, 64, 1408, 2, torch.bfloat16, dev)
-    x = torch.randn((1, 4096, 2048), generator=g, device=dev).to(
+    p = moe.moe_params(g, d, e, f, shared, torch.bfloat16, dev)
+    x = torch.randn((1, 4096, d), generator=g, device=dev).to(
         torch.bfloat16)
+    kw = dict(top_k=k, capacity_factor=e / k, renormalize=renormalize)
     with torch.no_grad():
-        want, _ = moe.moe_apply(p, x, top_k=6, capacity_factor=64 / 6,
-                                renormalize=False)
-        got, _ = moe.moe_apply(p, x, top_k=6, capacity_factor=64 / 6,
-                               renormalize=False, ragged_tokens=256)
+        want, _ = moe.moe_apply(p, x, **kw)
+        moe.moe_apply(p, x, ragged_tokens=256, **kw)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with trace.tally() as counts:
+                got, _ = moe.moe_apply(p, x, ragged_tokens=256, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert counts == {"moe.rows": k * 4096, "moe.seats": k * 4096}
     want, got = want.float(), got.float()
     err = (got - want).pow(2).mean(-1).sqrt() / want.pow(2).mean(-1).sqrt()
     assert bool((err <= 0.01).all()), float(err.max())

@@ -109,7 +109,7 @@ def test_the_registry_gives_the_published_widths():
     # prefill chunks attend on the flash kernel's two-width entry, and
     # their experts run over their own seats; decode steps (at most 32
     # slots) keep the padded buffer a CUDA graph replays
-    assert cfg.use_pallas_attention and cfg.moe_ragged_tokens == 256
+    assert cfg.use_pallas_attention and cfg.moe_ragged_tokens == 1
     # every token has a seat at every expert: dropless
     assert math.ceil(cfg.top_k * 4096 / cfg.n_experts
                      * cfg.capacity_factor) == 4096
@@ -426,7 +426,7 @@ NEW_DEFAULTS = dict(kv_lora_rank=0, qk_nope_head_dim=0, qk_rope_head_dim=0,
                     v_head_dim=0, yarn_factor=0.0, yarn_original_max_pos=4096,
                     yarn_beta_fast=32.0, yarn_beta_slow=1.0, yarn_mscale=1.0,
                     first_k_dense=0, moe_renormalize=True,
-                    moe_ragged_tokens=0)
+                    moe_ragged_tokens=1)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-moe-16b"])

@@ -3,6 +3,8 @@ reference's at the granite and deepseek smoke shapes (the same params and
 inputs, through ``params_from_jax``), the reference's own layer tests
 mirrored on the port, and the moe model end to end."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ import repro_torch.configs.registry as registry
 from repro_torch.models import lm
 from repro_torch.models.api import build_model
 from repro_torch.models.layers import moe
+from repro_torch.utils import trace
 
 # the suite runs in several worker processes on one host: one intra-op
 # thread each keeps torch from oversubscribing the cores that the
@@ -63,21 +66,40 @@ def test_moe_apply_matches_reference(arch, capacity_factor):
         assert float(tm.dropped_frac) > 0
 
 
-@pytest.mark.parametrize("arch", SMOKE)
-def test_moe_apply_bf16_matches_reference(arch):
+@pytest.mark.parametrize("arch,grouped", [
+    *(pytest.param(a, False, id=a) for a in SMOKE),
+    *(pytest.param(a, True, id=f"{a}-grouped") for a in SMOKE)])
+def test_moe_apply_bf16_matches_reference(arch, grouped):
     """bf16 activations and experts, f32 router: the same routing, outputs
     within bf16's limit (the k-by-k combine rounds to bf16 on both
-    sides)."""
+    sides). Grouped: at the capacity that seats every token, with no grad,
+    the port's experts over their own seats against the reference's
+    padded buffer, the same aux loss."""
     p, cfg = _layer(arch, "bfloat16")
     assert p["router"].dtype == np.float32
     x = np.random.default_rng(2).standard_normal(
         (2, 16, cfg.d_model)).astype(np.float32)
-    (jo, jm), (to, tm) = _both(p, x, "bfloat16", top_k=cfg.top_k)
+    t = x.shape[0] * x.shape[1]
+    kw = dict(top_k=cfg.top_k)
+    if grouped:
+        kw["capacity_factor"] = cfg.n_experts / cfg.top_k
+    jo, jm = jmoe.moe_apply({k: jnp.asarray(v) for k, v in p.items()},
+                            jnp.asarray(x, jnp.bfloat16), **kw)
+    with torch.no_grad(), trace.tally() as counts:
+        to, tm = moe.moe_apply(lm.params_from_jax(p, "cpu"),
+                               torch.from_numpy(x).to(torch.bfloat16),
+                               ragged_tokens=t if grouped else 0, **kw)
+    assert counts["moe.seats"] == cfg.top_k * t
+    assert (counts["moe.rows"] == cfg.top_k * t) == grouped
     assert to.dtype == torch.bfloat16
     np.testing.assert_allclose(to.float().numpy(),
                                np.asarray(jo, np.float32), rtol=2e-2,
                                atol=2e-2)
     assert float(tm.dropped_frac) == float(jm.dropped_frac)
+    if grouped:
+        assert float(tm.dropped_frac) == 0
+        np.testing.assert_allclose(float(tm.aux_loss), float(jm.aux_loss),
+                                   rtol=0, atol=1e-6)
 
 
 def test_routing_matches_reference_seat_by_seat():
@@ -179,3 +201,85 @@ def test_moe_model_aux_loss_is_the_sum_over_layers():
     assert aux.dtype == torch.float32 and aux.dim() == 0
     np.testing.assert_allclose(float(aux), float(jaux), rtol=0, atol=1e-6)
     assert float(aux) > 0
+
+
+# ---- the experts over their own seats, chosen by the call's shape --------
+
+def _dropless_smoke():
+    """granite-moe's smoke config, bf16, at the capacity that seats every
+    token at every expert; ``moe_ragged_tokens`` left at its default."""
+    cfg = registry.smoke_config("granite-moe-1b-a400m")
+    return cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+@pytest.mark.parametrize("shape,grad,dropless,grouped", [
+    ((1, 256), False, True, True),
+    ((2, 128), False, True, True),  # a batch of prompts
+    ((64, 1), False, True, False),  # one token a row: a decode step
+    ((1, 256), True, True, False),
+    ((1, 256), False, False, False),  # capacity 1.25: seats can drop
+    ((1, 16), False, True, True),  # a short prompt
+])
+def test_a_model_routes_by_the_calls_shape(monkeypatch, shape, grad,
+                                           dropless, grouped):
+    """A model whose config leaves ``moe_ragged_tokens`` unset runs each
+    expert over its own seats on a bf16, no-grad, dropless prefill of any
+    length, and the padded buffer on a one-token step, with grad on, or
+    where a seat can drop; ``moe.rows`` / ``moe.seats`` tick K*T / K*T on
+    the first, E*C / K*T on the second, a layer each."""
+    cfg = _dropless_smoke() if dropless else registry.smoke_config(
+        "granite-moe-1b-a400m")
+    assert cfg.moe_ragged_tokens == 1 and cfg.dtype == "bfloat16"
+    calls = []
+    real = moe._ragged_experts
+    monkeypatch.setattr(moe, "_ragged_experts",
+                        lambda *a: calls.append(1) or real(*a))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, shape))
+    with torch.set_grad_enabled(grad), trace.tally() as counts:
+        logits, _ = model.forward(params, {"tokens": toks})
+    assert bool(torch.isfinite(logits.float()).all())
+    t = shape[0] * shape[1]
+    seats = cfg.top_k * t
+    cap = math.ceil(cfg.top_k * t / cfg.n_experts * cfg.capacity_factor)
+    assert len(calls) == (cfg.n_layers if grouped else 0)
+    assert counts == {"moe.rows": cfg.n_layers * (
+        seats if grouped else cfg.n_experts * cap),
+        "moe.seats": cfg.n_layers * seats}
+
+
+@pytest.mark.parametrize("ragged_tokens", [0, 20])
+def test_the_counters_tick_the_rows_each_route_computes(ragged_tokens):
+    """One call of the layer: ``moe.rows`` E*C on the padded buffer, K*T
+    over the experts' own seats; ``moe.seats`` K*T on both. A call
+    outside a tally with no profiler recording keeps nothing."""
+    e, k, t = 8, 3, 20
+    p = moe.moe_params(torch.Generator().manual_seed(9), 32, e, 16, 0,
+                       torch.bfloat16)
+    x = torch.randn((1, t, 32), generator=torch.Generator().manual_seed(4))
+    cf = e / k  # capacity T: dropless
+    with torch.no_grad(), trace.tally() as counts:
+        moe.moe_apply(p, x.to(torch.bfloat16), top_k=k, capacity_factor=cf,
+                      ragged_tokens=ragged_tokens)
+    assert counts == {"moe.rows": k * t if ragged_tokens else e * t,
+                      "moe.seats": k * t}
+    before = trace.counters()
+    with torch.no_grad():
+        moe.moe_apply(p, x.to(torch.bfloat16), top_k=k, capacity_factor=cf,
+                      ragged_tokens=ragged_tokens)
+    assert trace.counters() == before
+
+
+@pytest.mark.parametrize("e,n,seed", [(8, 60, 0), (72, 2560, 1),
+                                      (64, 6, 2), (4, 0, 3)])
+def test_the_scatter_seat_counts_are_bincounts(e, n, seed):
+    """Each expert's seats summed by a scatter on the device: exactly
+    ``torch.bincount``'s counts, dtype and all, experts that take no seat
+    included."""
+    flat_e = torch.randint(0, e, (n,),
+                           generator=torch.Generator().manual_seed(seed))
+    got = moe._seat_counts(flat_e, e)
+    want = torch.bincount(flat_e, minlength=e)
+    assert got.dtype == want.dtype and torch.equal(got, want)
