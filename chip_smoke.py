@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py kda   # phases 1-3 and 12d alone
 
 Phases, in order; any failure exits non-zero before a result is printed:
 
@@ -239,6 +240,17 @@ Phases, in order; any failure exits non-zero before a result is printed:
    ``max_memory_allocated`` and the ms beside the roofline terms,
    printed), then qwen2.5-3b decode_32k on the (16, 16) mesh under the
    ``fake`` backend, ``ok``;
+12d. Kimi-Linear's kernels at kimilinear.agent's shapes (a ``kda`` line):
+   the chunked KDA prefill over a 4,096-token chunk, the KDA decode step
+   over 64 slots, the KDA prologue and gated norm over the chunk, and the
+   32-head latent decode kernel over 64 slots of 40,960 rows (~14k live),
+   each against its plain version at the card tests' tolerances with the
+   launch counts zeroed first, timed beside its bound, its plain version
+   and SDPA for the latent kernel; one eager full-width decode step counted
+   from zero (20 of each KDA decode entry, 7 latent launches); then the
+   ``kimi_depth`` line (not gated): the served bf16 logits against the
+   cell's float32 reference at 5, 13 and 27 layers, at 27 without the
+   router's bias and beside the reference's fp8 and bf16-state controls;
 13. each kernel timed at its path's shapes beside its bound, its plain
    version and one library call where one exists (the yardstick; the port
    never calls it); conv2d per RoShamBo layer at batch 1 as the frame
@@ -252,7 +264,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
    and f32 and the state pass at mamba2's shape, with the device ms of a
    launch of each in mamba2's profiled forward;
 14. a ``kernels`` JSON line (flash's launches summed over the qwen, moe
-   and vlm scoring paths and the streamed scan; the SSD rows' training launches beside theirs), the card line, and the ``ok`` line last.
+   and vlm scoring paths and the streamed scan; the SSD rows' training
+   launches beside theirs; 12d's rows), the card line, and the ``ok`` line
+   last.
 
 Every time printed comes from this run on the card named by the ``card``
 line printed after the build (``nvidia-smi`` name and power limit).
@@ -2643,6 +2657,361 @@ def flash_dkv_phase(np, torch, dev, libs) -> dict:
         "phase_s": time.perf_counter() - t_phase}
 
 
+KDA_TOKENS, KDA_SLOTS = 4096, 64  # kimilinear.agent's prefill chunk, slots
+KIMI_S_MAX, KIMI_LIVE = 40960, 14000  # its max_seq; ~ live rows a slot
+
+
+def _kda_inputs(torch, dev, b, s, h=32, d=128, seed=0):
+    """KDA's kernel inputs at Kimi-Linear's widths as the card tests make
+    them: q, k L2-normalised (q times d^-1/2), v a view of a wider row, a
+    log decay per channel in [-6, 0], beta in (0, 1), a nonzero state."""
+    F = torch.nn.functional
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    q = F.normalize(rn(b, s, h, d), dim=-1) * d ** -0.5
+    k = F.normalize(rn(b, s, h, d), dim=-1)
+    v = rn(b, s, 3, h, d)
+    dec = -torch.rand((b, s, h, d), generator=g, device=dev) ** 4 * 6.0
+    beta = torch.rand((b, s, h), generator=g, device=dev)
+    st = rn(b, h, d, d) * 0.3
+    bf = torch.bfloat16
+    return q.to(bf), k.to(bf), v.to(bf)[:, :, 2], dec, beta, st
+
+
+def _rms_rule(torch, got, want, rms_frac, rel, what):
+    """Fails unless |got - want| <= rms_frac RMS(want) + rel |want| (the
+    card tests' rule); returns the widest |d| / RMS(want)."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{what}: not finite")
+    rms = float(want.pow(2).mean().sqrt())
+    diff = (got - want).abs()
+    if bool((diff > rms_frac * rms + rel * want.abs()).any()):
+        fail(f"{what}: kernel vs plain max |d| {float(diff.max())} over "
+             f"RMS {rms} ({rms_frac} RMS + {rel} |ref|)")
+    return float(diff.max()) / rms
+
+
+def kda_phase(np, torch, dev, libs) -> list[dict]:
+    """12d. Kimi-Linear's kernels at kimilinear.agent's shapes (a ``kda``
+    line): each KDA entry against its plain version (``kernels/kda/ref.py``)
+    at the card tests' tolerances, with every library's launch counts
+    zeroed first and each call's one launch checked: ``kda_chunk`` over a
+    4,096-token prefill chunk of 32 heads of 128 from a nonzero state (o
+    within 1% of its RMS plus 0.8% of the value, the state within 1e-3),
+    two calls bitwise; ``kda_step`` over 64 slots (o within 0.1% of its
+    RMS plus 0.8%, the state within 1e-5); ``kda_prep`` (the convs, norms
+    and gates) and ``kda_out`` (the gated norm) over the same chunk;
+    ``mla_decode`` at 32 heads over 64 slots of 40,960 rows, ~14k live
+    (flash's bf16 rule), with SDPA over a mask of the live rows beside it;
+    then one eager decode step of Kimi-Linear at every published width on
+    those 64 slots, counted from zero: 20 launches of each of
+    ``kda_step``, ``kda_prep`` and ``kda_out`` and 7 of ``mla_decode``,
+    nothing else. Each kernel's time by CUDA events and by the profiler,
+    its least time (``perfbench/counts/kda_lm.py`` and ``mla_lm.py``, or
+    the bytes it must move where those count nothing), its plain
+    version's at the same shape, and the library's where one call
+    computes the function. Returns the kernel table's rows."""
+    import torch.nn.functional as F
+
+    from perfbench.counts.kda_lm import chunk_prefill, decode_step
+    from perfbench.counts.mla_lm import latent_decode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attention.kernel import MLA, mla_decode_bsd
+    from repro_torch.kernels.decode_attention.ref import (
+        live_rows, mla_decode_ref)
+    from repro_torch.kernels.kda.kernel import (
+        KDA, kda_chunk_call, kda_out_call, kda_prep_call, kda_step_call)
+    from repro_torch.kernels.kda.ref import (
+        kda_chunk_ref, kda_out_ref, kda_prep_ref, kda_step_ref)
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers.mla import mla_scale
+
+    t_phase = time.perf_counter()
+    counted = json.loads((ROOT / "perfbench" / "configs"
+                          / "kimi-linear-48b-a3b-instruct.json").read_text())
+    src = "src/repro_torch/kernels/kda/csrc/kda.cu"
+    line, rows = {}, []
+
+    def row(name, shape, ms_fn, plain_fn, b_ms, by, err, extra=None,
+            iters=20):
+        r = {"name": name, "route": "cuda", "source": src, "replaces": None,
+             "replaces_note": "no pallas_call: the reference has no linear "
+                              "attention",
+             "launches": KDA.launches.get(name, 0), "max_abs_err_bf16": err,
+             "ms": time_ms(torch, ms_fn, iters=iters),
+             "device_ms": device_ms_per_call(torch, ms_fn, n=10),
+             "plain_ms": time_ms(torch, plain_fn, iters=3),
+             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+             "library_note": "no single PyTorch call computes it",
+             "shape": shape}
+        r.update(extra or {})
+        line[name] = {k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "max_abs_err_bf16")}
+        rows.append(r)
+
+    # the chunked prefill, one 4,096-token chunk from a nonzero state
+    q, k, v, g, beta, st = _kda_inputs(torch, dev, 1, KDA_TOKENS, seed=36)
+    want_st = st.clone()
+    want = kda_chunk_ref(q, k, v, g, beta, want_st)
+    got_st = st.clone()
+    _zero(libs)
+    got = launched(torch, KDA, "kda_chunk", 1,
+                   lambda: kda_chunk_call(q, k, v, g, beta, got_st),
+                   "KDA chunked prefill")
+    err = _rms_rule(torch, got, want, 0.01, 8e-3, "KDA chunked prefill")
+    _rms_rule(torch, got_st, want_st, 1e-3, 1e-3, "KDA prefill's state")
+    again = st.clone()
+    if not (torch.equal(got, kda_chunk_call(q, k, v, g, beta, again))
+            and torch.equal(again, got_st)):
+        fail("KDA chunked prefill: two calls differ")
+    work = st.clone()
+    flops, nbytes = chunk_prefill(counted, KDA_TOKENS, 1)
+    row("kda_chunk", "kimilinear.agent prefill chunk: 4096 tokens, 32 heads "
+        "of 128, from a nonzero state",
+        lambda: kda_chunk_call(q, k, v, g, beta, work),
+        lambda: kda_chunk_ref(q, k, v, g, beta, work),
+        *bound_ms(nbytes, int(flops)), err, iters=10)
+    del q, k, v, g, beta, st, want, got, want_st, got_st, again, work
+
+    # the decode step over 64 slots, a layer of a stacked state in place
+    q, k, v, g, beta, _ = _kda_inputs(torch, dev, KDA_SLOTS, 1, seed=37)
+    q, k, v, g, beta = (t[:, 0] for t in (q, k, v, g, beta))
+    states = torch.randn((2, KDA_SLOTS, 32, 128, 128), device=dev,
+                         generator=torch.Generator(dev).manual_seed(38)) * 0.3
+    want_st = states[1].clone()
+    want = kda_step_ref(q, k, v, g, beta, want_st)
+    _zero(libs)
+    got = launched(torch, KDA, "kda_step", 1,
+                   lambda: kda_step_call(q, k, v, g, beta, states[1]),
+                   "KDA decode step")
+    err = _rms_rule(torch, got, want, 1e-3, 8e-3, "KDA decode step")
+    _rms_rule(torch, states[1], want_st, 1e-5, 1e-5, "KDA step's state")
+    flops, nbytes = decode_step(counted, 1, KDA_SLOTS)
+    row("kda_step", "kimilinear.agent decode: 64 slots, 32 heads of 128",
+        lambda: kda_step_call(q, k, v, g, beta, states[0]),
+        lambda: kda_step_ref(q, k, v, g, beta, states[0]),
+        *bound_ms(nbytes, flops), err, iters=50)
+    del q, k, v, g, beta, states, want, want_st, got
+
+    # the prologue and the gated norm over the same chunk (its conv tail)
+    h, d, b, s = 32, 128, 1, KDA_TOKENS
+    gen = torch.Generator(dev).manual_seed(39)
+    bf = torch.bfloat16
+
+    def rnd(*shape, sd=1.0, dt=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * sd).to(dt)
+
+    qkv, conv_w = rnd(b, s, 3 * h * d), rnd(4, 3 * h * d, sd=0.5)
+    tail, f, b_raw = rnd(b, 3, 3 * h * d), rnd(b, s, h * d), rnd(b, s, h)
+    dt_bias = rnd(h * d, sd=2.0, dt=torch.float32) - 4.0
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    args = (qkv, conv_w, tail, f, dt_bias, a_log, b_raw, d)
+    want = kda_prep_ref(*args)
+    _zero(libs)
+    got = launched(torch, KDA, "kda_prep", 1, lambda: kda_prep_call(*args),
+                   "KDA prologue")
+    err = max(_rms_rule(torch, x, y, 1e-5 if n in "gb" else 0.01,
+                        1e-5 if n in "gb" else 8e-3, f"KDA prologue's {n}")
+              for n, x, y in zip("qkvgb", got, want))
+    # qkv, f, b_raw and the tail read, q, k, v (bf16), g and beta (f32)
+    # written, once each; no product worth counting
+    nbytes = (b * s * (3 * h * d + h * d + h) * 2 + 4 * 3 * h * d * 2
+              + b * s * (3 * h * d * 2 + h * d * 4 + h * 4))
+    row("kda_prep", "kimilinear.agent prefill chunk: 4096 tokens, 3 x 4096 "
+        "channels through convs of 4, 32 heads of 128",
+        lambda: kda_prep_call(*args), lambda: kda_prep_ref(*args),
+        *bound_ms(nbytes, 0), err)
+    o = rnd(b, s, h, d, sd=0.1)
+    g_raw, g_bias = rnd(b, s, h * d), rnd(h * d, dt=torch.float32)
+    o_norm = 1.0 + rnd(d, sd=0.1, dt=torch.float32)
+    oargs = (o, g_raw, g_bias, o_norm, 1e-5)
+    want = kda_out_ref(*oargs)
+    _zero(libs)
+    got = launched(torch, KDA, "kda_out", 1, lambda: kda_out_call(*oargs),
+                   "KDA gated norm")
+    err = _rms_rule(torch, got, want, 1e-3, 8e-3, "KDA gated norm")
+    nbytes = b * s * h * d * 2 * 3  # o and the gate read, the output written
+    row("kda_out", "kimilinear.agent prefill chunk: 4096 tokens, 32 heads "
+        "of 128", lambda: kda_out_call(*oargs), lambda: kda_out_ref(*oargs),
+        *bound_ms(nbytes, 0), err)
+    del qkv, conv_w, tail, f, b_raw, args, o, g_raw, oargs, want, got
+    torch.cuda.empty_cache()
+
+    # the latent kernel at 32 heads, kimilinear.agent's decode
+    cfg = get_config("kimi-linear-48b-a3b-instruct")
+    b, s_max, h = KDA_SLOTS, KIMI_S_MAX, cfg.n_heads
+    r = cfg.kv_lora_rank
+    width = r + cfg.qk_rope_head_dim
+    sc = mla_scale(cfg)
+    gen = torch.Generator(dev).manual_seed(40)
+    q = torch.randn((b, h, width), generator=gen, device=dev, dtype=bf)
+    lat = torch.randn((b, s_max, width), generator=gen, device=dev, dtype=bf)
+    length = torch.from_numpy(_decode_lengths(np, b, s_max, KIMI_LIVE,
+                                              s_max)).to(dev)
+
+    def kern():
+        return mla_decode_bsd(q, lat, length, scale=sc)
+
+    def plain():
+        return mla_decode_ref(q, lat, length, scale=sc, value_dim=r)
+
+    _zero(libs)
+    got = launched(torch, MLA, "mla_decode", 1, kern,
+                   "latent decode attention, 32 heads")
+    ref = plain()
+    ok, err, err_rms = rms_close(torch, got, ref, (2e-2, None), 0.05)
+    if not ok:
+        fail(f"latent decode attention, 32 heads: kernel vs plain max |d| "
+             f"{err}, (|d| - 2e-2 |ref|) / RMS {err_rms}")
+    if not torch.equal(got, kern()):
+        fail("latent decode attention, 32 heads: two calls differ")
+    live = live_rows(length, b, s_max, dev)
+    flops, nbytes = latent_decode(counted, int(live.sum()), 1, b)
+    b_ms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    mask = (torch.arange(s_max, device=dev)[None] < live[:, None])[
+        :, None, None]
+    qs, ks, vs = q[:, None], lat[:, None], lat[:, None, :, :r]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              scale=sc)
+
+    lib_ok = rms_close(torch, sdpa()[:, 0], ref, (2e-2, None), 0.05)[0]
+    mla = {"name": "mla_decode_32", "route": "cuda",
+           "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                     "mla_decode.cu",
+           "replaces": None,
+           "replaces_note": "no pallas_call: the reference has no latent "
+                            "attention; the 32-head instance",
+           "launches": MLA.launches["mla_decode"], "max_abs_err_bf16": err,
+           "live_rows_mean": float(live.float().mean()),
+           "ms": time_ms(torch, kern, iters=50),
+           "device_ms": device_ms_per_call(torch, kern),
+           "plain_ms": time_ms(torch, plain, iters=3),
+           "bound_ms": b_ms, "bound_by": by,
+           "library_ms": time_ms(torch, sdpa, iters=10),
+           "library_device_ms": device_ms_per_call(torch, sdpa, n=10),
+           "library_within_rule": lib_ok,
+           "library_note": "SDPA over a boolean mask of the live rows, the "
+                           "32 heads as queries of one head, the yardstick "
+                           "only",
+           "shape": "kimilinear.agent decode: 64 slots, 32 heads of 576, "
+                    "values 512, S_max 40960"}
+    line["mla_decode_32"] = {k: mla[k] for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+        "library_device_ms", "live_rows_mean", "max_abs_err_bf16")}
+    rows.append(mla)
+    del q, lat, got, ref, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    # the serving decode step's own launches, counted from zero
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    cache = model.init_cache(b, s_max, device=dev)._replace(length=length)
+    tok = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg.vocab, (b, 1)).astype(np.int32)).to(dev)
+    n_kda, n_lat = len(cfg.kda_layers), len(cfg.latent_layers)
+    _zero(libs)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.decode(params, tok, cache)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    step = {lib.name: {k: n for k, n in lib.launches.items() if n}
+            for lib in libs}
+    want = {"kda": {"kda_step": n_kda, "kda_prep": n_kda, "kda_out": n_kda},
+            "mla_decode": {"mla_decode": n_lat}}
+    if {k: v for k, v in step.items() if v} != want:
+        fail(f"{cfg.name} decode step launched {step}; expected {want}")
+    line["full_size_step"] = {"slots": b, "s_max": s_max,
+                              "launches": step, "eager_ms": step_ms}
+    del params, cache
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("kda " + json.dumps(line))
+    return rows
+
+
+KIMI_WITNESS_PROMPT, KIMI_WITNESS_STEPS = 960, 64
+
+
+def kimi_depth_phase(np, torch, dev) -> None:
+    """12d, continued. How far the served model's bf16 logits lie from the
+    plain float32 reference's with depth (a ``kimi_depth`` line, not
+    gated): kimilinear.agent's builder and reference (``perfbench/``) cut
+    to 5, 13 and 27 layers (the dense one and the 3 : 1 pattern kept),
+    weights from seed 5; the program prefills 960 tokens and decodes 64
+    more, teacher-forced, on one slot; each of its 65 rows of logits
+    against the reference's over the same sequence: the median and widest
+    row error (RMS of the difference over the reference's RMS, as the
+    cell's ``logits_rms_err_median``) and the share of rows whose argmax
+    differs. At 27 layers also with the router's correction bias zeroed
+    (does the bias amplify the rounding?), and the reference's own
+    controls against it: fp8, and KDA's state, decay and beta in bf16."""
+    from perfbench.lib import spec
+
+    t_phase = time.perf_counter()
+    cb = spec.load_module("configs", "kda_lm")
+    ref = spec.load_module("reference", "kda_lm")
+    full = json.loads((ROOT / "perfbench" / "configs"
+                       / "kimi-linear-48b-a3b-instruct.json").read_text())
+    n_tok = KIMI_WITNESS_PROMPT + KIMI_WITNESS_STEPS
+    seq = torch.from_numpy(np.random.default_rng(42).integers(
+        0, full["vocab_size"], n_tok).astype(np.int64)).to(dev)
+    rows = torch.arange(KIMI_WITNESS_PROMPT - 1, n_tok, device=dev)
+    v = full["vocab_size"]
+
+    def reading(got, want):
+        err = (got - want).pow(2).mean(-1).sqrt() / want.pow(2).mean(
+            -1).sqrt()
+        return {"median": float(err.median()), "max": float(err.max()),
+                "flip_share": float((got.argmax(-1) != want.argmax(-1))
+                                    .float().mean())}
+
+    def served(model, params):
+        with torch.no_grad():
+            lg, cache = model.prefill(params, {"tokens": seq[
+                None, :KIMI_WITNESS_PROMPT].int()}, n_tok)
+            out = [lg[0, -1, :v].float()]
+            for t in range(KIMI_WITNESS_PROMPT, n_tok):
+                lg, cache = model.decode(params, seq[None, t:t + 1].int(),
+                                         cache)
+                out.append(lg[0, -1, :v].float())
+        return torch.stack(out)
+
+    line = {"prompt": KIMI_WITNESS_PROMPT, "steps": KIMI_WITNESS_STEPS}
+    for layers in (5, 13, 27):
+        lac = full["linear_attn_config"]
+        cfg = {**full, "num_hidden_layers": layers, "linear_attn_config": {
+            **lac, "full_attn_layers": [i for i in lac["full_attn_layers"]
+                                        if i <= layers],
+            "kda_layers": [i for i in lac["kda_layers"] if i <= layers]}}
+        params = cb.make_params(cfg, 5, dev)
+        model = cb.program(cfg)
+        want = ref.logits(cfg, params, seq, rows)
+        line[f"layers_{layers}"] = reading(served(model, params), want)
+        if layers == 27:
+            line["layers_27_fp8"] = reading(
+                ref.logits(cfg, params, seq, rows, fp8=True), want)
+            ref.CONTROL = "bf16_state"
+            try:
+                line["layers_27_bf16_state"] = reading(
+                    ref.logits(cfg, params, seq, rows, fp8=True), want)
+            finally:
+                ref.CONTROL = "fp8"
+            params["moe"]["router_bias"].zero_()
+            want = ref.logits(cfg, params, seq, rows)
+            line["layers_27_no_router_bias"] = reading(
+                served(model, params), want)
+        del params, model, want
+        torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("kimi_depth " + json.dumps(line))
+
 def encdec_paths(np, torch, dev, libs):
     """12d. seamless-m4t-medium at full width: f32 prefill(S-1) + one
     decode step against the teacher-forced forward, then bf16 serving with
@@ -3644,8 +4013,9 @@ def main() -> None:
         ssd_intra_chunk, ssd_state_pass)
 
     from repro_torch.kernels.decode_attention.kernel import DECODE, MLA
+    from repro_torch.kernels.kda.kernel import KDA
 
-    libs = (CONV2D, MATMUL, FLASH, SSD, DECODE, MLA)
+    libs = (CONV2D, MATMUL, FLASH, SSD, DECODE, MLA, KDA)
     t0 = time.perf_counter()
     build_all(list(libs))
     print(f"card: {card}")
@@ -3661,6 +4031,13 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
+    if sys.argv[1:] == ["kda"]:  # Kimi-Linear's kernels and witness alone
+        kda_rows = kda_phase(np, torch, dev, libs)
+        kimi_depth_phase(np, torch, dev)
+        print(json.dumps({"kernels": kda_rows}))
+        print(card)
+        print(json.dumps({"ok": True}))
+        return
 
     from repro_torch.accel.nullhop import NullHopExecutor
     from repro_torch.accel.roshambo import RoShamBoCNN
@@ -4000,6 +4377,8 @@ def main() -> None:
     decode_row = decode_phase(np, torch, dev, libs)
     mla_row = mla_phase(np, torch, dev, libs)
     dkv_row = flash_dkv_phase(np, torch, dev, libs)
+    kda_rows = kda_phase(np, torch, dev, libs)
+    kimi_depth_phase(np, torch, dev)
     encdec_paths(np, torch, dev, libs)
     vlm_launches = vlm_paths(np, torch, dev, libs, FLASH)
 
@@ -4292,6 +4671,7 @@ def main() -> None:
     kernels.append(decode_row)
     kernels.append(mla_row)
     kernels.append(dkv_row)
+    kernels.extend(kda_rows)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(card)

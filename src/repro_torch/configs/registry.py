@@ -1,7 +1,8 @@
 """Registry mapping --arch ids to ModelConfig builders: the reference's
 arch ids, all of them (``ARCHS``), the paper's RoShamBo CNN,
-granite-4.0-h-small (the hybrid_moe family) and DeepSeek-V2-Lite (the mla
-family), which the reference lacks."""
+granite-4.0-h-small (the hybrid_moe family), DeepSeek-V2-Lite (the mla
+family) and Kimi-Linear-48B-A3B (the linear_mla family), which the
+reference lacks."""
 
 from __future__ import annotations
 
@@ -23,10 +24,12 @@ _ARCH_MODULES = {
     "roshambo-nullhop": "repro_torch.configs.roshambo",
     "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
     "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
+    "kimi-linear-48b-a3b-instruct": "repro_torch.configs.kimi_linear_48b_a3b",
 }
 
 # the port's own: the paper's CNN, and families the reference lacks
-PORT_ONLY = ("roshambo-nullhop", "granite-4.0-h-small", "deepseek-v2-lite")
+PORT_ONLY = ("roshambo-nullhop", "granite-4.0-h-small", "deepseek-v2-lite",
+             "kimi-linear-48b-a3b-instruct")
 ARCHS = tuple(k for k in _ARCH_MODULES if k not in PORT_ONLY)
 
 

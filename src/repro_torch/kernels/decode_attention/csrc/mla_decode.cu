@@ -1,7 +1,8 @@
 // Latent decode attention on the card (DeepSeek-V2's multi-head latent
-// attention, absorbed): one new token a slot, its 16 query heads against
-// the slot's latent cache rows, each row c (512) then the roped key k^R
-// (64), read where they lie in bf16.
+// attention, absorbed): one new token a slot, its 16 or 32 query heads
+// (DeepSeek-V2-Lite's, Kimi-Linear's) against the slot's latent cache rows,
+// each row c (512) then the roped key k^R (64), read where they lie in
+// bf16.
 //
 // For slot b, head h and the slot's live rows j < n_b = min(length_b + 1, S):
 //
@@ -20,8 +21,10 @@
 // (1,152 bytes), and each row costs 16 x (576 + 512) x 2 = 34,816 FLOPs:
 // about 30 FLOPs a byte, more than the CUDA cores keep pace with against
 // HBM (67 TFLOP/s f32 over 3.35 TB/s is 20). So both products run on the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 out): the 16 heads are
-// exactly the m16 of a tile. The design:
+// tensor cores (mma.sync m16n8k16, bf16 in, f32 out): 16 heads are
+// exactly the m16 of a tile, and 32 heads two tiles side by side, each
+// taken by its own four warps from the same rows in shared memory (a row
+// is still read once from HBM for every head). The design:
 //
 // - Split over rows. A block owns one (slot, chunk of kChunk rows). The
 //   grid is set by S, not by the lengths (a CUDA graph replays it with
@@ -49,38 +52,45 @@
 
 namespace {
 
-constexpr int kHeads = 16;         // query heads: the m16 of an mma tile
 constexpr int kRow = 576;          // a latent row: c, then k^R
 constexpr int kValue = 512;        // the value: a row's first columns
 constexpr int kTile = 32;          // rows a step
 constexpr int kChunk = 256;        // rows a block
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kStride = kRow + 8;  // a shared row, elements (1,168 bytes)
 constexpr int kPStride = kTile + 8;  // a shared row of P, elements
 constexpr int kStages = 2;
 constexpr int kPieces = kRow / 8;  // 16-byte pieces a row
+constexpr int kMergeThreads = 128;  // 4 of the 512 value columns a thread
 constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kSmemQ = kHeads * kStride * 2;
-constexpr int kSmemKV = kStages * kTile * kStride * 2;
-constexpr int kSmemS = kHeads * kTile * 4;
-constexpr int kSmemP = kHeads * kPStride * 2;
-constexpr int kSmem = kSmemQ + kSmemKV + kSmemS + kSmemP + kHeads * 4;
-static_assert(kSmemQ % 16 == 0 && kSmemKV % 16 == 0 && kSmemS % 16 == 0 &&
-                  kSmemP % 16 == 0,
-              "shared regions start on 16 bytes");
-static_assert(kValue == kWarps * 128, "a warp owns 128 value columns");
+// the split kernel's layout for kHeads query heads: an m16 tile of heads
+// a group of four warps, each warp owning 128 value columns of its tile
+template <int kHeads>
+struct Shape {
+  static_assert(kHeads % 16 == 0, "heads come in m16 tiles");
+  static constexpr int kWarps = 4 * (kHeads / 16);
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kSmemQ = kHeads * kStride * 2;
+  static constexpr int kSmemKV = kStages * kTile * kStride * 2;
+  static constexpr int kSmemS = kHeads * kTile * 4;
+  static constexpr int kSmemP = kHeads * kPStride * 2;
+  static constexpr int kSmem = kSmemQ + kSmemKV + kSmemS + kSmemP + kHeads * 4;
+  static_assert(kSmemQ % 16 == 0 && kSmemKV % 16 == 0 && kSmemS % 16 == 0 &&
+                    kSmemP % 16 == 0,
+                "shared regions start on 16 bytes");
+  static_assert(kThreads == 8 * kHeads, "8 threads a head's softmax step");
+};
+static_assert(kValue == 4 * 128, "a warp owns 128 value columns");
 
 struct Params {
-  const __nv_bfloat16* q;     // [B, 16, 576], heads and dims contiguous
+  const __nv_bfloat16* q;     // [B, H, 576], heads and dims contiguous
   const __nv_bfloat16* rows;  // [B, S, 576], dims contiguous
   const long long* length;    // [B] (stride length_stride) or null
   long long length_int;       // every slot's length where length is null
   long long length_stride;
-  float* part_acc;     // [B, n_chunks, 16, 512]
-  float* part_ml;      // [B, n_chunks, 16, 2]: (max, sum), log2 units
-  __nv_bfloat16* out;  // [B, 16, 512] contiguous
+  float* part_acc;     // [B, n_chunks, H, 512]
+  float* part_ml;      // [B, n_chunks, H, 2]: (max, sum), log2 units
+  __nv_bfloat16* out;  // [B, H, 512] contiguous
   long long q_sb, r_sb, r_ss;  // strides, in elements
   int S, n_chunks;
   float scale_log2;  // scale * log2(e): scores kept in log2 units
@@ -143,6 +153,7 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
 
 // rows first .. first + kTile - 1 of the slot into a shared tile; rows from
 // row_end on load as zeros (first < row_end)
+template <int kThreads>
 __device__ __forceinline__ void load_tile(const Params& p,
                                           __nv_bfloat16* dst,
                                           const __nv_bfloat16* slot_rows,
@@ -156,8 +167,13 @@ __device__ __forceinline__ void load_tile(const Params& p,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kHeads>
+__global__ void __launch_bounds__(Shape<kHeads>::kThreads)
     mla_decode_split_kernel(const Params p) {
+  using Sh = Shape<kHeads>;
+  constexpr int kThreads = Sh::kThreads;
+  constexpr int kSmemQ = Sh::kSmemQ, kSmemKV = Sh::kSmemKV;
+  constexpr int kSmemS = Sh::kSmemS, kSmemP = Sh::kSmemP;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* skv = reinterpret_cast<__nv_bfloat16*>(smem + kSmemQ);
@@ -174,6 +190,9 @@ __global__ void __launch_bounds__(kThreads)
   const int row_end = min(row0 + kChunk, n);
   const int n_tiles = (row_end - row0 + kTile - 1) / kTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp's head tile (heads ht .. ht + 15) and its place in the tile's
+  // four warps
+  const int ht = (warp / 4) * 16, wl = warp % 4;
   const int grp = lane >> 2, tig = lane & 3;
   const __nv_bfloat16* slot_rows = p.rows + b * p.r_sb;
 
@@ -182,14 +201,14 @@ __global__ void __launch_bounds__(kThreads)
     const int h = i / kPieces, piece = i % kPieces;
     cp_async16(sq + h * kStride + piece * 8, qb + h * kRow + piece * 8, true);
   }
-  load_tile(p, skv, slot_rows, row0, row_end);
+  load_tile<kThreads>(p, skv, slot_rows, row0, row_end);
   cp_async_commit();
 
   // the softmax step's share: 8 threads a head, 4 of a tile's rows each;
   // each keeps its head's running (m, l)
   const int sh = threadIdx.x / 8, spart = threadIdx.x % 8;
   float m_run = -INFINITY, l_run = 0.f;
-  float acc[16][4];  // 16 heads x this warp's 128 value columns
+  float acc[16][4];  // the tile's 16 heads x this warp's 128 value columns
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -199,8 +218,8 @@ __global__ void __launch_bounds__(kThreads)
     const int first = row0 + t * kTile;
     const __nv_bfloat16* tile = skv + (t % kStages) * kTile * kStride;
     if (t + 1 < n_tiles) {
-      load_tile(p, skv + ((t + 1) % kStages) * kTile * kStride, slot_rows,
-                first + kTile, row_end);
+      load_tile<kThreads>(p, skv + ((t + 1) % kStages) * kTile * kStride,
+                          slot_rows, first + kTile, row_end);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -211,8 +230,9 @@ __global__ void __launch_bounds__(kThreads)
     {  // scores of this warp's 8 rows: [16 heads, 8 rows] over 576 dims
       float sc[4] = {0.f, 0.f, 0.f, 0.f};
       const __nv_bfloat16* kr =
-          tile + (warp * 8 + (lane & 7)) * kStride + (lane >> 3) * 8;
-      const __nv_bfloat16* qr = sq + (lane & 15) * kStride + (lane >> 4) * 8;
+          tile + (wl * 8 + (lane & 7)) * kStride + (lane >> 3) * 8;
+      const __nv_bfloat16* qr =
+          sq + (ht + (lane & 15)) * kStride + (lane >> 4) * 8;
 #pragma unroll
       for (int k0 = 0; k0 < kRow; k0 += 32) {
         unsigned kb[4], qa[4];
@@ -222,14 +242,15 @@ __global__ void __launch_bounds__(kThreads)
         ldsm_x4(qa, qr + k0 + 16);
         mma16816(sc, qa, kb[2], kb[3]);
       }
-      // sc[0], sc[1]: head grp, rows 2 tig and 2 tig + 1 of the warp's 8;
-      // sc[2], sc[3]: head grp + 8
-      const int r = warp * 8 + 2 * tig;
+      // sc[0], sc[1]: head ht + grp, rows 2 tig and 2 tig + 1 of the
+      // warp's 8; sc[2], sc[3]: head ht + grp + 8
+      const int r = wl * 8 + 2 * tig;
+      const int h0 = ht + grp;
       const bool v0 = first + r < row_end, v1 = first + r + 1 < row_end;
-      ss[grp * kTile + r] = v0 ? sc[0] * p.scale_log2 : -INFINITY;
-      ss[grp * kTile + r + 1] = v1 ? sc[1] * p.scale_log2 : -INFINITY;
-      ss[(grp + 8) * kTile + r] = v0 ? sc[2] * p.scale_log2 : -INFINITY;
-      ss[(grp + 8) * kTile + r + 1] = v1 ? sc[3] * p.scale_log2 : -INFINITY;
+      ss[h0 * kTile + r] = v0 ? sc[0] * p.scale_log2 : -INFINITY;
+      ss[h0 * kTile + r + 1] = v1 ? sc[1] * p.scale_log2 : -INFINITY;
+      ss[(h0 + 8) * kTile + r] = v0 ? sc[2] * p.scale_log2 : -INFINITY;
+      ss[(h0 + 8) * kTile + r + 1] = v1 ? sc[3] * p.scale_log2 : -INFINITY;
     }
     __syncthreads();
 
@@ -270,7 +291,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     {  // O = O alpha + P V over this warp's 128 value columns
-      const float a_lo = salpha[grp], a_hi = salpha[grp + 8];
+      const float a_lo = salpha[ht + grp], a_hi = salpha[ht + grp + 8];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         acc[j][0] *= a_lo;
@@ -278,9 +299,10 @@ __global__ void __launch_bounds__(kThreads)
         acc[j][2] *= a_hi;
         acc[j][3] *= a_hi;
       }
-      const __nv_bfloat16* pr = sp + (lane & 15) * kPStride + (lane >> 4) * 8;
+      const __nv_bfloat16* pr =
+          sp + (ht + (lane & 15)) * kPStride + (lane >> 4) * 8;
       const __nv_bfloat16* vr =
-          tile + (lane & 15) * kStride + warp * 128 + (lane >> 4) * 8;
+          tile + (lane & 15) * kStride + wl * 128 + (lane >> 4) * 8;
 #pragma unroll
       for (int k0 = 0; k0 < kTile; k0 += 16) {
         unsigned pa[4];
@@ -302,10 +324,11 @@ __global__ void __launch_bounds__(kThreads)
       (static_cast<long long>(b) * p.n_chunks + c) * kHeads;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const int d = warp * 128 + j * 8 + 2 * tig;
-    *reinterpret_cast<float2*>(&p.part_acc[(cell0 + grp) * kValue + d]) =
+    const int d = wl * 128 + j * 8 + 2 * tig;
+    *reinterpret_cast<float2*>(&p.part_acc[(cell0 + ht + grp) * kValue + d]) =
         make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(&p.part_acc[(cell0 + grp + 8) * kValue + d]) =
+    *reinterpret_cast<float2*>(
+        &p.part_acc[(cell0 + ht + grp + 8) * kValue + d]) =
         make_float2(acc[j][2], acc[j][3]);
   }
   if (spart == 0) {
@@ -316,7 +339,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // one block a (head, slot), 4 of the 512 columns a thread: the chunks'
 // partials merged
-__global__ void __launch_bounds__(kThreads)
+template <int kHeads>
+__global__ void __launch_bounds__(kMergeThreads)
     mla_decode_merge_kernel(const Params p) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x * 4;
   const int nc = (live_rows(p, b) + kChunk - 1) / kChunk;
@@ -341,17 +365,37 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) o[d + i] = __float2bfloat16(nc ? sa[i] / sl : 0.f);
 }
 
-bool configured[64];  // the split kernel's shared memory limit, a device
+bool configured[2][64];  // the split kernels' shared memory limits, a device
+
+template <int kHeads>
+int launch(const Params& p, int B, int n_chunks, cudaStream_t s, int dev) {
+  using Sh = Shape<kHeads>;
+  cudaError_t err;
+  if (!configured[kHeads / 32][dev]) {
+    err = cudaFuncSetAttribute(mla_decode_split_kernel<kHeads>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Sh::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[kHeads / 32][dev] = true;
+  }
+  mla_decode_split_kernel<kHeads>
+      <<<dim3(n_chunks, B), Sh::kThreads, Sh::kSmem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mla_decode_merge_kernel<kHeads><<<dim3(kHeads, B), kMergeThreads, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
-// q: [B, 16, 576] bf16 (batch stride q_sb), each head's row contiguous;
+// q: [B, H, 576] bf16 (batch stride q_sb), each head's row contiguous,
+// H 16 or 32;
 // rows: [B, S, 576] bf16 (batch and row strides r_sb / r_ss), each row
 // contiguous; every pointer and stride 16-byte aligned. length: [B] int64
 // lengths (stride length_stride, 0 for one shared 0-d tensor) or null, then
 // length_int for every slot; slot b attends its rows j < min(length_b + 1,
-// S). part_acc: [B, ceil(S / 256), 16, 512] f32 and part_ml: [B, ceil(S /
-// 256), 16, 2] f32 scratch; out: [B, 16, 512] bf16 contiguous. Two launches
+// S). part_acc: [B, ceil(S / 256), H, 512] f32 and part_ml: [B, ceil(S /
+// 256), H, 2] f32 scratch; out: [B, H, 512] bf16 contiguous. Two launches
 // on stream; returns cudaGetLastError() (or the error of setting the split
 // kernel's shared memory limit, once a device).
 extern "C" int mla_decode(const void* q, const void* rows,
@@ -359,19 +403,13 @@ extern "C" int mla_decode(const void* q, const void* rows,
                           long long length_stride, float* part_acc,
                           float* part_ml, void* out, long long q_sb,
                           long long r_sb, long long r_ss, int B, int S,
-                          float scale, void* stream) {
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                          int H, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || (H != 16 && H != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(mla_decode_split_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured[dev] = true;
-  }
   const int n_chunks = (S + kChunk - 1) / kChunk;
   const Params p{static_cast<const __nv_bfloat16*>(q),
                  static_cast<const __nv_bfloat16*>(rows),
@@ -379,9 +417,6 @@ extern "C" int mla_decode(const void* q, const void* rows,
                  static_cast<__nv_bfloat16*>(out), q_sb, r_sb, r_ss, S,
                  n_chunks, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mla_decode_split_kernel<<<dim3(n_chunks, B), kThreads, kSmem, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mla_decode_merge_kernel<<<dim3(kHeads, B), kThreads, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return H == 16 ? launch<16>(p, B, n_chunks, s, dev)
+                 : launch<32>(p, B, n_chunks, s, dev);
 }

@@ -9,8 +9,8 @@ cache rows into chunks of :data:`CHUNK` and the one that merges them;
 ``DECODE.launches`` counts the entry's calls, and while a profiler records
 each call also ticks the tracer's ``attn.decode`` counter. The C entry
 ``mla_decode`` does the same for multi-head latent attention's absorbed
-decode (16 heads against 576-wide latent rows whose first 512 columns are
-the value, both products on the tensor cores); ``MLA.launches`` counts
+decode (16 or 32 heads against 576-wide latent rows whose first 512
+columns are the value, both products on the tensor cores); ``MLA.launches`` counts
 it, and each call ticks ``attn.decode_latent``. The sources' headers say
 what bounds each on an H100 and how the design answers that. A CPU tensor
 takes the plain versions (``ref.py``); a CUDA tensor launches a kernel or
@@ -37,13 +37,13 @@ DECODE = CudaLibrary(
 MLA = CudaLibrary(
     "mla_decode",
     Path(__file__).with_name("csrc") / "mla_decode.cu",
-    {"mla_decode": [P, P, P, L, L, P, P, P, L, L, L, I, I, ctypes.c_float,
-                    P]})
+    {"mla_decode": [P, P, P, L, L, P, P, P, L, L, L, I, I, I,
+                    ctypes.c_float, P]})
 
 HEAD_DIMS = (64, 128)  # the head dims it is compiled for
 GROUPS = (1, 2, 4, 8)  # query heads a KV head, H / Hkv
 CHUNK = 256  # cache rows a block of the split kernel (kChunk)
-MLA_HEADS = 16  # query heads of the latent kernel (kHeads)
+MLA_HEADS = (16, 32)  # query heads of the latent kernel (kHeads)
 MLA_ROW = 576  # a latent row: c, then the roped key (kRow)
 MLA_VALUE = 512  # the value: a row's first columns (kValue)
 
@@ -143,23 +143,24 @@ def _lengths(length, b: int, device) -> tuple:
 def mla_decode_bsd(q: torch.Tensor, rows: torch.Tensor, length, *,
                    scale: float, value_dim: int = MLA_VALUE
                    ) -> torch.Tensor:
-    """q: [B, 16, 576] (the absorbed no-rope query, then the roped one);
+    """q: [B, H, 576], H 16 or 32 (the absorbed no-rope query, then the
+    roped one);
     rows: [B, S_max, 576], the latent cache read where it lies (after this
     step's row was written); ``length`` the cached tokens before this
     step, an int, a 0-d tensor or [B] per-slot lengths, at least 0: slot b
     attends its rows j < min(length_b + 1, S_max), the scores ``scale``
     times q . row, the values each row's first ``value_dim`` columns.
-    Returns [B, 16, value_dim] in bf16. CUDA tensors only (the plain
+    Returns [B, H, value_dim] in bf16. CUDA tensors only (the plain
     version, ``ref.mla_decode_ref``, takes any); no backward."""
     refuse_dtensor("the latent decode kernel", q, rows)
     refuse_grad("the latent decode kernel", q, rows)
     if (q.dim() != 3 or rows.dim() != 3 or rows.shape[0] != q.shape[0]
             or not q.dtype == rows.dtype == torch.bfloat16
-            or q.shape[1:] != (MLA_HEADS, MLA_ROW)
+            or q.shape[1] not in MLA_HEADS or q.shape[2] != MLA_ROW
             or rows.shape[2] != MLA_ROW or value_dim != MLA_VALUE):
         raise ValueError(
-            f"the latent kernel is built for bf16 q [B, {MLA_HEADS}, "
-            f"{MLA_ROW}], rows [B, S_max, {MLA_ROW}] and values of "
+            f"the latent kernel is built for bf16 q [B, H, {MLA_ROW}], H "
+            f"in {MLA_HEADS}, rows [B, S_max, {MLA_ROW}] and values of "
             f"{MLA_VALUE}: got {q.dtype} {tuple(q.shape)}, {rows.dtype} "
             f"{tuple(rows.shape)}, values of {value_dim}")
     if q.device.type != "cuda" or rows.device != q.device:
@@ -171,18 +172,17 @@ def mla_decode_bsd(q: torch.Tensor, rows: torch.Tensor, length, *,
             raise ValueError(f"{name} {tuple(t.shape)} strides "
                              f"{t.stride()}: contiguous rows starting on "
                              f"16 bytes")
-    b, s_max = q.shape[0], rows.shape[1]
+    b, h, s_max = q.shape[0], q.shape[1], rows.shape[1]
     len_ptr, len_int, len_stride, _held = _lengths(length, b, q.device)
     n_chunks = -(-s_max // CHUNK)
-    part_acc = torch.empty((b, n_chunks, MLA_HEADS, MLA_VALUE),
+    part_acc = torch.empty((b, n_chunks, h, MLA_VALUE),
                            dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, n_chunks, MLA_HEADS, 2), dtype=torch.float32,
+    part_ml = torch.empty((b, n_chunks, h, 2), dtype=torch.float32,
                           device=q.device)
-    out = torch.empty((b, MLA_HEADS, MLA_VALUE), dtype=q.dtype,
-                      device=q.device)
+    out = torch.empty((b, h, MLA_VALUE), dtype=q.dtype, device=q.device)
     MLA.launch("mla_decode", q.data_ptr(), rows.data_ptr(), len_ptr,
                len_int, len_stride, part_acc.data_ptr(), part_ml.data_ptr(),
                out.data_ptr(), q.stride(0), rows.stride(0), rows.stride(1),
-               b, s_max, float(scale), device=q.device)
+               b, s_max, h, float(scale), device=q.device)
     trace.count("attn.decode_latent")
     return out

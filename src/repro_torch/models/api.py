@@ -105,7 +105,7 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio",
-                          "hybrid_moe", "mla"):
+                          "hybrid_moe", "mla", "linear_mla"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)

@@ -18,13 +18,20 @@ Families:
   (granite-4.0-h-small)
 - ``mla``    : multi-head latent attention over a latent KV cache, with
   YaRN RoPE, leading dense layers and then MoE layers (DeepSeek-V2-Lite)
+- ``linear_mla``: Kimi Delta Attention (a gated delta rule over a
+  per-head matrix state) and latent attention without RoPE in a per-layer
+  pattern (``layer_types`` "kda" / "mla"), a leading dense layer, then
+  sigmoid-routed MoE layers that may hold a share of the experts
+  (Kimi-Linear)
 
 The fields below ``layer_types`` (the published scalar multipliers and
 the norms' eps) are set by the ``hybrid_moe`` configs alone, and those
 below ``kv_lora_rank`` (the latent attention's widths, YaRN, the leading
 dense layers, routing without renormalisation) by the ``mla`` configs
-alone; at their defaults every other family computes what it computed
-without them.
+alone, and those below ``kda_heads`` (KDA's widths, latent attention
+without RoPE, sigmoid routing with a correction bias and a routed scale,
+the experts held here) by the ``linear_mla`` configs alone; at their
+defaults every other family computes what it computed without them.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ def _round_up(x: int, m: int) -> int:
 class ModelConfig:
     name: str
     family: str  # dense | vlm | audio | moe | ssm | hybrid | hybrid_moe | mla
+    #              | linear_mla
     n_layers: int
     d_model: int
     vocab: int
@@ -107,6 +115,23 @@ class ModelConfig:
     # every token runs each expert over its own seats, not the padded
     # buffer (1: every such prefill; 0: never)
     moe_ragged_tokens: int = 1
+    # -- linear_mla (Kimi-Linear): KDA's heads, head width (keys and values
+    # alike), short-conv width and the low rank of its decay and output
+    # gates; latent attention without RoPE --
+    kda_heads: int = 0
+    kda_head_dim: int = 128
+    kda_conv_width: int = 4
+    kda_gate_rank: int = 128
+    mla_nope: bool = False  # the latent layers rotate nothing
+    # routing: "softmax" scores, or "sigmoid" scores chosen on score + a
+    # per-expert correction bias (the router's ``router_bias``) and weighted
+    # by the scores alone; the weights times ``moe_routed_scale``
+    moe_score: str = "softmax"
+    moe_routed_scale: float = 1.0
+    # the experts this card holds of the ``n_experts`` the router scores:
+    # ``experts_held`` of them (0: all) from ``expert_offset`` on
+    experts_held: int = 0
+    expert_offset: int = 0
     # -- enc-dec (seamless) --
     n_enc_layers: int = 0
     # -- modality frontend stubs --
@@ -174,6 +199,21 @@ class ModelConfig:
         """``hybrid_moe``: the layers whose mixer is Mamba2."""
         return tuple(i for i, t in enumerate(self.layer_types)
                      if t == "mamba")
+
+    @property
+    def kda_layers(self) -> tuple[int, ...]:
+        """``linear_mla``: the layers whose mixer is KDA."""
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "kda")
+
+    @property
+    def latent_layers(self) -> tuple[int, ...]:
+        """``linear_mla``: the layers whose mixer is latent attention."""
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "mla")
+
+    @property
+    def n_experts_held(self) -> int:
+        """The routed experts whose weights this card holds."""
+        return self.experts_held or self.n_experts
 
     @property
     def mla_rows(self) -> int:

@@ -14,7 +14,9 @@ For token t, head i and hidden state h (no query LoRA):
   v_i.
 
 RoPE takes YaRN's frequencies over the rope columns
-(``models/layers/rope.py``), in the port's half-split layout.
+(``models/layers/rope.py``), in the port's half-split layout; with
+``cfg.mla_nope`` (Kimi-Linear's ``mla_use_nope``) nothing is rotated, and
+q^R, k^R are the projections' columns as they are.
 
 The cache holds one row a token and layer, c then k^R
 (:class:`LatentCache`), written in the cache's type. A prefill (more than
@@ -29,8 +31,8 @@ absorbed, exactly in real arithmetic: q~_i = q_i^C W_UK,i^T, the score
 (q~_i . c + q_i^R . k^R) sigma, o~_i = sum p c and o_i = o~_i W_UV,i. On
 the card the latent decode kernel (``kernels/decode_attention``, entry
 ``mla_decode``) reads each slot's live rows, and raises ``ValueError``
-where it is not built for the call (bf16, 16 heads, rows of 576, values
-of 512); CPU tensors take its plain version.
+where it is not built for the call (bf16, 16 or 32 heads, rows of 576,
+values of 512); CPU tensors take its plain version.
 
 While a profiler records, a prefill's cache write, decompression and
 attention are a span named ``mla.prefill``.
@@ -159,10 +161,11 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *,
     q_nope, q_pe = q.split([dn, dr], dim=-1)
     c, k_pe = (x @ p["wkv_a"]).split([r, dr], dim=-1)
     c = rms_norm(c, p["kv_norm"]["scale"], cfg.norm_eps)
-    # q^R's heads and k^R as one more head, rotated in one call
-    q_pe, k_pe = _rope(cfg, torch.cat([q_pe, k_pe[:, :, None]], dim=2),
-                       positions).split([h, 1], dim=2)
-    k_pe = k_pe[:, :, 0]
+    if not cfg.mla_nope:
+        # q^R's heads and k^R as one more head, rotated in one call
+        q_pe, k_pe = _rope(cfg, torch.cat([q_pe, k_pe[:, :, None]], dim=2),
+                           positions).split([h, 1], dim=2)
+        k_pe = k_pe[:, :, 0]
     row = torch.cat([c, k_pe], dim=-1)  # [B, S, r + dr]
     sigma = mla_scale(cfg)
     kw = dict(kv_chunk=cfg.attn_kv_chunk,

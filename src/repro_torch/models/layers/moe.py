@@ -70,9 +70,13 @@ def _shard_experts(x: torch.Tensor, spec) -> torch.Tensor:
 
 def moe_params(generator: torch.Generator, d_model: int, n_experts: int,
                d_expert: int, n_shared: int, dtype: torch.dtype,
-               device=None) -> dict:
+               device=None, *, n_routed: int = 0,
+               router_bias: bool = False) -> dict:
     """The reference's shapes and scales, drawn on the generator's device;
-    the router stays f32 in every dtype."""
+    the router stays f32 in every dtype. ``n_routed`` (0: ``n_experts``) is
+    the router's width where the layer holds only ``n_experts`` of the
+    routed experts; ``router_bias`` adds the router's per-expert
+    correction bias (f32, drawn last)."""
     g_dev = generator.device
     sd_in = 1.0 / math.sqrt(d_model)
     sd_out = 1.0 / math.sqrt(2.0 * d_expert)
@@ -82,13 +86,16 @@ def moe_params(generator: torch.Generator, d_model: int, n_experts: int,
         return w.to(device, dt)
 
     p = {
-        "router": draw((d_model, n_experts), sd_in, torch.float32),
+        "router": draw((d_model, n_routed or n_experts), sd_in,
+                       torch.float32),
         "we_up": draw((n_experts, d_model, 2 * d_expert), sd_in, dtype),
         "we_down": draw((n_experts, d_expert, d_model), sd_out, dtype),
     }
     if n_shared:
         p["ws_up"] = draw((d_model, 2 * n_shared * d_expert), sd_in, dtype)
         p["ws_down"] = draw((n_shared * d_expert, d_model), sd_out, dtype)
+    if router_bias:
+        p["router_bias"] = draw((n_routed or n_experts,), 0.1, torch.float32)
     return p
 
 
@@ -96,12 +103,25 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
               ep_sharding: bool = True,
               renormalize: bool = True,
-              ragged_tokens: int = 0) -> tuple[torch.Tensor, MoEMetrics]:
+              ragged_tokens: int = 0, score: str = "softmax",
+              routed_scale: float = 1.0,
+              expert_offset: int = 0) -> tuple[torch.Tensor, MoEMetrics]:
     """x: [B, S, D] -> [B, S, D].
 
     Routing: softmax over experts, top-k, weights renormalised over the k
     (``renormalize``; off, the k softmax weights as they are, DeepSeek-V2's
-    ``norm_topk_prob`` false).
+    ``norm_topk_prob`` false). With ``score`` "sigmoid" the scores are the
+    router logits' sigmoids, the k experts are chosen on score plus the
+    router's per-expert ``router_bias`` and weighted by their scores
+    (renormalised as above); either way the weights are then multiplied by
+    ``routed_scale``.
+
+    The layer may hold a share of the routed experts: ``we_up`` /
+    ``we_down`` hold E of the router's width, the experts ``expert_offset``
+    .. ``expert_offset + E - 1``. It routes over all of them and computes
+    only its own experts' part of the result (a seat routed elsewhere is
+    left out, as a dropped one is); the shared experts are computed
+    whole. Capacity is counted over the experts held.
     Tokens beyond an expert's capacity are dropped (their residual passes
     through): standard capacity-based MoE semantics. ``ep_sharding``
     constrains the expert-major intermediates to the "model" axis and the
@@ -121,29 +141,41 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     capture runs the kernels the capture records.
 
     Each call counts ``moe.rows``, the rows the expert products compute
-    (E * C padded, top_k * T grouped), and ``moe.seats``, top_k * T."""
+    (E * C padded, top_k * T grouped, the held seats on a share's grouped
+    route), and ``moe.seats``, top_k * T: every seat the router fills, on
+    a share those of the experts held elsewhere too (a captured step
+    cannot read how many are held here)."""
     b, s, d = x.shape
     e = p["we_up"].shape[0]
+    share = e != p["router"].shape[1]
+    route = dict(renormalize=renormalize, score=score,
+                 bias=p.get("router_bias"), scale=routed_scale)
     t = b * s
     capacity = max(int(math.ceil(top_k * t / e * capacity_factor)), 1)
     ragged = (not is_dtensor(x) and s > 1 and 0 < ragged_tokens <= t
               and capacity >= t and x.dtype == torch.bfloat16
               and not torch.is_grad_enabled()
               and not (x.is_cuda and torch.cuda.is_current_stream_capturing()))
-    trace.count("moe.rows", top_k * t if ragged else e * capacity)
+    if not ragged:
+        trace.count("moe.rows", e * capacity)
     trace.count("moe.seats", top_k * t)
     if is_dtensor(x):
+        if share or score != "softmax" or routed_scale != 1.0:
+            raise NotImplementedError(
+                "sharded MoE layers route by softmax over every expert")
         return _sharded_moe(p, x, top_k=top_k, capacity=capacity,
                             ep_sharding=ep_sharding, renormalize=renormalize)
     xt = x.reshape(t, d)
     if ragged:
-        out, metrics = _ragged_moe(p, xt, top_k, renormalize)
+        out, metrics = _ragged_moe(p, xt, top_k, route, expert_offset)
         return out.reshape(b, s, d), metrics
 
     with trace.span("moe.dispatch"):
-        probs, gate_vals, gate_idx = _gates(xt, p["router"], top_k,
-                                            renormalize)
-        seats = _seats(gate_idx, e, capacity)
+        probs, gate_vals, gate_idx = _gates(xt, p["router"], top_k, **route)
+        if share:
+            seats = _held_seats(gate_idx, e, expert_offset, capacity)
+        else:
+            seats = _seats(gate_idx, e, capacity)
         slot_k = seats.slot.reshape(top_k, t)  # [K, T]
         # dispatch into [E, C, D], one k-slot at a time; a dropped seat
         # writes the dummy last row
@@ -176,34 +208,85 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
             out = out + got * w_k[k][:, None]
 
     out = _shared_experts(p, xt, out)
-    # Switch aux loss: E * sum_e f_e * P_e
-    aux = e * torch.sum(seats.f_e * probs.mean(0))
+    # Switch aux loss: E * sum_e f_e * P_e (over the experts held)
+    aux = e * torch.sum(seats.f_e[:e] * _held_probs(probs, e, expert_offset))
     return out.reshape(b, s, d), MoEMetrics(aux, seats.dropped)
 
 
-def _ragged_moe(p: dict, xt: torch.Tensor, top_k: int,
-                renormalize: bool) -> tuple[torch.Tensor, MoEMetrics]:
+def _held_probs(probs: torch.Tensor, e: int, offset: int) -> torch.Tensor:
+    """The held experts' mean router scores, [E]."""
+    if probs.shape[1] == e:
+        return probs.mean(0)
+    return probs[:, offset:offset + e].mean(0)
+
+
+def _held(gate_idx: torch.Tensor, e: int,
+          offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(each seat's place among the E experts held, E where the expert
+    is held elsewhere; whether it is held), both [T, K]."""
+    local = gate_idx - offset
+    held = (local >= 0) & (local < e)
+    return torch.where(held, local, e), held
+
+
+def _held_seats(gate_idx: torch.Tensor, e: int, offset: int,
+                capacity: int) -> "Seats":
+    """:func:`_seats` over the E experts held: a seat routed to an expert
+    held elsewhere queues behind an E + 1-th expert of its own and is left
+    out as a dropped seat is (its slot the dummy row E * C), so the held
+    experts' seats and places are what they would be alone."""
+    local, held = _held(gate_idx, e, offset)
+    seats = _seats(local, e + 1, capacity)
+    keep = seats.keep & held.T.reshape(-1)
+    return seats._replace(keep=keep, slot=torch.where(keep, seats.slot,
+                                                      e * capacity))
+
+
+def _ragged_moe(p: dict, xt: torch.Tensor, top_k: int, route: dict,
+                offset: int = 0) -> tuple[torch.Tensor, MoEMetrics]:
     """:func:`moe_apply` on tokens xt [T, D] where every seat is kept: the
     same gates, seats and k-by-k combine, the experts over their own seats
-    (:func:`_ragged_experts`)."""
+    (:func:`_ragged_experts`). Where the layer holds a share of the
+    experts, the seats routed elsewhere sort after every held expert's and
+    are cut off: the held seats' count, read on the host (the route's one
+    sync), sizes the gather and the products, and the combine adds each
+    held seat's weighted row to its token in one ``index_add_``, with no
+    scatter back to seat order (at Kimi-Linear's 4,096-token chunk on an
+    H100 a layer takes 1.44-1.62 ms this way, 1.69-1.87 ms through a
+    zeroed seat-order buffer and the k-by-k sum). Its
+    atomics add a token's rows in no fixed order, so a share's bf16 prefill
+    may differ in the last bit between runs. Counts ``moe.rows``: the rows
+    the products compute."""
     t, d = xt.shape
     e = p["we_up"].shape[0]
+    share = e != p["router"].shape[1]
     with trace.span("moe.dispatch"):
-        probs, gate_vals, gate_idx = _gates(xt, p["router"], top_k,
-                                            renormalize)
+        probs, gate_vals, gate_idx = _gates(xt, p["router"], top_k, **route)
+        if share:
+            gate_idx, _ = _held(gate_idx, e, offset)
         flat_e = gate_idx.T.reshape(-1)  # [K*T], slot-major, as _seats'
         # every seat kept: _seats' f_e and dropped, without the queue places
-        counts = _seat_counts(flat_e, e)
-        f_e = counts.float() / float(top_k * t)
+        counts = _seat_counts(flat_e, e + 1 if share else e)
+        f_e = counts[:e].float() / float(top_k * t)
     with trace.span("moe.experts"):
-        ys = _ragged_experts(p, xt, flat_e, counts)  # [K*T, D]
+        n = int(counts[:e].sum()) if share else None
+        trace.count("moe.rows", top_k * t if n is None else n)
+        if n != 0:
+            order, y = _ragged_experts(p, xt, flat_e, counts[:e], n)
+        if not share:  # back in seat order, [K*T, D]
+            ys = torch.empty_like(y)
+            ys[order] = y
     with trace.span("moe.combine"):
-        w_k = gate_vals.T.to(xt.dtype)  # [K, T]
         out = torch.zeros((t, d), dtype=xt.dtype, device=xt.device)
-        for k in range(top_k):
-            out = out + ys[k * t:(k + 1) * t] * w_k[k][:, None]
+        if not share:
+            w_k = gate_vals.T.to(xt.dtype)  # [K, T]
+            for k in range(top_k):
+                out = out + ys[k * t:(k + 1) * t] * w_k[k][:, None]
+        elif n:
+            w = gate_vals.T.reshape(-1).to(xt.dtype)[order]
+            out.index_add_(0, order % t, y * w[:, None])
     out = _shared_experts(p, xt, out)
-    aux = e * torch.sum(f_e * probs.mean(0))
+    aux = e * torch.sum(f_e * _held_probs(probs, e, offset))
     return out, MoEMetrics(aux, torch.zeros((), device=xt.device))
 
 
@@ -217,22 +300,22 @@ def _seat_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def _ragged_experts(p: dict, xt: torch.Tensor, flat_e: torch.Tensor,
-                    counts: torch.Tensor) -> torch.Tensor:
-    """Every seat's expert output [K*T, D], seat-major (``k * T + t``), with
-    each expert run over its own seats only (``counts`` [E]: its seats):
-    the seats sorted by expert (stably), each projection one grouped
-    product over the experts' row groups (``torch._grouped_mm``, bf16; the
-    groups' ends stay on the device), then put back in seat order."""
+                    counts: torch.Tensor, n: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order [N], y [N, D]): the seats (``k * T + t``) sorted by expert,
+    stably, and each sorted seat's expert output, with each expert run over
+    its own seats only (``counts`` [E]: its seats): each projection one
+    grouped product over the experts' row groups (``torch._grouped_mm``,
+    bf16; the groups' ends stay on the device). ``n`` keeps the first n
+    sorted seats alone (those of the experts held); None keeps all K*T."""
     t = xt.shape[0]
-    order = torch.argsort(flat_e, stable=True)
+    order = torch.argsort(flat_e, stable=True)[:n]
     ends = counts.cumsum(0).to(torch.int32)  # each expert's seats' end
     xs = xt[order % t]  # seat k * T + t holds token t
     h = torch._grouped_mm(xs, p["we_up"], offs=ends)
     gate, up = h.chunk(2, dim=-1)
     y = torch._grouped_mm(F.silu(gate) * up, p["we_down"], offs=ends)
-    ys = torch.empty_like(y)
-    ys[order] = y
-    return ys
+    return order, y
 
 
 class Seats(NamedTuple):
@@ -247,14 +330,25 @@ class Seats(NamedTuple):
 
 
 def _gates(xt: torch.Tensor, router: torch.Tensor, top_k: int,
-           renormalize: bool = True):
+           renormalize: bool = True, score: str = "softmax",
+           bias: torch.Tensor | None = None, scale: float = 1.0):
     """(probs [T, E], gate weights [T, K] (renormalised over the k where
-    ``renormalize``), gate experts [T, K])."""
-    probs = torch.softmax(xt.float() @ router, dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1, sorted=True)
+    ``renormalize``, then times ``scale``), gate experts [T, K]). With
+    ``score`` "sigmoid" the scores are sigmoids and the k are chosen on
+    score + ``bias`` (weighted by the scores alone)."""
+    if score == "sigmoid":
+        probs = torch.sigmoid(xt.float() @ router)
+        pick = probs if bias is None else probs + bias
+        gate_idx = torch.topk(pick, top_k, dim=-1, sorted=True).indices
+        gate_vals = probs.gather(-1, gate_idx)
+    else:
+        probs = torch.softmax(xt.float() @ router, dim=-1)
+        gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1, sorted=True)
     if renormalize:
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(
             1e-9)
+    if scale != 1.0:
+        gate_vals = gate_vals * scale
     return probs, gate_vals, gate_idx
 
 

@@ -1,4 +1,5 @@
-"""Decoder-only LM: the dense, vlm, moe, ssm, hybrid_moe and mla families.
+"""Decoder-only LM: the dense, vlm, moe, ssm, hybrid_moe, mla and linear_mla
+families.
 
 Params keep the reference's pytree layout: a dict of tensors whose
 ``blocks`` subtree is stacked over layers (leading [L] axis), so the port's
@@ -38,6 +39,16 @@ the rest's a MoE of ``d_expert`` routed without renormalisation
 ``blocks`` (key ``mla``) and stack the two FFN kinds over their own layers
 (``dense``, ``moe``); its decode cache, a :class:`LatentCache`, holds one
 row of c and the roped key a token and layer.
+
+The linear_mla family (Kimi-Linear) has no JAX counterpart either. Its
+layers' mixers are Kimi Delta Attention (``models/layers/kda.py``) or
+latent attention without RoPE, as ``cfg.layer_types`` says ("kda" /
+"mla"), each stacked over its own layers (``params["kda"]``,
+``params["mla"]``); the FFNs as the mla family's, the MoE routed by
+sigmoid with a correction bias and a routed scale over every expert while
+holding ``cfg.experts_held`` of them. Its decode cache, a
+:class:`KDACache`, holds the latent layers' rows beside the KDA layers'
+f32 states and conv tails, advanced together by one step.
 """
 
 from __future__ import annotations
@@ -61,6 +72,8 @@ from repro_torch.dist.sharding import (
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (
     KVCache, Length, attn_apply, attn_params)
+from repro_torch.models.layers.kda import (
+    KDAState, kda_apply, kda_params, kda_state_zeros)
 from repro_torch.models.layers.mla import LatentCache, mla_apply, mla_params
 from repro_torch.models.layers.mlp import mlp_apply, mlp_params
 from repro_torch.models.layers.moe import moe_apply, moe_params
@@ -124,6 +137,9 @@ def init_block_params(generator: torch.Generator, cfg: ModelConfig,
         return {"ln1": norm_params(cfg.norm, cfg.d_model, device),
                 "mixer": mamba2_params(generator, cfg, dt, device)}
     p = {"ln1": norm_params(cfg.norm, cfg.d_model, device)}
+    if cfg.family == "linear_mla":  # mixers and FFNs stacked apart
+        p["ln2"] = norm_params(cfg.norm, cfg.d_model, device)
+        return p
     if cfg.family == "mla":  # the FFNs are stacked over their own layers
         p["mla"] = mla_params(generator, cfg, dt, device)
         p["ln2"] = norm_params(cfg.norm, cfg.d_model, device)
@@ -166,17 +182,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["attn"] = stack_blocks(
             lambda: _attn_params(generator, cfg, device),
             len(cfg.attn_layers), device)
-    if cfg.family == "mla":  # each FFN kind over its own layers
+    if cfg.family == "linear_mla":  # each mixer kind over its own layers
+        params["kda"] = stack_blocks(
+            lambda: kda_params(generator, cfg, dt, device),
+            len(cfg.kda_layers), device)
+        params["mla"] = stack_blocks(
+            lambda: mla_params(generator, cfg, dt, device),
+            len(cfg.latent_layers), device)
+    if cfg.family in ("mla", "linear_mla"):  # each FFN kind over its own
         if cfg.first_k_dense:
             params["dense"] = stack_blocks(
                 lambda: {"mlp": mlp_params(generator, cfg.d_model, cfg.d_ff,
                                            cfg.mlp, dt, device)},
                 cfg.first_k_dense, device)
         params["moe"] = stack_blocks(
-            lambda: moe_params(generator, cfg.d_model, cfg.n_experts,
+            lambda: moe_params(generator, cfg.d_model, cfg.n_experts_held,
                                cfg.d_expert, cfg.n_shared_experts, dt,
-                               device), cfg.n_layers - cfg.first_k_dense,
-            device)
+                               device, n_routed=cfg.n_experts,
+                               router_bias=cfg.moe_score == "sigmoid"),
+            cfg.n_layers - cfg.first_k_dense, device)
     params["final_norm"] = norm_params(cfg.norm, cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = draw((cfg.d_model, cfg.vocab_padded))
@@ -232,10 +256,11 @@ def params_from_jax(params_np: dict, device: "torch.device | str") -> dict:
 
 def layer_apply(cfg: ModelConfig, kind: str, p: dict, mixer: dict,
                 x: torch.Tensor, *, cache=None, positions=None):
-    """One decoder layer: norm -> the mixer (``kind`` "attention", "mamba"
-    or "mla", its params ``mixer``) -> residual, then, where the block
+    """One decoder layer: norm -> the mixer (``kind`` "attention", "mamba",
+    "mla" or "kda", its params ``mixer``) -> residual, then, where the block
     ``p`` holds an MLP or a MoE, norm -> that FFN -> residual. ``cache`` is
-    the mixer's ``KVCache``, ``SSMState`` or ``LatentCache``, or None.
+    the mixer's ``KVCache``, ``SSMState``, ``LatentCache`` or
+    ``KDAState``, or None.
     Returns (x, the mixer's new cache or state, aux): the MoE router's
     load-balance loss (an f32 scalar tensor), None for a block without a
     MoE. A ``DTensor`` residual stream is kept batch-sharded
@@ -245,6 +270,8 @@ def layer_apply(cfg: ModelConfig, kind: str, p: dict, mixer: dict,
         h, new = mamba2_apply(mixer, h, cfg, state=cache)
     elif kind == "mla":
         h, new = mla_apply(mixer, h, cfg, cache=cache, positions=positions)
+    elif kind == "kda":
+        h, new = kda_apply(mixer, h, cfg, state=cache)
     else:
         h, new = attn_apply(
             mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -263,7 +290,10 @@ def layer_apply(cfg: ModelConfig, kind: str, p: dict, mixer: dict,
                                capacity_factor=cfg.capacity_factor,
                                ep_sharding=cfg.moe_ep_sharding,
                                renormalize=cfg.moe_renormalize,
-                               ragged_tokens=cfg.moe_ragged_tokens)
+                               ragged_tokens=cfg.moe_ragged_tokens,
+                               score=cfg.moe_score,
+                               routed_scale=cfg.moe_routed_scale,
+                               expert_offset=cfg.expert_offset)
         aux = metrics.aux_loss
     elif "mlp" in p:
         h = mlp_apply(p["mlp"], apply_norm(cfg.norm, p["ln2"], x,
@@ -282,6 +312,8 @@ def _residual(cfg: ModelConfig, x: torch.Tensor,
 
 
 _IN_BLOCK = {"attention": "attn", "mamba": "mixer", "mla": "mla"}
+_STACKED = (("attention", "attn"), ("mamba", "mamba"), ("kda", "kda"),
+            ("mla", "mla"))
 
 
 def _layers(cfg: ModelConfig, params: dict):
@@ -291,22 +323,22 @@ def _layers(cfg: ModelConfig, params: dict):
     attention for the mla family). The reference's families and mla keep
     a layer's mixer in its block (``attn`` / ``mixer`` / ``mla``) and stack
     their caches over every layer, so the slot is the layer's index;
-    hybrid_moe stacks each mixer kind over its own layers
-    (``params["attn"]`` / ``params["mamba"]``), as its cache does, so the
-    slot is the layer's place among its kind's. Where the FFNs are stacked
-    apart (mla: ``params["dense"]`` over the leading layers, then
+    hybrid_moe and linear_mla stack each mixer kind over its own layers
+    (``params["attn"]`` / ``params["mamba"]``, ``params["kda"]`` /
+    ``params["mla"]``), as their caches do, so the slot is the layer's
+    place among its kind's. Where the FFNs are stacked apart (mla and
+    linear_mla: ``params["dense"]`` over the leading layers, then
     ``params["moe"]``), each layer's is added to its block."""
     kinds = cfg.layer_types or (
         "mamba" if cfg.is_attention_free
         else "mla" if cfg.family == "mla" else "attention",) * cfg.n_layers
     blocks = unstack(params["blocks"])
-    if cfg.family == "mla":
+    if cfg.family in ("mla", "linear_mla"):
         ffns = ([{"mlp": m["mlp"]} for m in unstack(params["dense"])]
                 if cfg.first_k_dense else []) + [
             {"moe": m} for m in unstack(params["moe"])]
         blocks = [{**blk, **ffn} for blk, ffn in zip(blocks, ffns)]
-    stacks = {kind: unstack(params[key])
-              for kind, key in (("attention", "attn"), ("mamba", "mamba"))
+    stacks = {kind: unstack(params[key]) for kind, key in _STACKED
               if params.get(key) is not None}
     for i, kind in enumerate(kinds):
         if kind in stacks:
@@ -327,7 +359,7 @@ def stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, caches,
                 positions):
     """Run the layers in order (:func:`_layers`). With a cache (a stacked
     ``KVCache``, ``SSMState`` or ``LatentCache``, or a
-    :class:`HybridCache`) each layer
+    :class:`HybridCache` or :class:`KDACache`) each layer
     runs on its slot of it, updated in place; without, each layer runs
     under :func:`make_remat`. Returns (x, the cache of the type given, its
     length advanced, aux): the sum of the layers' router losses, an f32
@@ -344,6 +376,11 @@ def stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, caches,
                 cfg, kind, p, mixer, x, cache=SSMState(
                     layer_at(caches.ssm, slot), layer_at(caches.conv, slot)))
             write_state(caches, slot, st)
+        elif kind == "kda":  # the kernels step the state in place
+            x, st, a = layer_apply(
+                cfg, kind, p, mixer, x, cache=KDAState(
+                    layer_at(caches.kda, slot), layer_at(caches.conv, slot)))
+            layer_at(caches.conv, slot).copy_(st.conv)
         elif kind == "mla":
             x, lc, a = layer_apply(
                 cfg, kind, p, mixer, x, cache=LatentCache(
@@ -476,14 +513,14 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     return logits_from_hidden(cfg, params, x), aux
 
 
-def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None
-               ) -> "KVCache | SSMState | HybridCache | LatentCache":
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None):
     """Stacked [L, ...] decode cache: for the dense family K/V with one
     length for every layer (they advance together), a Python int; for the
     ssm family the recurrent state (``s_max`` unused: it is O(1)); for the
     hybrid_moe family both, each over its own layers (:class:`HybridCache`);
     for the mla family the latent rows [L, B, S_max, r + dr]
-    (``LatentCache``)."""
+    (``LatentCache``); for the linear_mla family the latent layers' rows
+    beside the KDA layers' states and conv tails (:class:`KDACache`)."""
     device = default_device(device)
     dt = _dtype(cfg)
 
@@ -502,6 +539,14 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None
         return LatentCache(torch.zeros((cfg.n_layers, batch, s_max,
                                         cfg.mla_rows), dtype=dt,
                                        device=device), 0)
+    if cfg.family == "linear_mla":
+        n = len(cfg.kda_layers)
+        st = kda_state_zeros(cfg, batch, dt, device)
+        return KDACache(
+            torch.zeros((len(cfg.latent_layers), batch, s_max, cfg.mla_rows),
+                        dtype=dt, device=device), 0,
+            st.kda[None].repeat(n, 1, 1, 1, 1),
+            st.conv[None].repeat(n, 1, 1, 1))
     if cfg.family == "hybrid_moe":
         return HybridCache(*kv(len(cfg.attn_layers)),
                            *states(len(cfg.mamba_layers)))
@@ -580,11 +625,12 @@ class DecodeGraph:
     """A decode step captured once as a CUDA graph over one cache, and
     replayed: :func:`decode_step` takes it in the cache's place.
 
-    ``cache`` is a stacked ``KVCache``, :class:`HybridCache` or
-    ``LatentCache`` on the card with a [B] length tensor, whose tensors stay
-    the graph's inputs and outputs: each replay writes the step's K/V (or
-    latent rows, and Mamba2 state) into them in place, as the eager step
-    does, and copies the advanced length back
+    ``cache`` is a stacked ``KVCache``, :class:`HybridCache`,
+    ``LatentCache`` or :class:`KDACache` on the card with a [B] length
+    tensor, whose tensors stay the graph's inputs and outputs: each replay
+    writes the step's K/V (or latent rows, and Mamba2 or KDA state) into
+    them in place, as the eager step does, and copies the advanced length
+    back
     into the same length tensor, where the eager step returns a new one.
     The step is captured at the first :meth:`replay` (after at least one
     eager step has run its kernels at these shapes) with that call's params
@@ -595,12 +641,14 @@ class DecodeGraph:
     cache. Nothing in the step may wait for the host; capture errors on an
     unsafe call from this thread only (other threads may be moving
     transfers meanwhile). What the step counted while it was captured
-    (``counts``: the decode kernels' ``attn.decode`` or
-    ``attn.decode_latent``, a launch each) each replay counts again,
+    (``counts``: the decode kernels' ``attn.decode``,
+    ``attn.decode_latent`` or ``kda.step``, a launch each) each replay
+    counts again,
     where a profiler records (the spans inside the step do not fire: the
     host never runs them)."""
 
-    def __init__(self, cache: "KVCache | HybridCache | LatentCache"):
+    def __init__(self,
+                 cache: "KVCache | HybridCache | LatentCache | KDACache"):
         if not (isinstance(cache.length, torch.Tensor)
                 and cache.length.dim() == 1
                 and cache[0].device.type == "cuda"):
@@ -663,4 +711,17 @@ class HybridCache(NamedTuple):
     v: torch.Tensor
     length: Length
     ssm: torch.Tensor
+    conv: torch.Tensor
+
+
+class KDACache(NamedTuple):
+    """The linear_mla decode cache. ``kv`` [La, B, S_max, r + dr] and
+    ``length`` as a stacked ``LatentCache``'s, over the latent layers;
+    ``kda`` [Lk, B, H, d, d] (f32) and ``conv`` [Lk, B, W-1, 3 H d] as a
+    stacked ``KDAState``'s, over the KDA layers. Every layer takes the same
+    tokens, so one length serves them all."""
+
+    kv: torch.Tensor
+    length: Length
+    kda: torch.Tensor
     conv: torch.Tensor

@@ -16,8 +16,10 @@ overlaps the host's slot bookkeeping), with per-transfer stats in
 
 Serves the KV-cache families (dense / moe / vlm), hybrid_moe, whose
 cache holds its attention layers' K/V beside its Mamba2 layers' state
-(``models.lm.HybridCache``), and mla, whose cache holds one latent row a
-token and layer (``models.layers.mla.LatentCache``). The port runs the
+(``models.lm.HybridCache``), mla, whose cache holds one latent row a
+token and layer (``models.layers.mla.LatentCache``), and linear_mla, whose
+cache holds its latent layers' rows beside its KDA layers' states and conv
+tails (``models.lm.KDACache``). The port runs the
 model under ``torch.no_grad()`` (no ``jit``) and differs from the
 reference in two ways:
 
@@ -27,7 +29,7 @@ reference in two ways:
 - ``_splice_slot`` copies a prefilled batch-1 cache into slot ``slot`` in
   place, along the stacked cache's explicit batch axis (1), where the
   reference guesses the axis from the shapes (the reference has no
-  hybrid_moe or mla family).
+  hybrid_moe, mla or linear_mla family).
 
 On the card, after one eager decode step, the step is captured once as a
 CUDA graph (``models.lm.DecodeGraph``) and replayed every step after:
@@ -48,9 +50,10 @@ request ``serve.prefill``, ``serve.first_token`` and ``serve.splice``
 with its ``rid``), ``serve.decode``, ``serve.token_rx`` (the RX
 submission until the last ticket returns) and ``serve.retire``; a decode
 replayed from the graph ticks the ``serve.graph_replay`` counter; with a
-latent cache, each decode adds the rows the latent decode kernel reads to
-``attn.latent_rows`` (the active slots' live rows times the latent layers,
-from the host's own lengths, with no read from the device); each request
+latent cache (a ``LatentCache`` or ``KDACache``), each decode adds the
+rows the latent decode kernel reads to ``attn.latent_rows`` (the active
+slots' live rows times the latent layers, from the host's own lengths,
+with no read from the device); each request
 marks ``serve.queue`` (submit to its slot) and ``serve.request``
 (submit to done). See :mod:`repro_torch.utils.trace`.
 """
@@ -82,7 +85,7 @@ from repro_torch.core.transfer import (
 from repro_torch.models.api import Model
 from repro_torch.models.layers.attention import KVCache
 from repro_torch.models.layers.mla import LatentCache
-from repro_torch.models.lm import DecodeGraph, HybridCache
+from repro_torch.models.lm import DecodeGraph, HybridCache, KDACache
 from repro_torch.serve.engine import transfer_fault_summary
 from repro_torch.utils import trace
 
@@ -102,12 +105,13 @@ class Request:
     t_submit_ns: int = field(default=0, repr=False, compare=False)
 
 
-def _splice_slot(batch_cache: "KVCache | HybridCache | LatentCache",
-                 one_cache: "KVCache | HybridCache | LatentCache",
+def _splice_slot(batch_cache: "KVCache | HybridCache | LatentCache | KDACache",
+                 one_cache: "KVCache | HybridCache | LatentCache | KDACache",
                  slot: int) -> None:
     """Copy a batch-1 stacked cache ([L, 1, S_max, ...], one int length)
     into slot ``slot`` of the batched one ([L, B, S_max, ...], [B]
-    lengths), in place; a ``HybridCache``'s SSM state and conv tail too.
+    lengths), in place; a ``HybridCache``'s SSM state and conv tail, a
+    ``KDACache``'s KDA states and conv tails too.
     Each row is copied whole: an idle slot keeps decoding, so nothing of
     the slot's last request may be left in it."""
     for name in batch_cache._fields:
@@ -135,14 +139,15 @@ class ContinuousBatchingEngine:
                  qos: QosSpec | None = None,
                  admission: AdmissionPolicy | None = None):
         if model.cfg.family not in ("dense", "moe", "vlm", "hybrid_moe",
-                                    "mla"):
+                                    "mla", "linear_mla"):
             # the ssm and hybrid states carry no per-slot length, and the
             # audio family's dict cache cannot be spliced (the reference
             # raises for the first two and cannot splice the third)
             raise NotImplementedError(
                 "continuous batching currently supports KV-cache families "
                 "(dense / moe / vlm / hybrid_moe, whose cache holds its "
-                "Mamba2 state too / mla, whose cache is latent), not "
+                "Mamba2 state too / mla, whose cache is latent / "
+                "linear_mla, latent rows beside KDA states), not "
                 f"{model.cfg.family!r}")
         self.model = model
         self.params = params
@@ -287,7 +292,8 @@ class ContinuousBatchingEngine:
         with trace.span("serve.decode"):
             if self._graph is not None:
                 trace.count("serve.graph_replay")
-            if isinstance(self.cache, LatentCache) and trace.enabled():
+            if (isinstance(self.cache, (LatentCache, KDACache))
+                    and trace.enabled()):
                 # each active slot's live rows, a latent layer each
                 trace.count("attn.latent_rows", int(np.minimum(
                     self.lengths[active], self.max_seq).sum())

@@ -76,6 +76,11 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_plain,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.kda.kernel import (
+    KDA, kda_chunk_call, kda_out_call, kda_prep_call, kda_step_call)
+from repro_torch.kernels.kda.ref import (
+    kda_chunk_ref, kda_out_ref, kda_prep_ref, kda_recurrent_ref,
+    kda_step_ref)
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.kernel import SSD
 from repro_torch.kernels.ssd_scan.ops import (
@@ -1439,6 +1444,329 @@ def test_graph_replayed_dsv2lite_decode_is_bitwise_eager(dev):
     assert counts.get("attn.decode_latent") == 2 * cfg.n_layers
     assert not counts.get("attn.decode")
     assert counts.get("attn.latent_rows", 0) > 0
+    assert [g for g, _, _ in seen] == [False] + [True] * (len(seen) - 1)
+    assert len(seen) >= 8 and all(lg and c for _, lg, c in seen), seen
+
+
+# ---- Kimi-Linear: KDA, 32-head latent decode, the experts' share ----------
+
+def _kda_inputs(dev, b, s, h=32, d=128, seed=0):
+    """KDA's kernel inputs at Kimi-Linear's widths, as the mixer makes
+    them: q, k L2-normalised (q times d^-1/2) and v in bf16 (v a view of a
+    wider row, as the mixer's conv output), a log decay per channel in
+    [-6, 0] (a few channels decaying fast), beta in (0, 1), a nonzero
+    state."""
+    g = torch.Generator().manual_seed(seed)
+    q = F.normalize(torch.randn((b, s, h, d), generator=g), dim=-1) \
+        * d ** -0.5
+    k = F.normalize(torch.randn((b, s, h, d), generator=g), dim=-1)
+    v = torch.randn((b, s, 3, h, d), generator=g)
+    dec = -torch.rand((b, s, h, d), generator=g) ** 4 * 6.0
+    beta = torch.rand((b, s, h), generator=g)
+    st = torch.randn((b, h, d, d), generator=g) * 0.3
+    bf = torch.bfloat16
+    return (q.to(dev, bf), k.to(dev, bf), v.to(dev, bf)[:, :, 2],
+            dec.to(dev), beta.to(dev), st.to(dev))
+
+
+def _close(got, want, rms_frac, rel):
+    got, want = got.float(), want.float()
+    atol = rms_frac * want.pow(2).mean().sqrt()
+    diff = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((diff <= atol + rel * want.abs()).all()), float(diff.max())
+
+
+# a 4,096-token prefill chunk, a chunk past 4,096 (the last one shorter), a
+# few chunks over two sequences, the chunk's edges and one token
+@pytest.mark.parametrize("b,s", [(1, 4096), (1, 1000), (2, 200), (1, 64),
+                                 (1, 65), (1, 63), (1, 1)])
+def test_kda_chunk_kernel_matches_plain(dev, b, s):
+    """The chunked prefill at Kimi-Linear's widths (32 heads of 128) from
+    a nonzero state: o within 1% of its RMS plus bf16's rounding (the
+    kernel and the plain chunkwise version compute the same f32 sums in
+    another order and round o to bf16 once each), the final state within
+    1e-3 of its RMS; one entry call; the same on the token-by-token
+    recurrence (to 64 tokens, where it is quick); two calls bitwise."""
+    q, k, v, g, beta, st = _kda_inputs(dev, b, s, seed=s)
+    want_st = st.clone()
+    want = kda_chunk_ref(q, k, v, g, beta, want_st)
+    got_st = st.clone()
+    before = KDA.launches["kda_chunk"]
+    got = kda_chunk_call(q, k, v, g, beta, got_st)
+    assert KDA.launches["kda_chunk"] - before == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, 32, 128)
+    _close(got, want, 0.01, 8e-3)
+    _close(got_st, want_st, 1e-3, 1e-3)
+    if s <= 65:
+        rec_st = st.clone()
+        rec = kda_recurrent_ref(q, k, v, g, beta, rec_st)
+        _close(got, rec, 0.01, 8e-3)
+        _close(got_st, rec_st, 1e-3, 1e-3)
+    again = st.clone()
+    assert torch.equal(got, kda_chunk_call(q, k, v, g, beta, again))
+    assert torch.equal(again, got_st)
+
+
+def test_kda_step_kernel_matches_plain(dev):
+    """The decode step over 64 slots at Kimi-Linear's widths, every slot
+    stepped (an idle one too: its state stays finite and its o is
+    computed like any other, and a splice later overwrites both), in
+    place: o within bf16's rounding and the new state within 1e-5 of its
+    RMS of the plain version; one launch; a view of a cache's layer taken
+    in place."""
+    q, k, v, g, beta, _ = _kda_inputs(dev, 64, 1, seed=7)
+    states = torch.randn((2, 64, 32, 128, 128), device=dev) * 0.3
+    st = states[1]  # a layer of a stacked cache
+    want_st = st.clone()
+    want = kda_step_ref(q[:, 0], k[:, 0], v[:, 0], g[:, 0], beta[:, 0],
+                        want_st)
+    before = KDA.launches["kda_step"]
+    got = kda_step_call(q[:, 0], k[:, 0], v[:, 0], g[:, 0], beta[:, 0], st)
+    assert KDA.launches["kda_step"] - before == 1
+    _close(got, want, 1e-3, 8e-3)
+    _close(states[1], want_st, 1e-5, 1e-5)
+    assert torch.isfinite(states).all()
+
+
+# a prefill chunk with the conv's tail, one with none, a decode step of
+# 64 slots
+@pytest.mark.parametrize("b,s,tail", [(1, 300, True), (2, 70, False),
+                                      (64, 1, True)])
+def test_kda_prep_and_out_kernels_match_plain(dev, b, s, tail):
+    """The layer's work around the delta rule at Kimi-Linear's widths
+    (32 heads of 128, convs of 4), one launch each: q, k, v, g and beta of
+    the prologue, and the gated output norm, within bf16's rounding of the
+    plain versions (both sum in f32, in another order, and round q, k, v
+    and the output to bf16 once: 1% of the RMS and 0.8% of the value; g
+    and beta f32 to 1e-5 of their scale)."""
+    h, d = 32, 128
+    g = torch.Generator().manual_seed(s + b)
+    bf = torch.bfloat16
+
+    def rnd(*shape, sd=1.0, dt=bf):
+        return (torch.randn(shape, generator=g) * sd).to(dev, dt)
+
+    qkv = rnd(b, s, 3 * h * d)
+    conv_w = rnd(4, 3 * h * d, sd=0.5)
+    t = rnd(b, 3, 3 * h * d) if tail else None
+    f, b_raw = rnd(b, s, h * d), rnd(b, s, h)
+    dt_bias = rnd(h * d, sd=2.0, dt=torch.float32) - 4.0
+    a_log = torch.log(torch.linspace(1.0, 16.0, h)).to(dev)
+    want = kda_prep_ref(qkv, conv_w, t, f, dt_bias, a_log, b_raw, d)
+    before = KDA.launches["kda_prep"]
+    got = kda_prep_call(qkv, conv_w, t, f, dt_bias, a_log, b_raw, d)
+    assert KDA.launches["kda_prep"] - before == 1
+    for name, x, y in zip("qkvgb", got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        _close(x, y, 1e-5 if name in "gb" else 0.01, 1e-5 if name in "gb"
+               else 8e-3)
+    o = rnd(b, s, h, d, sd=0.1)
+    g_raw, g_bias = rnd(b, s, h * d), rnd(h * d, dt=torch.float32)
+    o_norm = 1.0 + rnd(d, sd=0.1, dt=torch.float32)
+    want = kda_out_ref(o, g_raw, g_bias, o_norm, 1e-5)
+    before = KDA.launches["kda_out"]
+    got = kda_out_call(o, g_raw, g_bias, o_norm, 1e-5)
+    assert KDA.launches["kda_out"] - before == 1
+    _close(got, want, 1e-3, 8e-3)
+
+
+@pytest.mark.parametrize("b,s_max,median,length", [
+    (64, 40960, 14000, "slots"),  # kimilinear.agent's decode
+    (5, 700, 0, "int"),
+])
+def test_mla_decode_kernel_at_32_heads_matches_plain(dev, b, s_max, median,
+                                                     length):
+    """The latent kernel at Kimi-Linear's 32 heads (one split launch and
+    one merge launch a call), within flash's bf16 rule of the plain
+    version, ragged slot lengths with an empty, a full and an idle slot;
+    each head's output bitwise what the 16-head launch gives for the same
+    16 heads (both tiles read the same rows; the heads' arithmetic is the
+    16-head kernel's)."""
+    g = torch.Generator().manual_seed(b)
+    q = torch.randn((b, 32, 576), generator=g).to(dev, torch.bfloat16)
+    rows = torch.randn((b, s_max, 576), generator=g).to(dev, torch.bfloat16)
+    n = (_decode_lengths(b, s_max, median, s_max).to(dev)
+         if length == "slots" else s_max // 3)
+    scale = 1 / math.sqrt(192)
+    before = MLA.launches["mla_decode"]
+    got = mla_decode_bsd(q, rows, n, scale=scale)
+    assert MLA.launches["mla_decode"] - before == 1
+    assert got.shape == (b, 32, 512)
+    ref = mla_decode_ref(q, rows, n, scale=scale, value_dim=512).float()
+    atol = 0.05 * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    assert bool(((got.float() - ref).abs() <= atol + 2e-2 * ref.abs()).all())
+    for half in (slice(0, 16), slice(16, 32)):
+        one = mla_decode_bsd(q[:, half].contiguous(), rows, n, scale=scale)
+        assert torch.equal(one, got[:, half])
+
+
+def _kimi_lm(widths="kernel"):
+    """Kimi-Linear's smoke LM in bf16; at the kernels' widths its KDA heads
+    are 128 wide and its latent attention has 32 heads of c 512, k^R 64,
+    values of 128."""
+    cfg = smoke_config("kimi-linear-48b-a3b-instruct").replace(
+        dtype="bfloat16")
+    if widths == "kernel":
+        cfg = cfg.replace(kda_head_dim=128, kda_heads=2, n_heads=32,
+                          n_kv_heads=32, kv_lora_rank=512,
+                          qk_nope_head_dim=128, qk_rope_head_dim=64,
+                          v_head_dim=128)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    return cfg, model, params
+
+
+def test_kimi_linear_decode_steps_take_the_kernels_on_card(dev):
+    """Eager decode steps of the smoke Kimi-Linear at the kernels' widths
+    launch the KDA step kernel once a KDA layer and the latent kernel once
+    a latent layer a step, after a prefill through the chunked kernel (two
+    launches of one entry a KDA layer), and give the CPU's logits (the
+    plain versions) within 5% of each row's RMS: bf16 products and the
+    kernels' order of sums move a row by a few percent after five layers
+    and their MoE, where a wrong state moves it by tens of percent."""
+    cfg, model, params = _kimi_lm()
+    n_kda = len(cfg.kda_layers)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (1, 40)).astype(np.int32))
+    out = {}
+    for where in ("cpu", dev):
+        ps = _tree_to(params, where)
+        before = dict(KDA.launches)
+        with torch.no_grad():
+            logits, cache = model.prefill(ps, {"tokens": toks[:, :37].to(
+                where)}, 48)
+            rows = [logits.float().cpu()]
+            lat = MLA.launches["mla_decode"]
+            for t in range(37, 40):
+                logits, cache = model.decode(ps, toks[:, t:t + 1].to(where),
+                                             cache)
+                rows.append(logits.float().cpu())
+        out[str(where)] = torch.cat(rows, 1)
+        if where != "cpu":
+            # 37 tokens over prefill chunks of 16: three calls a KDA layer
+            assert KDA.launches["kda_chunk"] - before["kda_chunk"] == \
+                3 * n_kda
+            assert KDA.launches["kda_step"] - before["kda_step"] == 3 * n_kda
+            # the prologue and the gated norm, once a call each
+            assert KDA.launches["kda_prep"] - before["kda_prep"] == 6 * n_kda
+            assert KDA.launches["kda_out"] - before["kda_out"] == 6 * n_kda
+            assert MLA.launches["mla_decode"] - lat == \
+                3 * len(cfg.latent_layers)
+    want, got = out["cpu"], out[str(dev)]
+    err = (got - want).pow(2).mean(-1).sqrt() / want.pow(2).mean(-1).sqrt()
+    assert bool((err <= 0.05).all()), err
+
+
+def test_kda_off_the_kernels_raises_on_card(dev):
+    """On the card KDA takes its kernels or raises: the smoke config's own
+    head width (16) raises ``ValueError`` in a prefill rather than fall
+    back to the plain version, which only CPU tensors take."""
+    cfg, model, params = _kimi_lm("smoke")
+    ps = _tree_to(params, dev)
+    tok = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="KDA kernels"), torch.no_grad():
+        model.prefill(ps, {"tokens": tok}, 16)
+
+
+def test_expert_share_ragged_matches_padded_on_card(dev):
+    """Kimi-Linear's MoE layer as one card's share (64 of 256 experts,
+    sigmoid top-8 on score + bias, renormalised, times 2.446, a shared
+    expert) at its published widths on a 4,096-token chunk in bf16: the
+    grouped route (seats held elsewhere sorted past the last group and cut
+    off) gives the padded buffer's output within 1% of each row's RMS,
+    waits on the host once (the held seats' count, which sizes the
+    products), and counts the held seats' rows against every seat the
+    router fills."""
+    import warnings
+
+    from repro_torch.models.layers import moe
+
+    g = torch.Generator(dev).manual_seed(12)
+    p = moe.moe_params(g, 2304, 64, 1024, 1, torch.bfloat16, dev,
+                       n_routed=256, router_bias=True)
+    x = torch.randn((1, 4096, 2304), generator=g, device=dev).to(
+        torch.bfloat16)
+    kw = dict(top_k=8, capacity_factor=64 / 8, renormalize=True,
+              score="sigmoid", routed_scale=2.446, expert_offset=64)
+    with torch.no_grad():
+        want, _ = moe.moe_apply(p, x, **kw)
+        moe.moe_apply(p, x, ragged_tokens=1, **kw)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with trace.tally() as counts, warnings.catch_warnings(
+                    record=True) as syncs:
+                warnings.simplefilter("always")
+                got, _ = moe.moe_apply(p, x, ragged_tokens=1, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert len([w for w in syncs if "synchroniz" in str(w.message)]) == 1, [
+        str(w.message) for w in syncs]
+    idx = moe._gates(x[0], p["router"], 8, score="sigmoid",
+                     bias=p["router_bias"])[2]
+    held = int(((idx >= 64) & (idx < 128)).sum())
+    assert 0 < held < 8 * 4096
+    assert counts == {"moe.rows": held, "moe.seats": 8 * 4096}
+    want, got = want.float(), got.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).pow(2).mean(-1).sqrt() / want.pow(2).mean(-1).sqrt()
+    assert bool((err <= 0.01).all()), float(err.max())
+
+
+def test_graph_replayed_kimi_linear_decode_is_bitwise_eager(dev):
+    """Kimi-Linear at every published width (27 layers, 20 KDA and 7
+    latent, 64 of 256 experts held: 13.8B parameters in bf16) served on 32
+    slots: each decode step, replayed from the graph the engine captures
+    after its first step, gives bitwise the logits, latent rows, KDA
+    states, conv tails and length of an eager decode of the same inputs,
+    over every step of 40 requests (admissions splice into the graph's
+    cache after the capture); a replay ticks ``kda.step`` once a KDA layer
+    and ``attn.decode_latent`` once a latent layer (the profiled step's
+    eager twin as often again), and ``attn.latent_rows`` counts the latent
+    layers alone."""
+    cfg = get_config("kimi-linear-48b-a3b-instruct")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    seen = []  # (graphed, logits equal, cache equal)
+
+    def decode(ps, token, cache):
+        graphed = isinstance(cache, lm.DecodeGraph)
+        static = cache.cache if graphed else cache
+        tok0, cache0 = token.clone(), _snapshot(static)
+        logits, new = model.decode(ps, token, cache)
+        want, want_cache = model.decode(ps, tok0, cache0)
+        seen.append((graphed, torch.equal(logits, want), all(
+            torch.equal(getattr(new, f), getattr(want_cache, f))
+            for f in new._fields)))
+        return logits, new
+
+    rng = np.random.default_rng(6)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(
+        np.int32), max_new_tokens=int(new)) for i, (n, new) in enumerate(
+            zip(rng.integers(8, 40, 40), rng.integers(2, 8, 40)))]
+    with _private_engine(dataclasses.replace(model, decode=decode), params,
+                         n_slots=32, max_seq=64) as eng:
+        for r in reqs:
+            assert eng.submit(r).admitted
+        eng.step()
+        assert isinstance(eng._graph, lm.DecodeGraph)
+        eng.step()  # the capture
+        trace.enabled()  # seen off: the profiled step's records start afresh
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            eng.step()
+            counts = trace.counters()
+            active = sum(r is not None for r in eng.slots)
+            lengths = eng.lengths.copy()
+        done = eng.run_to_completion()
+    assert sorted(r.rid for r in done) == list(range(40))
+    assert counts.get("serve.graph_replay") == 1
+    assert counts.get("kda.step") == 2 * len(cfg.kda_layers)
+    assert counts.get("attn.decode_latent") == 2 * len(cfg.latent_layers)
+    assert counts.get("attn.latent_rows", 0) > 0
+    assert counts["attn.latent_rows"] % len(cfg.latent_layers) == 0
+    assert active and lengths.max() < 64
     assert [g for g, _, _ in seen] == [False] + [True] * (len(seen) - 1)
     assert len(seen) >= 8 and all(lg and c for _, lg, c in seen), seen
 

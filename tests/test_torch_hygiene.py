@@ -44,7 +44,10 @@ SLICE_MODULES = [
     "repro_torch.kernels.decode_attention.kernel",
     "repro_torch.kernels.decode_attention.ops",
     "repro_torch.models.layers.attention", "repro_torch.models.layers.mla",
-    "repro_torch.configs.deepseek_v2_lite", "repro_torch.models.lm",
+    "repro_torch.configs.deepseek_v2_lite", "repro_torch.kernels.kda",
+    "repro_torch.kernels.kda.ref", "repro_torch.kernels.kda.kernel",
+    "repro_torch.kernels.kda.ops", "repro_torch.models.layers.kda",
+    "repro_torch.configs.kimi_linear_48b_a3b", "repro_torch.models.lm",
     "repro_torch.models.api", "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.launch.serve", "repro_torch.kernels.ssd_scan",
     "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.kernel",
